@@ -1,0 +1,96 @@
+"""Guards of the port: it imports no JAX and nothing of ``valle_tpu``, its
+entry points refuse to run without CUDA unless asked for the CPU, its kernel
+modules import without ``nvcc``, and ``chip_smoke.py`` fails fast here."""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import sys
+import valle_tpu_torch
+import valle_tpu_torch.models, valle_tpu_torch.models.valle, valle_tpu_torch.sample
+import valle_tpu_torch.nn.layers, valle_tpu_torch.ops.attention_impl
+import valle_tpu_torch.ops.ragged_decode, valle_tpu_torch.ops.fused_attention
+import valle_tpu_torch.ops.cuda_build, valle_tpu_torch.utils.bridge
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "valle_tpu") or m.startswith(("jax.", "flax.", "valle_tpu.")))
+print(",".join(bad))
+"""
+
+
+def _run(code_or_args, cwd=ROOT, timeout=120):
+    args = [sys.executable, "-c", code_or_args] if isinstance(code_or_args, str) else code_or_args
+    return subprocess.run(args, cwd=cwd, capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_no_jax_and_no_valle_tpu():
+    res = _run(_IMPORT_ALL)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"port pulled in: {res.stdout.strip()}"
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    for line in src.splitlines():
+        stripped = line.strip()
+        if stripped.startswith(("import ", "from ")):
+            mod = stripped.split()[1]
+            assert mod.split(".")[0] not in ("jax", "flax"), line
+            assert mod != "valle_tpu" and not mod.startswith("valle_tpu."), line
+
+
+def test_chip_smoke_fails_fast_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+    res = _run([sys.executable, "chip_smoke.py"], timeout=60)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run([sys.executable, "chip_smoke.py"], cwd=tmp_path, timeout=60)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_entry_points_raise_without_cuda_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.utils.bridge import state_dict_from_jax
+
+    cfg = ModelConfig(decoder_dim=32, nhead=2, num_layers=1, num_quantizers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_dict_from_jax({}, cfg)
+    assert next(get_model(cfg, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_kernel_wrappers_use_plain_versions_on_cpu():
+    from valle_tpu_torch.ops.fused_attention import fused_prefix_attention
+    from valle_tpu_torch.ops.ragged_decode import ragged_decode_attention
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 5, 2, 16, generator=g)
+    k = torch.randn(2, 5, 2, 16, generator=g)
+    before = (fused_prefix_attention.launches, ragged_decode_attention.launches)
+    fused_prefix_attention(q, k, k, None, prefix_s=2)
+    ragged_decode_attention(q[:, :1], k, k, torch.tensor([5, 0], dtype=torch.int32))
+    assert (fused_prefix_attention.launches, ragged_decode_attention.launches) == before
+
+
+def test_cuda_build_needs_no_nvcc_at_import():
+    from valle_tpu_torch.ops import cuda_build
+
+    assert (cuda_build.CSRC / "ragged_decode.cu").exists()
+    assert (cuda_build.CSRC / "prefix_attention.cu").exists()
+    assert cuda_build.BUILD_DIR.parts[-2:] == ("build", "valle_tpu_torch")

@@ -1,0 +1,259 @@
+// Prefix-LM / dense attention forward for Hopper (sm_90a), dropout 0.
+//
+// Replaces: valle_tpu/ops/fused_attention.py::_fwd_kernel (driven by
+// _pallas_fwd, pallas_call at fused_attention.py:233, wrapper
+// fused_prefix_attention) and, on the port's attn_impl="flash" route, the
+// library flash kernel behind valle_tpu/ops/flash_attention.py for
+// key-padding and prefix-LM masks.
+//
+// Computes out = softmax(q k^T / sqrt(Dh) + kv_bias[col], structural mask) v
+// for q (B, Tq, H, Dh), k/v (B, Tk, H, Dh), f32 or bf16, exact f32 softmax.
+// The structural mask is built from row/column indices, never stored:
+//   prefix_s = s > 0: a row < s sees columns < s; a row >= s sees columns < s
+//                     plus columns <= row (text prefix, causal audio);
+//   prefix_s = 0:     causal;
+//   prefix_s < 0:     dense, key padding only (Tq may differ from Tk).
+// A structurally masked column is excluded; the key bias (-1e9 at padding)
+// is added.  Every row sees at least one column structurally, so no row is
+// empty.
+//
+// What bounds it on the H100: operations.  At the generation shapes (prefill
+// B=8, T~300; NAR passes T~600-900) the work is ~4 B H Tq Tk_eff Dh flops
+// against 67 TFLOP/s of f32 CUDA-core FMA (989 bf16 / 495 TF32 on the tensor
+// cores); the bytes are a few MB.
+//
+// What the design does about it: one block of 256 threads per (64-row q
+// tile, head, batch).  The block walks 64-column K/V tiles staged in shared
+// memory (K transposed so the score micro-kernel reads conflict-free) with
+// an online softmax, and stops at the tile's structural frontier
+// max(prefix_s, tile_end), which skips the masked upper triangle as the TPU
+// kernel's _windows clip did.  Each thread owns a 4x4 block of scores and a
+// 4 x Dh/16 block of the output, so every shared-memory load feeds 4 FMAs.
+// The ragged edges of Tq and Tk are masked in the kernel (no padding to 128
+// as the TPU wrapper does).  Later work: tensor cores (wgmma) and TMA.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int BQ = 64;  // q rows per block
+constexpr int BK = 64;  // key columns per tile
+constexpr int LD = 68;  // padded leading dimension (keeps float4 rows aligned)
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_float(float x, float* p) { *p = x; }
+__device__ __forceinline__ void from_float(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
+
+template <int DH>
+constexpr size_t smem_floats() {
+  return (size_t)DH * LD * 2 + (size_t)BK * DH + (size_t)BK * LD + BK + BQ * 2;
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads) prefix_attention_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, T* __restrict__ out,
+    int Tq, int Tk, int H, int prefix_s, float scale) {
+  constexpr int DJ = DH / 16;  // output dims per thread
+  extern __shared__ __align__(16) float smem[];
+  float* sQt = smem;            // [DH][LD]  q^T, pre-scaled
+  float* sKt = sQt + DH * LD;     // [DH][LD]  k^T
+  float* sV = sKt + DH * LD;      // [BK][DH]
+  float* sP = sV + BK * DH;       // [BK][LD]  scores / probs, column-major
+  float* sBias = sP + BK * LD;    // [BK]
+  float* sAlpha = sBias + BK;     // [BQ]
+  float* sL = sAlpha + BQ;        // [BQ]
+
+  const int r0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int rb = tid >> 2, pb = tid & 3;  // softmax phase: row, quarter
+
+  int kend = Tk;  // structural frontier of this q tile
+  if (prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + BQ));
+
+  const T* qb = q + (long long)b * q_sb + (long long)h * DH;
+  const T* kb = k + (long long)b * k_sb + (long long)h * DH;
+  const T* vb = v + (long long)b * v_sb + (long long)h * DH;
+  for (int i = tid; i < BQ * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH;
+    float x = 0.f;
+    if (r0 + r < Tq) x = to_float(qb[(long long)(r0 + r) * q_st + d]) * scale;
+    sQt[d * LD + r] = x;
+  }
+
+  float acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;  // row rb's stats (same in its 4 lanes)
+
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();  // the previous tile's sP / sV readers are done
+    for (int i = tid; i < BK * DH; i += kThreads) {
+      const int c = i / DH, d = i % DH;
+      float kx = 0.f, vx = 0.f;
+      if (k0 + c < kend) {
+        kx = to_float(kb[(long long)(k0 + c) * k_st + d]);
+        vx = to_float(vb[(long long)(k0 + c) * v_st + d]);
+      }
+      sKt[d * LD + c] = kx;
+      sV[c * DH + d] = vx;
+    }
+    if (tid < BK)
+      sBias[tid] = (kv_bias != nullptr && k0 + tid < kend) ? kv_bias[(long long)b * Tk + k0 + tid] : 0.f;
+    __syncthreads();
+
+    // Scores: rows ty*4 + i, columns tx + 16 j.
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(&sQt[d * LD + ty * 4]);
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+      float kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = sKt[d * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cl = tx + 16 * j, c = k0 + cl;
+      float4 w;
+      float* wp = reinterpret_cast<float*>(&w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + ty * 4 + i;
+        const bool ok = c < kend && (prefix_s < 0 || c < prefix_s || (r >= prefix_s && c <= r));
+        wp[i] = ok ? s[i][j] + sBias[cl] : -INFINITY;
+      }
+      *reinterpret_cast<float4*>(&sP[cl * LD + ty * 4]) = w;
+    }
+    __syncthreads();
+
+    // Online softmax: 4 lanes per row, each over 16 columns.
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int kk = 0; kk < BK / 4; ++kk) tmax = fmaxf(tmax, sP[(pb + 4 * kk) * LD + rb]);
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m_run, tmax);
+    const float alpha = (m_new == -INFINITY) ? 1.f : expf(m_run - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 4; ++kk) {
+      float* sp = &sP[(pb + 4 * kk) * LD + rb];
+      const float x = *sp;
+      const float p = (x == -INFINITY) ? 0.f : expf(x - m_new);
+      *sp = p;
+      psum += p;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l_run = l_run * alpha + psum;
+    m_run = m_new;
+    if (pb == 0) sAlpha[rb] = alpha;
+    __syncthreads();
+
+    // Output: rows ty*4 + i, dims tx + 16 j.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = sAlpha[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= a;
+    }
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      const float4 pv = *reinterpret_cast<const float4*>(&sP[c * LD + ty * 4]);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+      float vv[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * DH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pa[i], vv[j], acc[i][j]);
+    }
+  }
+
+  if (pb == 0) sL[rb] = l_run;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= Tq) continue;
+    const float inv = 1.f / sL[ty * 4 + i];
+    T* o = out + (((long long)b * Tq + r) * H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) from_float(acc[i][j] * inv, &o[tx + 16 * j]);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_typed(const void* q, long long q_sb, long long q_st, const void* k,
+                         long long k_sb, long long k_st, const void* v, long long v_sb,
+                         long long v_st, const float* kv_bias, void* out, int B, int Tq,
+                         int Tk, int H, int prefix_s, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats<DH>();
+  auto kern = prefix_attention_kernel<T, DH>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k), k_sb, k_st,
+      static_cast<const T*>(v), v_sb, v_st, kv_bias, static_cast<T*>(out), Tq, Tk, H,
+      prefix_s, 1.f / sqrtf((float)DH));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dh(int Dh, const void* q, long long q_sb, long long q_st, const void* k,
+                      long long k_sb, long long k_st, const void* v, long long v_sb,
+                      long long v_st, const float* kv_bias, void* out, int B, int Tq,
+                      int Tk, int H, int prefix_s, cudaStream_t stream) {
+  switch (Dh) {
+    case 16: return launch_typed<T, 16>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
+    case 32: return launch_typed<T, 32>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
+    case 64: return launch_typed<T, 64>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
+    case 128: return launch_typed<T, 128>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
+// q: (B, Tq, H, Dh) with batch / row strides q_sb / q_st in elements and
+// (H, Dh) contiguous; k, v likewise over Tk; kv_bias: (B, Tk) f32 or null;
+// out: (B, Tq, H, Dh) contiguous; prefix_s < 0 selects dense mode.
+// Returns the cudaError_t of the launch.
+extern "C" int prefix_attention_launch(
+    const void* q, long long q_sb, long long q_st, const void* k, long long k_sb,
+    long long k_st, const void* v, long long v_sb, long long v_st, const float* kv_bias,
+    void* out, int dtype, int B, int Tq, int Tk, int H, int Dh, int prefix_s,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_dh<float>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
+                                 out, B, Tq, Tk, H, prefix_s, s);
+  if (dtype == 1)
+    return (int)launch_dh<__nv_bfloat16>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,
+                                         kv_bias, out, B, Tq, Tk, H, prefix_s, s);
+  return (int)cudaErrorInvalidValue;
+}

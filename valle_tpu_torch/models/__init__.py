@@ -1,0 +1,108 @@
+"""Model factory: the twin of ``valle_tpu/models/__init__.py``.
+
+``get_model`` builds VALL-E or VALL-F from a :class:`ModelConfig` on the card
+(or on ``device``) in eval mode, with weights from PyTorch's default
+initialisers under the caller's ``torch.manual_seed``.  The Transformer TTS
+baseline is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from valle_tpu_torch.models.config import ModelConfig
+from valle_tpu_torch.models.valle import VALLE, VALLF
+from valle_tpu_torch.utils import resolve_device
+
+
+def str2bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("boolean value expected")
+
+
+def _remat_policy(v: str) -> str:
+    """--remat accepts booleans or a policy name."""
+    if v.lower() in ("none", "full", "dots_nobatch"):
+        return v.lower()
+    return "full" if str2bool(v) else "none"
+
+
+def add_model_arguments(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--model-name", type=str, default="VALL-E")
+    parser.add_argument("--decoder-dim", type=int, default=1024)
+    parser.add_argument("--nhead", type=int, default=16)
+    parser.add_argument("--num-decoder-layers", type=int, default=12)
+    parser.add_argument("--scale-factor", type=float, default=1.0)
+    parser.add_argument("--norm-first", type=str2bool, default=True)
+    parser.add_argument("--add-prenet", type=str2bool, default=False)
+    parser.add_argument("--prefix-mode", type=int, default=0)
+    parser.add_argument("--share-embedding", type=str2bool, default=True)
+    parser.add_argument("--prepend-bos", type=str2bool, default=False)
+    parser.add_argument("--num-quantizers", type=int, default=8)
+    parser.add_argument("--scaling-xformers", type=str2bool, default=False)
+    parser.add_argument("--dropout", type=float, default=0.1,
+                        help="attention/FFN dropout (0 for overfit runs)")
+    parser.add_argument("--dtype", type=str, default="float32")
+    parser.add_argument("--attn-impl", type=str, default="xla",
+                        help="xla | fused | flash | flash_kp; 'flash' routes the "
+                        "prefill and the NAR passes through the prefix-attention kernel")
+    parser.add_argument("--kv-cache-dtype", type=str, default="model",
+                        help="model | int8 (int8 halves decode KV reads)")
+    parser.add_argument("--remat", type=_remat_policy, default="none",
+                        help="layer remat policy of the JAX trainer; no effect here")
+
+
+def config_from_args(args) -> ModelConfig:
+    return ModelConfig(
+        model_name=args.model_name,
+        decoder_dim=args.decoder_dim,
+        nhead=args.nhead,
+        num_layers=args.num_decoder_layers,
+        norm_first=args.norm_first,
+        add_prenet=args.add_prenet,
+        prefix_mode=args.prefix_mode,
+        share_embedding=args.share_embedding,
+        nar_scale_factor=args.scale_factor,
+        prepend_bos=args.prepend_bos,
+        num_quantizers=args.num_quantizers,
+        scaling_xformers=args.scaling_xformers,
+        dropout=getattr(args, "dropout", 0.1),
+        dtype=getattr(args, "dtype", "float32"),
+        attn_impl=getattr(args, "attn_impl", "xla"),
+        kv_cache_dtype=getattr(args, "kv_cache_dtype", "model"),
+        remat=getattr(args, "remat", "none"),
+    )
+
+
+def get_model(cfg: ModelConfig, device=None):
+    """VALLE / VALLF for ``cfg`` on ``device`` (default: the card; raises
+    without CUDA), in eval mode and in the config's compute dtype."""
+    if cfg.scaling_xformers:
+        raise NotImplementedError("scaling_xformers needs nn/scaling.py, not ported yet")
+    name = cfg.model_name.lower()
+    if name in ("vall-e", "valle"):
+        cls = VALLE
+    elif name in ("vall-f", "vallf"):
+        cls = VALLF
+    elif name == "transformer":
+        raise NotImplementedError("the Transformer TTS baseline is not ported yet")
+    else:
+        raise ValueError(f"unknown model {cfg.model_name}")
+    dev = resolve_device(device)
+    return cls(cfg).to(device=dev, dtype=cfg.compute_dtype).eval()
+
+
+__all__ = [
+    "ModelConfig",
+    "VALLE",
+    "VALLF",
+    "get_model",
+    "add_model_arguments",
+    "config_from_args",
+    "str2bool",
+]

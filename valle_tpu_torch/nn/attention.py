@@ -1,0 +1,158 @@
+"""Multi-head attention with a packed in-projection and a stacked KV cache:
+the twin of ``valle_tpu/nn/attention.py``.
+
+Parameter names follow the reference PyTorch model: one packed
+``in_proj_weight`` (3D, D) and ``in_proj_bias`` (also for cross-attention,
+which slices q from the first D rows and k, v from the rest) and an
+``out_proj`` linear.
+
+Decode caches are stacked over layers, as in the JAX package:
+``(kc, vc, ks, vs, layer)`` for the int8 cache with per-(token, head) f32
+scales, ``(kc, vc, layer)`` for a cache in the model dtype, with kc/vc of
+shape (L, B, C, H, Dh).  Unlike JAX, the port writes the new column into the
+cache in place (no copy of the cache per step) and returns the same tensors.
+The per-slot ``cache_index`` branch (continuous batching) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from valle_tpu_torch.nn.qdense import Dense
+from valle_tpu_torch.ops.attention_impl import dot_product_attention
+from valle_tpu_torch.ops.ragged_decode import ragged_decode_attention
+
+
+def quantize_kv(x: torch.Tensor):
+    """(..., Dh) -> (int8 values, f32 scale over the trailing Dh axis).
+
+    Symmetric per-(token, head) quantization; ``torch.round`` rounds half to
+    even like ``jnp.round``, so the values equal the JAX ones exactly.
+    """
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / scale.clamp(min=1e-8)[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def _ragged_decode(q, k, v, kv_lengths, attn_bias, ks=None, vs=None):
+    """Route a Tq=1 decode read through kernel 1; slot b reads KV columns
+    [0, kv_lengths[b]) only (ops/ragged_decode.py)."""
+    bias_row = None
+    if attn_bias is not None:
+        # decode biases are per-column: (B, 1, 1, C) -> (B, C)
+        b, c = q.shape[0], k.shape[1]
+        bias_row = attn_bias.expand(b, 1, 1, c)[:, 0, 0, :].float().contiguous()
+    return ragged_decode_attention(q, k, v, kv_lengths, bias_row, ks, vs)
+
+
+def _decode_attention_quantized(q, k8, v8, ks, vs, attn_bias):
+    """Single-query attention over an int8 cache (plain math).
+
+    q: (B, 1, H, Dh); k8/v8: (B, C, H, Dh) int8; ks/vs: (B, C, H) f32;
+    attn_bias additive, broadcastable to (B, H, 1, C).
+    """
+    dh = q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k8.to(q.dtype))
+    logits = logits.float() * ks.transpose(1, 2)[:, :, None, :]
+    if attn_bias is not None:
+        logits = logits + attn_bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    probs = probs * vs.transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v8.to(q.dtype))
+
+
+class MultiheadAttention(nn.Module):
+    def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
+                 attn_impl: str = "xla", act_quant: bool = False):
+        super().__init__()
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.attn_impl = attn_impl
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim)) if bias else None
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        self.out_proj = Dense(embed_dim, embed_dim, use_bias=bias, act_quant=act_quant)
+
+    def forward(
+        self,
+        x_q: torch.Tensor,
+        x_kv: Optional[torch.Tensor] = None,
+        *,
+        attn_bias=None,
+        kv_cache=None,
+        cache_index: Optional[int] = None,
+        kv_lengths: Optional[torch.Tensor] = None,
+        return_kv: bool = False,
+    ):
+        """Args:
+          x_q: (B, Tq, D) queries (pre-projection).
+          x_kv: (B, Tk, D) keys/values source; defaults to ``x_q`` (self-attn).
+          attn_bias: additive bias broadcastable to (B, H, Tq, Tk), or an
+            ``AttnMaskSpec``.
+          kv_cache: a stacked cache tuple (see the module docstring); the
+            projected K/V (length Tq) are written at column ``cache_index``
+            of layer ``layer`` and attention runs over that layer's cache.
+          kv_lengths: optional (B,) int32 live cache lengths: routes the
+            decode read through kernel 1 so slot b reads only columns
+            [0, kv_lengths[b]); None keeps the dense read.
+          return_kv: also return the projected (k, v) for cache prefill.
+
+        Returns (out, new_cache_or_None, kv_or_None).
+        """
+        d, h = self.embed_dim, self.num_heads
+        dh = d // h
+        w, bias = self.in_proj_weight, self.in_proj_bias
+        if x_kv is None:
+            q, k, v = F.linear(x_q, w, bias).split(d, dim=-1)
+        else:
+            q = F.linear(x_q, w[:d], None if bias is None else bias[:d])
+            k, v = F.linear(x_kv, w[d:], None if bias is None else bias[d:]).split(d, dim=-1)
+        b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
+        q = q.view(b, tq, h, dh)
+        k = k.view(b, tk, h, dh)
+        v = v.view(b, tk, h, dh)
+
+        new_cache = None
+        if kv_cache is not None:
+            if isinstance(cache_index, torch.Tensor) and cache_index.dim() > 0:
+                raise NotImplementedError(
+                    "per-slot cache_index (continuous batching) is not ported yet")
+            idx = 0 if cache_index is None else int(cache_index)
+            if len(kv_cache) == 5:
+                kc, vc, ks, vs, li = kv_cache
+                k8, k_sc = quantize_kv(k)
+                v8, v_sc = quantize_kv(v)
+                kc[li, :, idx: idx + tq] = k8
+                vc[li, :, idx: idx + tq] = v8
+                ks[li, :, idx: idx + tq] = k_sc
+                vs[li, :, idx: idx + tq] = v_sc
+                new_cache = (kc, vc, ks, vs)
+                if kv_lengths is not None:
+                    out = _ragged_decode(q, kc[li], vc[li], kv_lengths, attn_bias, ks[li], vs[li])
+                    out = out.to(q.dtype)
+                else:
+                    out = _decode_attention_quantized(q, kc[li], vc[li], ks[li], vs[li], attn_bias)
+                return self.out_proj(out.reshape(b, tq, d)), new_cache, None
+            if len(kv_cache) != 3:
+                raise ValueError(f"unknown kv_cache layout of {len(kv_cache)} entries")
+            kc, vc, li = kv_cache
+            kc[li, :, idx: idx + tq] = k.to(kc.dtype)
+            vc[li, :, idx: idx + tq] = v.to(vc.dtype)
+            new_cache = (kc, vc)
+            if kv_lengths is not None:
+                out = _ragged_decode(q, kc[li], vc[li], kv_lengths, attn_bias).to(q.dtype)
+                return self.out_proj(out.reshape(b, tq, d)), new_cache, None
+            k_att, v_att = kc[li], vc[li]
+        else:
+            k_att, v_att = k, v
+
+        out = dot_product_attention(q, k_att, v_att, bias=attn_bias, impl=self.attn_impl)
+        out = self.out_proj(out.reshape(b, tq, d))
+        kv = (k, v) if return_kv else None
+        return out, new_cache, kv

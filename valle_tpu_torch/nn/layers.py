@@ -1,0 +1,158 @@
+"""Transformer layers: the twin of ``valle_tpu/nn/layers.py``.
+
+Prefix-LM / decoder layer (pre- or post-norm, optional VALL-F
+cross-attention), adaptive layer norm for NAR stage conditioning, and the
+layer stack.  The JAX stack is one ``nn.scan`` over stacked parameters; here
+it is an ``nn.ModuleList`` walked in Python, and a decode cache stacked over
+layers is indexed by layer.
+
+Parameter names follow the reference PyTorch model: ``norm1``, ``norm2``
+(``norm2`` gates cross-attention and ``norm3`` the feed-forward block in a
+VALL-F layer), ``self_attn``, ``multihead_attn``, ``linear1``, ``linear2``,
+and ``layers.{i}`` / ``norm`` in the stack.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from valle_tpu_torch.nn.attention import MultiheadAttention
+from valle_tpu_torch.nn.qdense import Dense
+
+
+class StageLayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that takes (and ignores) the stage embedding, so every
+    norm of a layer is called the same way."""
+
+    def forward(self, x: torch.Tensor, stage_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return super().forward(x)
+
+
+class AdaptiveLayerNorm(nn.Module):
+    """weight * LayerNorm(x) + bias, with (weight, bias) projected from the
+    stage embedding."""
+
+    def __init__(self, d_model: int, eps: float = 1e-5):
+        super().__init__()
+        self.d_model = d_model
+        self.project_layer = nn.Linear(d_model, 2 * d_model)
+        self.norm = nn.LayerNorm(d_model, eps=eps)
+
+    def forward(self, x: torch.Tensor, stage_emb: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.project_layer(stage_emb).split(self.d_model, dim=-1)
+        return weight * self.norm(x) + bias
+
+
+def conditioned_norm(d_model: int, adaptive: bool = False, eps: float = 1e-5,
+                     norm_type: str = "layer") -> nn.Module:
+    """The norm that the JAX ``ConditionedNorm`` computes: a layer norm, or
+    an adaptive one for NAR stage conditioning.  A factory rather than a
+    wrapper module, so the parameter names stay the reference's
+    (``norm1.weight``, ``norm1.project_layer.weight``).  The ``identity`` and
+    ``balanced_basic`` norms of the scaling_xformers layout need
+    ``nn/scaling.py``, which is not ported yet."""
+    if norm_type != "layer":
+        raise NotImplementedError(f"norm_type {norm_type!r} needs nn/scaling.py, not ported yet")
+    if adaptive:
+        return AdaptiveLayerNorm(d_model, eps)
+    return StageLayerNorm(d_model, eps=eps)
+
+
+class TransformerLayer(nn.Module):
+    """One decoder block with a ReLU feed-forward block.  ``cross_attention``
+    adds an encoder-memory attention sub-block between self-attention and the
+    FFN (VALL-F).  The other activations and norms of the JAX layer serve the
+    scaling_xformers layout, which is not ported yet."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 norm_first: bool = True, adaptive_norm: bool = False,
+                 cross_attention: bool = False, attn_impl: str = "xla",
+                 act_quant: bool = False):
+        super().__init__()
+        self.norm_first = norm_first
+        self.cross_attention = cross_attention
+        self.self_attn = MultiheadAttention(d_model, nhead, attn_impl=attn_impl,
+                                            act_quant=act_quant)
+        self.linear1 = Dense(d_model, dim_feedforward, act_quant=act_quant)
+        self.linear2 = Dense(dim_feedforward, d_model, act_quant=act_quant)
+        self.norm1 = conditioned_norm(d_model, adaptive_norm)
+        self.norm2 = conditioned_norm(d_model, adaptive_norm)
+        if cross_attention:
+            self.multihead_attn = MultiheadAttention(d_model, nhead, attn_impl=attn_impl,
+                                                     act_quant=act_quant)
+            self.norm3 = conditioned_norm(d_model, adaptive_norm)
+
+    def _ff_block(self, x):
+        return self.linear2(F.relu(self.linear1(x)))
+
+    def forward(self, x, *, stage_emb=None, attn_bias=None, memory=None,
+                memory_bias=None, kv_cache=None, cache_index=None,
+                kv_lengths=None, return_kv=False):
+        """Returns (x, new_cache_or_None, kv_or_None)."""
+        norm_ff = self.norm3 if self.cross_attention else self.norm2
+
+        def sa_block(h):
+            return self.self_attn(h, attn_bias=attn_bias, kv_cache=kv_cache,
+                                  cache_index=cache_index, kv_lengths=kv_lengths,
+                                  return_kv=return_kv)
+
+        def ca_block(h):
+            return self.multihead_attn(h, memory, attn_bias=memory_bias)[0]
+
+        if self.norm_first:
+            h, new_cache, kv = sa_block(self.norm1(x, stage_emb))
+            x = x + h
+            if self.cross_attention:
+                x = x + ca_block(self.norm2(x, stage_emb))
+            x = x + self._ff_block(norm_ff(x, stage_emb))
+        else:
+            h, new_cache, kv = sa_block(x)
+            x = self.norm1(x + h, stage_emb)
+            if self.cross_attention:
+                x = self.norm2(x + ca_block(x), stage_emb)
+            x = norm_ff(x + self._ff_block(x), stage_emb)
+        return x, new_cache, kv
+
+
+class TransformerStack(nn.Module):
+    """N TransformerLayers plus the optional final (adaptive) norm."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int,
+                 norm_first: bool = True, adaptive_norm: bool = False,
+                 cross_attention: bool = False, final_norm: bool = True,
+                 attn_impl: str = "xla", act_quant: bool = False):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerLayer(d_model, nhead, dim_feedforward, norm_first=norm_first,
+                             adaptive_norm=adaptive_norm, cross_attention=cross_attention,
+                             attn_impl=attn_impl, act_quant=act_quant)
+            for _ in range(num_layers)
+        )
+        self.norm = conditioned_norm(d_model, adaptive_norm) if final_norm and norm_first else None
+
+    def forward(self, x, kv_cache=None, *, stage_emb=None, attn_bias=None, memory=None,
+                memory_bias=None, cache_index=None, kv_lengths=None, return_kv=False):
+        """kv_cache: a stacked decode cache, (kc, vc) or (kc, vc, ks, vs) with
+        a leading layer axis, updated in place.
+
+        Returns (x, new_cache_or_None, kv) where kv is the stacked
+        (k, v) of shape (L, B, T, H, Dh) when ``return_kv``, else None."""
+        ks, vs = [], []
+        for i, layer in enumerate(self.layers):
+            x, _, kv = layer(
+                x, stage_emb=stage_emb, attn_bias=attn_bias, memory=memory,
+                memory_bias=memory_bias,
+                kv_cache=None if kv_cache is None else (*kv_cache, i),
+                cache_index=cache_index, kv_lengths=kv_lengths, return_kv=return_kv,
+            )
+            if return_kv:
+                ks.append(kv[0])
+                vs.append(kv[1])
+        if self.norm is not None:
+            x = self.norm(x, stage_emb)
+        kv = (torch.stack(ks), torch.stack(vs)) if return_kv else None
+        return x, kv_cache, kv

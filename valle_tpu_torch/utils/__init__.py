@@ -1,0 +1,23 @@
+"""Helpers shared by the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point puts its tensors on.
+
+    ``None`` means the card: it raises when CUDA is missing instead of
+    quietly running on the CPU.  Pass ``device="cpu"`` to run the plain
+    PyTorch versions of the kernels on the CPU.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
