@@ -8,20 +8,34 @@ ends the run with a non-zero exit code):
 
   1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
      (TF32 is switched off for matmuls and cuDNN);
-  2. build: both kernels from ``valle_tpu_torch/csrc`` with ``nvcc``;
+  2. build: the three kernels from ``valle_tpu_torch/csrc`` with ``nvcc``, in
+     parallel, with each one's most registers and spilled bytes;
   3. kernel 1 (ragged decode attention) against its plain PyTorch version at
-     decode shapes, int8 / f32 / bf16 caches, with timings;
+     decode shapes, int8 / f32 / bf16 caches;
   4. kernel 2 (prefix-LM / dense attention) against its plain version in
-     prefix, causal, dense self- and cross-attention modes, with timings;
-  5. main path: full-width VALL-E (the default ModelConfig, seeded random
+     prefix, causal, dense self- and cross-attention modes;
+  5. kernel 2 with dropout 0.1 and its LSE output at the training shapes
+     (prefix and dense, T=880), against the plain version with the same
+     Philox bits, and the keep rate within 4 sigma of 0.9;
+  6. kernel 3 (the backward) against its plain version in four mask modes,
+     at rates 0 and 0.1, in f32 and bf16, with a bit-equal rerun;
+  7. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
      decode logits held against a CPU copy of the model, and timings;
-  6. a ``kernels`` summary line, then the last line
+  8. train: full-width VALL-E training steps (AR + NAR, dropout 0.1,
+     ScaledAdam + Eden, B=4, S=128, T=752, accumulation 2) with launch counts
+     per step, a bit-equal repeated step, and one micro-batch's loss and
+     gradients at dropout 0 held against a CPU copy of the model that
+     follows the card's ReLU gates, at the initial and the trained weights;
+  9. a ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
-Exits non-zero without CUDA, and where the port's package is not beside it.
-Needs one card, no network; every timing is taken with CUDA events or after
-``torch.cuda.synchronize()``.
+Kernel times are the median of 5 windows of back-to-back calls (CUDA
+events), with the fastest and slowest window as the spread, and beside them
+the device time per call from ``torch.profiler``, which leaves out the host's
+launch overhead.  Exits non-zero
+without CUDA, and where the port's package is not beside it.  Needs one card,
+no network.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ import time
 import numpy as np
 
 SEED = 0
+KERNELS = ["ragged_decode", "prefix_attention", "prefix_attention_bwd"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}  # dense, no TF32
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -44,20 +59,55 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls."""
+def cuda_time(fn, iters: int = 50, windows: int = 5, warmup: int = 3) -> dict:
+    """Device milliseconds per call of ``fn()``: the median over ``windows``
+    windows of ``iters`` back-to-back calls each (CUDA events), with the
+    fastest and slowest window as the spread."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    per_call = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return {"ms": float(np.median(per_call)), "ms_min": min(per_call), "ms_max": max(per_call)}
+
+
+def device_ms(fn, kernel_names, iters: int = 20):
+    """Device milliseconds per call of ``fn()`` spent in the kernels whose
+    names contain one of ``kernel_names``, from ``torch.profiler`` (CUPTI);
+    None when the profiler records no device time.  Unlike :func:`cuda_time`
+    this leaves out the host's launch overhead between calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if any(n in e.key for n in kernel_names))
+    return total / 1e3 / iters if total > 0 else None
+
+
+def ptxas_summary(log_path) -> dict:
+    """Most registers of any kernel instantiation and the spilled bytes,
+    from ``nvcc -Xptxas -v``."""
+    import re
+
+    text = log_path.read_text()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
+    return {"max_registers": max(regs, default=0), "spill_bytes": sum(spills)}
 
 
 def bound(n_bytes: float, n_ops: float, op_type: str):
@@ -108,21 +158,23 @@ def check_ragged_decode(dev):
         assert torch.isfinite(got).all(), cache
         assert float(got[0].abs().max()) == 0.0, "a length-0 slot must give exact zeros"
         assert err <= tol, f"kernel 1 ({cache} cache) disagrees with its plain version: {err}"
-        ms = cuda_ms(lambda: ragged_decode_attention(*args))
-        plain_ms = cuda_ms(lambda: ragged_decode_attention_reference(*args))
+        timing = cuda_time(lambda: ragged_decode_attention(*args))
+        timing["device_ms"] = device_ms(lambda: ragged_decode_attention(*args),
+                                        ["ragged_decode_kernel"])
+        plain_ms = cuda_time(lambda: ragged_decode_attention_reference(*args), iters=20)["ms"]
         # yardstick: one SDPA call on the same (dequantized) data and mask
         col = torch.arange(c, device=dev)[None, :]
         mask = torch.where(col < lengths[:, None].long(), bias, float("-inf"))[:, None, None, :]
         mask = mask.to(q.dtype)
         ql, kl, vl = (t.transpose(1, 2) for t in (q, k_lib.to(q.dtype), v_lib.to(q.dtype)))
         # slot 0 (length 0) has no finite column for SDPA, so the yardstick skips it
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            ql[1:], kl[1:], vl[1:], attn_mask=mask[1:]))
+        library_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            ql[1:], kl[1:], vl[1:], attn_mask=mask[1:]))["ms"]
         n_bytes = (live * h * dh * 2 * elem + (live * h * 4 * 2 if cache == "int8" else 0)
                    + live * 4 + b * 4 + b * h * dh * (q.element_size() + 4))
         bound_ms, bound_by = bound(n_bytes, 4.0 * live * h * dh, op_type)
         results.append({"case": f"{cache} cache", "b": b, "c": c, "h": h, "dh": dh,
-                        "live_columns": live, "max_abs_err": err, "tol": tol, "ms": ms,
+                        "live_columns": live, "max_abs_err": err, "tol": tol, **timing,
                         "plain_ms": plain_ms, "library_ms": library_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by})
     emit({"phase": "kernel1_ragged_decode", "cases": results})
@@ -184,24 +236,186 @@ def check_prefix_attention(dev):
         err = float((got.float() - want.float()).abs().max())
         assert torch.isfinite(got).all(), name
         assert err <= TOL[dtype], f"kernel 2 ({name}) disagrees with its plain version: {err}"
-        ms = cuda_ms(lambda: fused_prefix_attention(q, k, v, kb, prefix_s=prefix_s))
-        plain_ms = cuda_ms(lambda: fused_prefix_attention_reference(q, k, v, kb, prefix_s), iters=5)
+        timing = cuda_time(lambda: fused_prefix_attention(q, k, v, kb, prefix_s=prefix_s), iters=20)
+        timing["device_ms"] = device_ms(lambda: fused_prefix_attention(q, k, v, kb,
+                                                                       prefix_s=prefix_s),
+                                        ["prefix_attention_kernel"])
+        plain_ms = cuda_time(lambda: fused_prefix_attention_reference(q, k, v, kb, prefix_s),
+                             iters=3)["ms"]
         mask = AttnMaskSpec(kb, prefix_s).dense(tq).to(dt)  # built outside the timing
         ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
+        library_ms = cuda_time(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
+                               iters=20)["ms"]
         vis = _visible_columns(tq, tk, prefix_s)
         n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() + kb.numel() * 4
         bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * dh * vis, dtype)
         results[name] = {"case": name, "b": b, "tq": tq, "tk": tk, "prefix_s": prefix_s,
-                         "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+                         "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype], **timing,
                          "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "tflops": 4.0 * b * h * dh * vis / ms / 1e9}
+                         "tflops": 4.0 * b * h * dh * vis / timing["ms"] / 1e9}
     emit({"phase": "kernel2_prefix_attention", "cases": list(results.values())})
-    return results["dense_nar"]
 
 
-# ---------------------------------------------------------------- phase 5
+# ------------------------------------------------------- phases 5 and 6
+# The training shapes: B=4, H=16, Dh=64; the AR decoder runs the prefix mode
+# over [128 text ; 752 audio] = 880 rows, the NAR decoder the dense mode.
+
+TRAIN_B, TRAIN_S, TRAIN_T, TRAIN_H, TRAIN_DH = 4, 128, 752, 16, 64
+DROPOUT = 0.1
+
+
+def _train_key_bias(rng, tq_text: int, tq_audio: int):
+    """(B, S + T) bias: text padded past a length in [3S/4, S], audio past a
+    length in [0.8 T, T]; the first row of the batch is full."""
+    x_lens = rng.randint(3 * tq_text // 4, tq_text + 1, TRAIN_B)
+    y_lens = rng.randint(int(0.8 * tq_audio), tq_audio + 1, TRAIN_B)
+    x_lens[0], y_lens[0] = tq_text, tq_audio
+    text = np.arange(tq_text)[None, :] >= x_lens[:, None]
+    audio = np.arange(tq_audio)[None, :] >= y_lens[:, None]
+    return np.where(np.concatenate([text, audio], 1), -1e9, 0.0).astype(np.float32)
+
+
+def _attention_cases(rng):
+    """(name, tq, tk, prefix_s, (B, Tk) key bias) at the training shapes."""
+    full = _train_key_bias(rng, TRAIN_S, TRAIN_T)
+    t = TRAIN_S + TRAIN_T
+    return [
+        ("prefix", t, t, TRAIN_S, full),
+        ("causal", TRAIN_T, TRAIN_T, 0, full[:, TRAIN_S:]),
+        ("dense_self", t, t, None, full),
+        ("dense_cross", TRAIN_T, TRAIN_S, None, full[:, :TRAIN_S]),
+    ]
+
+
+def _qkv(rng, dev, dt, tq, tk):
+    import torch
+
+    shape_q, shape_k = (TRAIN_B, tq, TRAIN_H, TRAIN_DH), (TRAIN_B, tk, TRAIN_H, TRAIN_DH)
+    return tuple(torch.from_numpy(rng.randn(*shp).astype(np.float32)).to(dev, dt)
+                 for shp in (shape_q, shape_k, shape_k))
+
+
+def check_dropout_forward(dev):
+    """Kernel 2 with dropout and the LSE output, at the training shapes."""
+    import torch
+    from torch.nn import functional as F
+
+    from valle_tpu_torch.ops import fused_attention as fa
+    from valle_tpu_torch.ops.masks import AttnMaskSpec
+    from valle_tpu_torch.ops.philox import dropout_keep_mask
+
+    rng = np.random.RandomState(SEED + 3)
+    results = {}
+    for name, tq, tk, prefix_s, kv_bias in _attention_cases(rng):
+        if name not in ("prefix", "dense_self"):
+            continue
+        q, k, v = _qkv(rng, dev, torch.float32, tq, tk)
+        kb = torch.from_numpy(np.ascontiguousarray(kv_bias)).to(dev)
+        seed = int(rng.randint(0, 2**62))
+        args = (q, k, v, kb, prefix_s, DROPOUT, seed)
+        got, lse = fa._forward(*args, with_lse=True)
+        want, want_lse = fa.attention_forward_reference(*args)
+        keep = dropout_keep_mask(seed, TRAIN_B, TRAIN_H, tq, tk, DROPOUT, device=dev)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        n = keep.numel()
+        keep_rate = float(keep.float().mean())
+        sigma = float(np.sqrt(DROPOUT * (1 - DROPOUT) / n))
+        assert torch.isfinite(got).all() and torch.isfinite(lse).all(), name
+        assert err <= TOL["float32"], f"kernel 2 with dropout ({name}) disagrees: {err}"
+        assert lse_err <= TOL["float32"], f"kernel 2 LSE ({name}) disagrees: {lse_err}"
+        assert abs(keep_rate - (1 - DROPOUT)) <= 4 * sigma, (keep_rate, sigma)
+        del want, want_lse, keep
+        timing = cuda_time(lambda: fa._forward(*args, with_lse=True), iters=20)
+        timing["device_ms"] = device_ms(lambda: fa._forward(*args, with_lse=True),
+                                        ["prefix_attention_kernel"])
+        plain_ms = cuda_time(lambda: fa.attention_forward_reference(*args), iters=2,
+                             windows=3)["ms"]
+        mask = AttnMaskSpec(kb, prefix_s).dense(tq)
+        ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask, dropout_p=DROPOUT), iters=20)["ms"]
+        vis = _visible_columns(tq, tk, prefix_s)
+        n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * 4 + kb.numel() * 4 + lse.numel() * 4
+        bound_ms, bound_by = bound(n_bytes, 4.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis, "float32")
+        results[name] = {"case": name, "b": TRAIN_B, "tq": tq, "tk": tk, "prefix_s": prefix_s,
+                         "dtype": "float32", "rate": DROPOUT, "max_abs_err": err,
+                         "lse_max_abs_err": lse_err, "tol": TOL["float32"],
+                         "keep_rate": keep_rate, "keep_rate_sigma": sigma, **timing,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "tflops": 4.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis / timing["ms"] / 1e9}
+    emit({"phase": "kernel2_dropout", "cases": list(results.values())})
+    return results
+
+
+def check_backward(dev):
+    """Kernel 3 against its plain version with the same mask, in four mask
+    modes, at rates 0 and 0.1, in f32 and bf16; two runs must be bit-equal."""
+    import torch
+    from torch.nn import functional as F
+
+    from valle_tpu_torch.ops import fused_attention as fa
+    from valle_tpu_torch.ops.masks import AttnMaskSpec
+
+    rng = np.random.RandomState(SEED + 4)
+    results = {}
+    for name, tq, tk, prefix_s, kv_bias in _attention_cases(rng):
+        kb = torch.from_numpy(np.ascontiguousarray(kv_bias)).to(dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v = _qkv(rng, dev, dt, tq, tk)
+            dout = torch.from_numpy(rng.randn(TRAIN_B, tq, TRAIN_H, TRAIN_DH).astype(np.float32))
+            dout = dout.to(dev, dt)
+            for rate in (0.0, DROPOUT):
+                seed = int(rng.randint(0, 2**62))
+                out, lse = fa._forward(q, k, v, kb, prefix_s, rate, seed, with_lse=True)
+                kw = dict(prefix_s=prefix_s, dropout_rate=rate, dropout_seed=seed)
+                got = fa.fused_prefix_attention_backward(q, k, v, kb, out, dout, lse, **kw)
+                again = fa.fused_prefix_attention_backward(q, k, v, kb, out, dout, lse, **kw)
+                want = fa.attention_backward_reference(q, k, v, kb, out, dout, lse, prefix_s,
+                                                       rate, seed)
+                torch.cuda.synchronize()
+                errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                        for g, w in zip(got, want)]
+                case = f"{name} {dtype} rate {rate}"
+                assert all(torch.isfinite(g).all() for g in got), case
+                assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+                    f"kernel 3 ({case}) is not bit-reproducible"
+                assert max(errs) <= TOL[dtype], f"kernel 3 ({case}) disagrees: {errs}"
+                del want, again
+                call = lambda: fa.fused_prefix_attention_backward(q, k, v, kb, out, dout, lse, **kw)
+                timing = cuda_time(call, iters=10)
+                timing["device_ms"] = device_ms(call, ["attn_bwd_"], iters=5)
+                plain_ms = cuda_time(lambda: fa.attention_backward_reference(
+                    q, k, v, kb, out, dout, lse, prefix_s, rate, seed), iters=1, windows=3)["ms"]
+                # yardstick: SDPA's backward at the same rate on the dense mask
+                mask = AttnMaskSpec(kb, prefix_s).dense(tq).to(dt)
+                ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+                ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, dropout_p=rate)
+                dol = dout.transpose(1, 2)
+                library_ms = cuda_time(lambda: torch.autograd.grad(
+                    ol, (ql, kl, vl), dol, retain_graph=True), iters=10)["ms"]
+                del ol, ql, kl, vl
+                vis = _visible_columns(tq, tk, prefix_s)
+                n_bytes = ((q.numel() * 4 + k.numel() * 4) * q.element_size()
+                           + kb.numel() * 4 + lse.numel() * 4)
+                bound_ms, bound_by = bound(n_bytes, 10.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis,
+                                           dtype)
+                results[case] = {
+                    "case": case, "b": TRAIN_B, "tq": tq, "tk": tk, "prefix_s": prefix_s,
+                    "dtype": dtype, "rate": rate, "max_abs_err": max(errs),
+                    "err_is": "max |kernel - plain| / max |plain|, worst of dq, dk, dv",
+                    "tol": TOL[dtype], "bit_equal_rerun": True, **timing, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "tflops": 10.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis / timing["ms"] / 1e9}
+    emit({"phase": "kernel3_backward", "cases": list(results.values())})
+    return results
+
+
+# ---------------------------------------------------------------- phase 7
 
 
 def teacher_forced_logits(model, x, x_lens, prompts, prompt_lens, tokens, ragged: bool):
@@ -289,8 +503,8 @@ def main_path(dev):
         with torch.inference_mode():
             _nar_refine(model, x, x_lens_t, prompts, prompt_lens_t, codes[..., 0], lengths)
 
-    prefill_ms = cuda_ms(prefill, iters=3, warmup=1)
-    nar_ms = cuda_ms(nar, iters=2, warmup=1)
+    prefill_ms = cuda_time(prefill, iters=3, windows=3, warmup=1)["ms"]
+    nar_ms = cuda_time(nar, iters=1, windows=3, warmup=1)["ms"]
     decode_ms_per_step = (total_s * 1e3 - prefill_ms - nar_ms) / steps
 
     # prefill and 8 decode steps against a CPU copy (plain versions, TF32 off)
@@ -318,6 +532,285 @@ def main_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+
+TRAIN_A, TRAIN_STEPS = 2, 5
+# The dropout-0 check of one micro-batch on the card against a CPU copy.  The
+# feed-forward ReLU is the model's one kink: a pre-activation within rounding
+# of 0 can land on the other side of 0 when f32 sums run in another order,
+# and that moves a whole row of the layer's linear1 gradient.  So the CPU copy
+# follows the card's ReLU gates.  The gates that flipped are held to a share
+# of all gates (FLIP_SHARE) and their |pre-activation| to FLIP_ATOL; the
+# gradients of the same piecewise-linear function are then held per
+# parameter: the largest element's error over max |g_cpu| (GRAD_RTOL) and the
+# 2-norm error over |g_cpu| (GRAD_NORM_RTOL).  On an H100 the readings were
+# 57 flips of 346 M gates at |h| <= 1.2e-6, element error <= 5.2e-6 and
+# 2-norm error <= 2.7e-6, at the initial and at the trained weights; each
+# limit is about 10x its reading.
+LOSS_RTOL = 1e-5
+FLIP_SHARE = 1e-6
+FLIP_ATOL = 1e-5
+GRAD_RTOL = 5e-5
+GRAD_NORM_RTOL = 2e-5
+
+
+def _train_batch(cfg, rng, dev):
+    """A (A, B, ...) batch of random tokens: text 96-128 tokens, audio
+    602-752 frames; the first row of each micro-batch has the full lengths."""
+    import torch
+
+    a, b, s, t = TRAIN_A, TRAIN_B, TRAIN_S, TRAIN_T
+    x_lens = rng.randint(3 * s // 4, s + 1, (a, b))
+    y_lens = rng.randint(int(0.8 * t), t + 1, (a, b))
+    x_lens[:, 0], y_lens[:, 0] = s, t
+    arrays = {
+        "text_tokens": rng.randint(1, cfg.num_text_tokens, (a, b, s)),
+        "text_tokens_lens": x_lens,
+        "audio_features": rng.randint(0, cfg.num_audio_tokens, (a, b, t, cfg.num_quantizers)),
+        "audio_features_lens": y_lens,
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def profile_breakdown(fn) -> dict:
+    """One call of ``fn()`` under ``torch.profiler``: wall seconds, device
+    busy seconds, the device time by kernel family and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()  # device kernels, not annotated spans
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    families = {"kernel2 (prefix_attention)": ("prefix_attention_kernel",),
+                "kernel3 (prefix_attention_bwd)": ("attn_bwd_",),
+                "matmul (cuBLAS / CUTLASS)": ("gemm", "Gemm", "cutlass", "xmma", "sm90_")}
+    by_family = {name: 0.0 for name in families}
+    by_family["other"] = 0.0
+    for e in kernels:
+        fam = next((f for f, keys in families.items() if any(k in e.key for k in keys)), "other")
+        by_family[fam] += e.self_device_time_total / 1e6
+    busy = sum(by_family.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_s": wall, "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+            "device_s_by_family": by_family,
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "device_s": e.self_device_time_total / 1e6} for e in top]}
+
+
+def _relu_gate_hooks(model, gates: dict, flips: dict) -> list:
+    """Hooks on every feed-forward block of ``model``.  With ``gates`` empty
+    they record, per layer, which ReLU inputs are above 0 (as CPU tensors).
+    Given another run's ``gates`` they make the ReLU follow them: the linear1
+    output h is moved |h| + 1 up where the gate is open and down where it is
+    shut, and the move is taken back off before linear2, so the block
+    computes h * gate with the gradient gate; ``flips`` gets, per layer, the
+    number of gates that differ from this run's own and the largest |h| among
+    them.  Returns the hook handles."""
+    import torch
+
+    from valle_tpu_torch.nn.layers import TransformerLayer
+
+    record = not gates
+    handles = []
+    for name, layer in model.named_modules():
+        if not isinstance(layer, TransformerLayer):
+            continue
+        moved = []
+
+        def after_linear1(mod, args, out, name=name, moved=moved):
+            h = out.detach()
+            if record:
+                assert name not in gates, f"{name} ran twice"
+                gates[name] = (h > 0).cpu()
+                return None
+            gate = gates[name].to(h.device)
+            flipped = (h > 0) != gate
+            flips[name] = {"gates": int(flipped.sum()),
+                           "max_abs_h": float(h[flipped].abs().max()) if flipped.any() else 0.0}
+            shift = h.abs() + 1.0
+            moved.append(torch.where(gate, shift, torch.zeros_like(shift)))
+            return out + torch.where(gate, shift, -shift)
+
+        def before_linear2(mod, args, moved=moved):
+            return None if record else (args[0] - moved.pop(),)
+
+        handles.append(layer.linear1.register_forward_hook(after_linear1))
+        handles.append(layer.linear2.register_forward_pre_hook(before_linear2))
+    return handles
+
+
+def _micro_grads(model, batch, nar_stage: int, gates: dict, flips: dict):
+    """Loss and per-parameter gradients of micro-batch 0 at dropout 0, with
+    the ReLU gates recorded into or taken from ``gates``."""
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    handles = _relu_gate_hooks(model, gates, flips)
+    try:
+        out = model(*(batch[k][0] for k in ("text_tokens", "text_tokens_lens", "audio_features",
+                                            "audio_features_lens")),
+                    train_stage=0, nar_stage=nar_stage)
+        out["loss"].backward()
+    finally:
+        for handle in handles:
+            handle.remove()
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(out["loss"].detach()), grads
+
+
+def _grad_errors(grads_gpu: dict, grads_cpu: dict):
+    """Per parameter: the largest element's error over max |g_cpu|, and the
+    2-norm error over |g_cpu|."""
+    assert set(grads_gpu) == set(grads_cpu)
+    elem = {n: float((grads_gpu[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+            for n, g in grads_cpu.items()}
+    norm = {n: float((grads_gpu[n] - g).norm() / g.norm().clamp(min=1e-30))
+            for n, g in grads_cpu.items()}
+    return elem, norm
+
+
+def gradient_check(model, batch, nar_stage: int, weights: str) -> dict:
+    """One micro-batch's loss and gradients at dropout 0 on the card against
+    a CPU copy of the model (plain versions) that follows the card's ReLU
+    gates; fails past LOSS_RTOL, FLIP_SHARE, FLIP_ATOL, GRAD_RTOL or
+    GRAD_NORM_RTOL.  The same comparison with the CPU copy on its own gates
+    is reported beside it, unchecked, to show what the flipped gates alone
+    move."""
+    from valle_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    gates, flips = {}, {}
+    loss_gpu, grads_gpu = _micro_grads(model, batch, nar_stage, gates, flips)
+    cpu_model = get_model(model.cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    loss_cpu, grads_cpu = _micro_grads(cpu_model, cpu_batch, nar_stage, gates, flips)
+    _, grads_own = _micro_grads(cpu_model, cpu_batch, nar_stage, {}, {})
+    del cpu_model
+    grad_err, grad_norm_err = _grad_errors(grads_gpu, grads_cpu)
+    own_err, own_norm_err = _grad_errors(grads_gpu, grads_own)
+    del grads_gpu, grads_cpu, grads_own
+    worst = sorted(grad_err, key=grad_err.get, reverse=True)[:5]
+    own_worst = sorted(own_err, key=own_err.get, reverse=True)[:5]
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    flip_h = max(f["max_abs_h"] for f in flips.values())
+    n_gates = sum(g.numel() for g in gates.values())
+    n_flips = sum(f["gates"] for f in flips.values())
+    check = {"phase": "train_gradient_check", "weights": weights,
+             "dropout0_loss_gpu": loss_gpu, "dropout0_loss_cpu": loss_cpu,
+             "dropout0_loss_rel_err": loss_err, "loss_rtol": LOSS_RTOL,
+             "relu_gates": n_gates, "flipped_gates": n_flips, "flip_share": FLIP_SHARE,
+             "flipped_gates_by_layer": {n: f["gates"] for n, f in flips.items() if f["gates"]},
+             "flipped_max_abs_h": flip_h, "flip_atol": FLIP_ATOL,
+             "worst_grads": {n: grad_err[n] for n in worst},
+             "max_grad_rel_err": grad_err[worst[0]],
+             "max_grad_norm_rel_err": max(grad_norm_err.values()),
+             "median_grad_rel_err": float(np.median(list(grad_err.values()))),
+             "grad_rtol": GRAD_RTOL, "grad_norm_rtol": GRAD_NORM_RTOL,
+             "own_gates_worst_grads": {n: own_err[n] for n in own_worst},
+             "own_gates_max_grad_norm_rel_err": max(own_norm_err.values()),
+             "own_gates_median_grad_rel_err": float(np.median(list(own_err.values()))),
+             "n_grads": len(grad_err), "seconds": time.perf_counter() - t0}
+    emit(check)
+    assert loss_err <= LOSS_RTOL, (loss_gpu, loss_cpu)
+    assert n_flips <= FLIP_SHARE * n_gates, f"{n_flips} of {n_gates} ReLU gates flipped"
+    assert flip_h <= FLIP_ATOL, f"a ReLU gate flipped at |h| = {flip_h}"
+    assert grad_err[worst[0]] <= GRAD_RTOL, (worst[0], grad_err[worst[0]])
+    assert max(grad_norm_err.values()) <= GRAD_NORM_RTOL, max(grad_norm_err.values())
+    return check
+
+
+def train_path(dev, k2d, k3):
+    """Full-width VALL-E training steps (AR + NAR, dropout 0.1, ScaledAdam,
+    Eden) through kernels 2 and 3, with launch counts, a bit-equal repeated
+    step, and one micro-batch's loss and gradients at dropout 0 held against
+    a CPU copy of the model at the initial and at the trained weights."""
+    import copy
+    import functools
+
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.ops.fused_attention import (
+        fused_prefix_attention, fused_prefix_attention_backward)
+    from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
+    from valle_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = ModelConfig(attn_impl="fused")  # full width, dropout 0.1, f32
+    torch.manual_seed(SEED)
+    model = get_model(cfg)
+    rng = np.random.RandomState(SEED + 5)
+    batch = _train_batch(cfg, rng, dev)
+    nar_stage = cfg.num_quantizers // 2
+    checks = [gradient_check(model, batch, nar_stage, "initial")]
+
+    make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
+    state = init_train_state(model, make_opt, train_stage=0)
+    step = make_train_step(get_lr_fn("eden", 0.05, warmup_steps=200), train_stage=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(SEED)
+
+    state, metrics = step(state, batch, gen, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = TRAIN_A * (cfg.num_layers + cfg.nar_num_layers)
+    losses, step_s, launches = [], [], []
+    for _ in range(TRAIN_STEPS):
+        fused_prefix_attention.launches = 0
+        fused_prefix_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen, 0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append({"prefix_attention": fused_prefix_attention.launches,
+                         "prefix_attention_bwd": fused_prefix_attention_backward.launches})
+        losses.append(float(metrics["loss"]))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    assert all(np.isfinite(losses)), losses
+    want = {"prefix_attention": per_step, "prefix_attention_bwd": per_step}
+    assert all(c == want for c in launches), f"launch counts {launches}, expected {want} per step"
+
+    breakdown = profile_breakdown(lambda: step(state, batch, gen, 0))
+
+    # the same state and generator state give bit-equal losses and parameters
+    twin = copy.deepcopy(state)
+    _, m1 = step(state, batch, torch.Generator().manual_seed(SEED + 1), 0)
+    _, m2 = step(twin, batch, torch.Generator().manual_seed(SEED + 1), 0)
+    repeat_equal = float(m1["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(state.model.parameters(), twin.model.parameters()))
+    assert repeat_equal, (float(m1["loss"]), float(m2["loss"]))
+    del twin
+    checks.append(gradient_check(model, batch, nar_stage,
+                                 f"after {state.step} steps at dropout {cfg.dropout}"))
+
+    med = float(np.median(step_s))
+    frames = TRAIN_A * TRAIN_B * TRAIN_T
+    # derived: kernel ms at the training shapes x launches
+    k2_ms = (k2d["prefix"]["ms"] + k2d["dense_self"]["ms"]) * per_step / 2
+    k3_ms = (k3["prefix float32 rate 0.1"]["ms"]
+             + k3["dense_self float32 rate 0.1"]["ms"]) * per_step / 2
+    emit({"phase": "train_path", "model": "VALL-E default ModelConfig (d=1024, 16 heads, "
+          "12+12 layers, Q=8), attn_impl=fused, dropout 0.1, f32, train_stage 0",
+          "params": n_params, "accumulation": TRAIN_A, "batch": TRAIN_B, "text_tokens": TRAIN_S,
+          "frames": TRAIN_T, "optimizer": "ScaledAdam lr 0.05 clip 2.0 betas (0.9, 0.95), Eden "
+          "warmup 200", "losses": losses, "step_s": step_s, "step_s_median": med,
+          "frames_per_s": frames / med, "audio_s_per_s": frames / 75.0 / med,
+          "peak_mem_gib": peak_gib, "launches_per_step": launches[0],
+          "kernel2_ms_per_step": k2_ms, "kernel3_ms_per_step": k3_ms,
+          "kernel2_share": k2_ms / 1e3 / med, "kernel3_share": k3_ms / 1e3 / med,
+          "profiled_step": breakdown, "repeat_bit_equal": repeat_equal,
+          "dropout0_max_grad_rel_err": [c["max_grad_rel_err"] for c in checks],
+          "dropout0_flipped_gates": [c["flipped_gates"] for c in checks]})
+    return launches[0]
+
+
 def main() -> int:
     import torch
 
@@ -337,24 +830,36 @@ def main() -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
 
     t0 = time.perf_counter()
-    seconds = cuda_build.build(["ragged_decode", "prefix_attention"])
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": seconds})
+    seconds = cuda_build.build(KERNELS)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": seconds,
+          "ptxas": {name: ptxas_summary(cuda_build.log_path(name)) for name in KERNELS}})
 
     k1 = check_ragged_decode(dev)
-    k2 = check_prefix_attention(dev)
-    launches = main_path(dev)
+    check_prefix_attention(dev)
+    k2d = check_dropout_forward(dev)
+    k3 = check_backward(dev)
+    gen_launches = main_path(dev)
+    train_launches = train_path(dev, k2d, k3)
 
-    def entry(name, source, replaces, res):
+    def entry(name, source, replaces, res, path):
+        by_path = {"generate": gen_launches.get(name, 0),
+                   "train_step": train_launches.get(name, 0)}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": res["max_abs_err"],
-                "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+                "launches": by_path[path], "launches_by_path": by_path, "case": res["case"],
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "ms_spread": [res["ms_min"], res["ms_max"]], "device_ms": res["device_ms"],
+                "plain_ms": res["plain_ms"],
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "library_ms": res["library_ms"]}
 
     emit({"kernels": [
         entry("ragged_decode", "valle_tpu_torch/csrc/ragged_decode.cu",
-              "valle_tpu/ops/ragged_decode.py:56", k1),
+              "valle_tpu/ops/ragged_decode.py:56", k1, "generate"),
         entry("prefix_attention", "valle_tpu_torch/csrc/prefix_attention.cu",
-              "valle_tpu/ops/fused_attention.py:110", k2),
+              "valle_tpu/ops/fused_attention.py:110", k2d["dense_self"], "train_step"),
+        entry("prefix_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
+              "valle_tpu/ops/fused_attention.py:139", k3["dense_self float32 rate 0.1"],
+              "train_step"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,6 +19,9 @@ import valle_tpu_torch.models, valle_tpu_torch.models.valle, valle_tpu_torch.sam
 import valle_tpu_torch.nn.layers, valle_tpu_torch.ops.attention_impl
 import valle_tpu_torch.ops.ragged_decode, valle_tpu_torch.ops.fused_attention
 import valle_tpu_torch.ops.cuda_build, valle_tpu_torch.utils.bridge
+import valle_tpu_torch.ops.philox, valle_tpu_torch.nn.dropout
+import valle_tpu_torch.optim, valle_tpu_torch.optim.scaled_adam, valle_tpu_torch.optim.schedulers
+import valle_tpu_torch.train, valle_tpu_torch.train.state, valle_tpu_torch.train.step
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "valle_tpu") or m.startswith(("jax.", "flax.", "valle_tpu.")))
 print(",".join(bad))
@@ -76,7 +79,8 @@ def test_entry_points_raise_without_cuda_unless_cpu():
 
 
 def test_kernel_wrappers_use_plain_versions_on_cpu():
-    from valle_tpu_torch.ops.fused_attention import fused_prefix_attention
+    from valle_tpu_torch.ops.fused_attention import (
+        fused_prefix_attention, fused_prefix_attention_backward)
     from valle_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
     g = torch.Generator().manual_seed(0)
@@ -86,6 +90,12 @@ def test_kernel_wrappers_use_plain_versions_on_cpu():
     fused_prefix_attention(q, k, k, None, prefix_s=2)
     ragged_decode_attention(q[:, :1], k, k, torch.tensor([5, 0], dtype=torch.int32))
     assert (fused_prefix_attention.launches, ragged_decode_attention.launches) == before
+    q.requires_grad_()
+    back = fused_prefix_attention_backward.launches
+    out = fused_prefix_attention(q, k, k, None, prefix_s=2, dropout_rate=0.1, dropout_seed=1)
+    out.sum().backward()
+    assert fused_prefix_attention.launches == before[0]
+    assert fused_prefix_attention_backward.launches == back
 
 
 def test_cuda_build_needs_no_nvcc_at_import():
@@ -93,4 +103,10 @@ def test_cuda_build_needs_no_nvcc_at_import():
 
     assert (cuda_build.CSRC / "ragged_decode.cu").exists()
     assert (cuda_build.CSRC / "prefix_attention.cu").exists()
+    assert (cuda_build.CSRC / "prefix_attention_bwd.cu").exists()
+    assert (cuda_build.CSRC / "philox.cuh").exists()
     assert cuda_build.BUILD_DIR.parts[-2:] == ("build", "valle_tpu_torch")
+    # the compiler's log is keyed like the library, so it always belongs to it
+    lib, log = cuda_build._lib_path("prefix_attention_bwd"), cuda_build.log_path(
+        "prefix_attention_bwd")
+    assert log.parent == lib.parent and log.stem == lib.stem and log.suffix == ".log"

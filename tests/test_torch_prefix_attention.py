@@ -130,8 +130,10 @@ def test_fully_masked_rows_are_uniform_over_structural_columns():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         fused_prefix_attention(q, q, q, None, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        fused_prefix_attention(q, q, q, None, dropout_rate=1.0, dropout_seed=0)
     with pytest.raises(ValueError, match="Tq == Tk"):
         fused_prefix_attention(q, q[:, :3], q[:, :3], None, prefix_s=1)
     with pytest.raises(ValueError, match="kv_bias"):

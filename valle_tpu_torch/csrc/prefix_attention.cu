@@ -1,4 +1,4 @@
-// Prefix-LM / dense attention forward for Hopper (sm_90a), dropout 0.
+// Prefix-LM / dense attention forward for Hopper (sm_90a), with dropout.
 //
 // Replaces: valle_tpu/ops/fused_attention.py::_fwd_kernel (driven by
 // _pallas_fwd, pallas_call at fused_attention.py:233, wrapper
@@ -16,6 +16,15 @@
 // A structurally masked column is excluded; the key bias (-1e9 at padding)
 // is added.  Every row sees at least one column structurally, so no row is
 // empty.
+//
+// Dropout (training): as in the TPU kernel, the row sum l accumulates the
+// probabilities before dropout, and the dropped probabilities, scaled by
+// 1 / (1 - rate), go into the P.V accumulator; out = acc / l.  The keep bits
+// are Philox4x32-10 per element (philox.cuh), so the backward kernel and the
+// plain PyTorch version draw the same mask for any tiling.  When a gradient is
+// needed the kernel also writes the row log-sum-exp m + log l, (B, H, Tq) f32,
+// from which the backward recomputes P.  At rate 0 with no LSE requested the
+// launch runs the dropout-free instantiation, the same code as inference.
 //
 // What bounds it on the H100: operations.  At the generation shapes (prefill
 // B=8, T~300; NAR passes T~600-900) the work is ~4 B H Tq Tk_eff Dh flops
@@ -37,6 +46,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -54,13 +65,14 @@ constexpr size_t smem_floats() {
   return (size_t)DH * LD * 2 + (size_t)BK * DH + (size_t)BK * LD + BK + BQ * 2;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kDrop>
 __global__ void __launch_bounds__(kThreads) prefix_attention_kernel(
     const T* __restrict__ q, long long q_sb, long long q_st,
     const T* __restrict__ k, long long k_sb, long long k_st,
     const T* __restrict__ v, long long v_sb, long long v_st,
-    const float* __restrict__ kv_bias, T* __restrict__ out,
-    int Tq, int Tk, int H, int prefix_s, float scale) {
+    const float* __restrict__ kv_bias, T* __restrict__ out, float* __restrict__ lse,
+    int Tq, int Tk, int H, int prefix_s, float scale, unsigned drop_threshold,
+    float inv_keep, uint2 seed) {
   constexpr int DJ = DH / 16;  // output dims per thread
   extern __shared__ __align__(16) float smem[];
   float* sQt = smem;            // [DH][LD]  q^T, pre-scaled
@@ -168,6 +180,25 @@ __global__ void __launch_bounds__(kThreads) prefix_attention_kernel(
     if (pb == 0) sAlpha[rb] = alpha;
     __syncthreads();
 
+    if constexpr (kDrop) {
+      // Dropout on the unnormalised probabilities: thread (row, 4-column
+      // group); a warp covers 32 consecutive rows of one group.
+      const int r = tid & (BQ - 1);
+      const unsigned bh = (unsigned)(b * H + h);
+#pragma unroll
+      for (int m = 0; m < BK / 16; ++m) {
+        const int g = (tid >> 6) + 4 * m;
+        const unsigned keep =
+            philox_keep4((unsigned)(k0 >> 2) + g, (unsigned)(r0 + r), bh, seed, drop_threshold);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* sp = &sP[(4 * g + e) * LD + r];
+          *sp = ((keep >> e) & 1u) ? *sp * inv_keep : 0.f;
+        }
+      }
+      __syncthreads();
+    }
+
     // Output: rows ty*4 + i, dims tx + 16 j.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -189,7 +220,11 @@ __global__ void __launch_bounds__(kThreads) prefix_attention_kernel(
     }
   }
 
-  if (pb == 0) sL[rb] = l_run;
+  if (pb == 0) {
+    sL[rb] = l_run;
+    if (lse != nullptr && r0 + rb < Tq)
+      lse[((long long)b * H + h) * Tq + r0 + rb] = m_run + logf(l_run);
+  }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -202,13 +237,20 @@ __global__ void __launch_bounds__(kThreads) prefix_attention_kernel(
   }
 }
 
-template <typename T, int DH>
+struct Dropout {
+  unsigned threshold;  // keep when bits >= threshold; 0 = no dropout
+  float inv_keep;      // 1 / (1 - rate)
+  uint2 seed;
+};
+
+template <typename T, int DH, bool kDrop>
 cudaError_t launch_typed(const void* q, long long q_sb, long long q_st, const void* k,
                          long long k_sb, long long k_st, const void* v, long long v_sb,
-                         long long v_st, const float* kv_bias, void* out, int B, int Tq,
-                         int Tk, int H, int prefix_s, cudaStream_t stream) {
+                         long long v_st, const float* kv_bias, void* out, float* lse, int B,
+                         int Tq, int Tk, int H, int prefix_s, Dropout drop,
+                         cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DH>();
-  auto kern = prefix_attention_kernel<T, DH>;
+  auto kern = prefix_attention_kernel<T, DH, kDrop>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -217,21 +259,34 @@ cudaError_t launch_typed(const void* q, long long q_sb, long long q_st, const vo
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k), k_sb, k_st,
-      static_cast<const T*>(v), v_sb, v_st, kv_bias, static_cast<T*>(out), Tq, Tk, H,
-      prefix_s, 1.f / sqrtf((float)DH));
+      static_cast<const T*>(v), v_sb, v_st, kv_bias, static_cast<T*>(out), lse, Tq, Tk, H,
+      prefix_s, 1.f / sqrtf((float)DH), drop.threshold, drop.inv_keep, drop.seed);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_drop(const void* q, long long q_sb, long long q_st, const void* k,
+                        long long k_sb, long long k_st, const void* v, long long v_sb,
+                        long long v_st, const float* kv_bias, void* out, float* lse, int B,
+                        int Tq, int Tk, int H, int prefix_s, Dropout drop,
+                        cudaStream_t stream) {
+  if (drop.threshold == 0)
+    return launch_typed<T, DH, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
+                                      out, lse, B, Tq, Tk, H, prefix_s, drop, stream);
+  return launch_typed<T, DH, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out,
+                                   lse, B, Tq, Tk, H, prefix_s, drop, stream);
 }
 
 template <typename T>
 cudaError_t launch_dh(int Dh, const void* q, long long q_sb, long long q_st, const void* k,
                       long long k_sb, long long k_st, const void* v, long long v_sb,
-                      long long v_st, const float* kv_bias, void* out, int B, int Tq,
-                      int Tk, int H, int prefix_s, cudaStream_t stream) {
+                      long long v_st, const float* kv_bias, void* out, float* lse, int B,
+                      int Tq, int Tk, int H, int prefix_s, Dropout drop, cudaStream_t stream) {
   switch (Dh) {
-    case 16: return launch_typed<T, 16>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
-    case 32: return launch_typed<T, 32>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
-    case 64: return launch_typed<T, 64>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
-    case 128: return launch_typed<T, 128>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, B, Tq, Tk, H, prefix_s, stream);
+    case 16: return launch_drop<T, 16>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, lse, B, Tq, Tk, H, prefix_s, drop, stream);
+    case 32: return launch_drop<T, 32>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, lse, B, Tq, Tk, H, prefix_s, drop, stream);
+    case 64: return launch_drop<T, 64>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, lse, B, Tq, Tk, H, prefix_s, drop, stream);
+    case 128: return launch_drop<T, 128>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, out, lse, B, Tq, Tk, H, prefix_s, drop, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -241,19 +296,23 @@ cudaError_t launch_dh(int Dh, const void* q, long long q_sb, long long q_st, con
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // q: (B, Tq, H, Dh) with batch / row strides q_sb / q_st in elements and
 // (H, Dh) contiguous; k, v likewise over Tk; kv_bias: (B, Tk) f32 or null;
-// out: (B, Tq, H, Dh) contiguous; prefix_s < 0 selects dense mode.
-// Returns the cudaError_t of the launch.
+// out: (B, Tq, H, Dh) contiguous; lse: (B, H, Tq) f32 or null (not written);
+// prefix_s < 0 selects dense mode.  drop_threshold: keep a probability when
+// its Philox bits are >= it (0 = no dropout); inv_keep = 1 / (1 - rate);
+// seed: the 64-bit Philox key.  Returns the cudaError_t of the launch.
 extern "C" int prefix_attention_launch(
     const void* q, long long q_sb, long long q_st, const void* k, long long k_sb,
     long long k_st, const void* v, long long v_sb, long long v_st, const float* kv_bias,
-    void* out, int dtype, int B, int Tq, int Tk, int H, int Dh, int prefix_s,
-    void* stream) {
+    void* out, float* lse, int dtype, int B, int Tq, int Tk, int H, int Dh, int prefix_s,
+    unsigned drop_threshold, float inv_keep, unsigned long long seed, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_threshold, inv_keep,
+                     make_uint2((unsigned)(seed & 0xFFFFFFFFull), (unsigned)(seed >> 32))};
   if (dtype == 0)
     return (int)launch_dh<float>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
-                                 out, B, Tq, Tk, H, prefix_s, s);
+                                 out, lse, B, Tq, Tk, H, prefix_s, drop, s);
   if (dtype == 1)
     return (int)launch_dh<__nv_bfloat16>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,
-                                         kv_bias, out, B, Tq, Tk, H, prefix_s, s);
+                                         kv_bias, out, lse, B, Tq, Tk, H, prefix_s, drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,12 @@
 
 ``get_model`` builds VALL-E or VALL-F from a :class:`ModelConfig` on the card
 (or on ``device``) in eval mode, with weights from PyTorch's default
-initialisers under the caller's ``torch.manual_seed``.  The Transformer TTS
-baseline is not ported yet.
+initialisers under the caller's ``torch.manual_seed``.  It casts the model to
+the config's compute dtype, which serves inference; training goes through
+``valle_tpu_torch.train.step.init_train_state``, which puts the model in train
+mode and refuses bf16 (the JAX package keeps f32 master weights under a bf16
+compute dtype; that is not ported yet).  The Transformer TTS baseline is not
+ported yet.
 """
 
 from __future__ import annotations

@@ -12,10 +12,12 @@ reference ``state_dict`` as it is and a JAX parameter tree through
 (``nar_audio_embeddings.{j}``), and with ``share_embedding`` the prediction
 layer j shares its weight with table j+2, as in the reference.
 
-This slice ports the inference surface and the deterministic forward
-(losses and metrics at dropout 0): the modules run in eval mode, and the
-random draws of training (NAR stage, prefix length, prompt starts) are
-passed in explicitly.
+Dropout is at the JAX model's rates (attention and layer dropout at
+``cfg.dropout``, the AR positions and the NAR audio position at 0.1, the NAR
+text position at 0, the prenets at 0.5 / 0.25) and active in train mode only.
+The random draws of training (NAR stage, prefix length of mode 1, prompt
+starts of mode 2) are taken from the forward's ``rng`` CPU generator unless
+given explicitly.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from valle_tpu_torch.models.config import ModelConfig
+from valle_tpu_torch.nn.dropout import Dropout
 from valle_tpu_torch.nn.embedding import SinePositionalEmbedding, TokenEmbedding
 from valle_tpu_torch.nn.layers import TransformerStack
 from valle_tpu_torch.nn.qdense import Dense
@@ -52,7 +55,16 @@ class _Transpose(nn.Module):
         return x.transpose(1, 2)
 
 
-class ConvPrenet(nn.Sequential):
+class _Prenet(nn.Sequential):
+    """``nn.Sequential`` whose dropout modules draw from the forward's rng."""
+
+    def forward(self, x, rng=None):
+        for mod in self:
+            x = mod(x, rng) if isinstance(mod, Dropout) else mod(x)
+        return x
+
+
+class ConvPrenet(_Prenet):
     """Text conv prenet: 3x(conv5 + BN + ReLU + dropout 0.5) + linear, as the
     reference's ``nn.Sequential`` (so its keys are ``1``, ``2``, ``5``, ``6``,
     ``9``, ``10`` and ``14``)."""
@@ -61,19 +73,19 @@ class ConvPrenet(nn.Sequential):
         mods = [_Transpose()]
         for _ in range(3):
             mods += [nn.Conv1d(d_model, d_model, kernel_size=5, padding=2),
-                     nn.BatchNorm1d(d_model), nn.ReLU(), nn.Dropout(0.5)]
+                     nn.BatchNorm1d(d_model), nn.ReLU(), Dropout(0.5)]
         mods += [_Transpose(), nn.Linear(d_model, d_model)]
         super().__init__(*mods)
 
 
-class MLPPrenet(nn.Sequential):
+class MLPPrenet(_Prenet):
     """Audio prenet: d->256->256->d with ReLU + dropout 0.25 (keys ``0``,
     ``3``, ``6``)."""
 
     def __init__(self, d_model: int, hidden: int = 256):
         super().__init__(
-            nn.Linear(d_model, hidden), nn.ReLU(), nn.Dropout(0.25),
-            nn.Linear(hidden, hidden), nn.ReLU(), nn.Dropout(0.25),
+            nn.Linear(d_model, hidden), nn.ReLU(), Dropout(0.25),
+            nn.Linear(hidden, hidden), nn.ReLU(), Dropout(0.25),
             nn.Linear(hidden, d_model),
         )
 
@@ -83,6 +95,16 @@ class VALLE(nn.Module):
     VALL-F layout)."""
 
     variant = "valle"
+
+    @staticmethod
+    def metric_names(train_stage: int):
+        """Keys of the forward() output dict at this train stage (the train
+        step's metric accumulator)."""
+        return {
+            0: ["loss", "ar_loss", "nar_loss", "ArTop10Accuracy", "NarTop10Accuracy", "frames"],
+            1: ["loss", "ar_loss", "ArTop10Accuracy", "frames"],
+            2: ["loss", "nar_loss", "NarTop10Accuracy", "frames"],
+        }[train_stage]
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -96,12 +118,14 @@ class VALLE(nn.Module):
         if cfg.add_prenet:
             self.ar_text_prenet = ConvPrenet(d)
             self.ar_audio_prenet = MLPPrenet(d)
-        self.ar_text_position = SinePositionalEmbedding(d, alpha=True, max_len=cfg.max_len)
-        self.ar_audio_position = SinePositionalEmbedding(d, alpha=True, max_len=cfg.max_len)
+        self.ar_text_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
+                                                        max_len=cfg.max_len)
+        self.ar_audio_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
+                                                         max_len=cfg.max_len)
         self.ar_decoder = TransformerStack(
             cfg.num_layers, d, cfg.nhead, d * 4, norm_first=cfg.norm_first,
             adaptive_norm=False, cross_attention=cross, final_norm=cfg.norm_first,
-            attn_impl=cfg.attn_impl, act_quant=cfg.act_quant,
+            attn_impl=cfg.attn_impl, act_quant=cfg.act_quant, dropout=cfg.dropout,
         )
         self.ar_predict_layer = Dense(d, v + 1, use_bias=False, act_quant=cfg.act_quant)
 
@@ -114,12 +138,13 @@ class VALLE(nn.Module):
             if cfg.add_prenet:
                 self.nar_text_prenet = ConvPrenet(nd)
                 self.nar_audio_prenet = MLPPrenet(nd)
-            self.nar_text_position = SinePositionalEmbedding(nd, max_len=cfg.max_len)
-            self.nar_audio_position = SinePositionalEmbedding(nd, max_len=cfg.max_len)
+            self.nar_text_position = SinePositionalEmbedding(nd, dropout=0.0, max_len=cfg.max_len)
+            self.nar_audio_position = SinePositionalEmbedding(nd, dropout=0.1,
+                                                              max_len=cfg.max_len)
             self.nar_decoder = TransformerStack(
                 cfg.nar_num_layers, nd, cfg.nar_nhead, nd * 4, norm_first=cfg.norm_first,
                 adaptive_norm=True, cross_attention=cross, final_norm=cfg.norm_first,
-                attn_impl=cfg.attn_impl, act_quant=cfg.act_quant,
+                attn_impl=cfg.attn_impl, act_quant=cfg.act_quant, dropout=cfg.dropout,
             )
             self.nar_predict_layers = nn.ModuleList(
                 Dense(nd, v, use_bias=False) for _ in range(q - 1)
@@ -148,28 +173,28 @@ class VALLE(nn.Module):
             out = e if out is None else out + e
         return out
 
-    def _ar_text(self, text):
-        x = self.ar_text_embedding(text)
+    def _ar_text(self, text, rng=None):
+        x = self.ar_text_embedding(text, rng)
         if self.cfg.add_prenet:
-            x = self.ar_text_prenet(x)
-        return self.ar_text_position(x)
+            x = self.ar_text_prenet(x, rng)
+        return self.ar_text_position(x, rng=rng)
 
-    def _ar_audio(self, tokens, positions=None, offset=0):
-        e = self.ar_audio_embedding(tokens)
+    def _ar_audio(self, tokens, positions=None, offset=0, rng=None):
+        e = self.ar_audio_embedding(tokens, rng)
         if self.cfg.add_prenet:
-            e = self.ar_audio_prenet(e)
-        return self.ar_audio_position(e, positions=positions, offset=offset)
+            e = self.ar_audio_prenet(e, rng)
+        return self.ar_audio_position(e, positions=positions, offset=offset, rng=rng)
 
-    def _nar_text(self, text):
-        x = self.nar_text_embedding(text)
+    def _nar_text(self, text, rng=None):
+        x = self.nar_text_embedding(text, rng)
         if self.cfg.add_prenet:
-            x = self.nar_text_prenet(x)
-        return self.nar_text_position(x)
+            x = self.nar_text_prenet(x, rng)
+        return self.nar_text_position(x, rng=rng)
 
-    def _nar_audio_pos(self, y_emb, positions=None):
+    def _nar_audio_pos(self, y_emb, positions=None, rng=None):
         if self.cfg.add_prenet:
-            y_emb = self.nar_audio_prenet(y_emb)
-        return self.nar_audio_position(y_emb, positions=positions)
+            y_emb = self.nar_audio_prenet(y_emb, rng)
+        return self.nar_audio_position(y_emb, positions=positions, rng=rng)
 
     def _pad_y_eos(self, codes0, y_mask_int):
         """Returns (ar_in, ar_tgt, t_full)."""
@@ -198,12 +223,15 @@ class VALLE(nn.Module):
         prompt_starts: Optional[torch.Tensor] = None,
         y_prompts_codes: Optional[torch.Tensor] = None,
         example_mask: Optional[torch.Tensor] = None,
+        rng: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Deterministic forward (dropout 0).  x (B,S) int, y (B,T,Q) int.
+        """Training / eval forward.  x (B,S) int, y (B,T,Q) int.
 
         train_stage: 0 = AR+NAR, 1 = AR only, 2 = NAR only.  The NAR stage,
-        the prefix length of mode 1 and the prompt starts of mode 2 are the
-        JAX forward's random draws; here the caller passes them.
+        the prefix length of mode 1 and the prompt starts of mode 2 are drawn
+        from ``rng`` (a CPU generator) unless given, as the JAX forward draws
+        them from its 'stage' stream; ``rng`` also feeds dropout, which is
+        active in train mode only.
         Returns a dict of summed losses and metric numerators.
         """
         cfg = self.cfg
@@ -219,16 +247,18 @@ class VALLE(nn.Module):
         total_loss = torch.zeros((), dtype=torch.float32, device=x.device)
         if train_stage in (0, 1):
             ar_loss, ar_metric = self._forward_ar(x, x_mask, ar_in, ar_tgt, y_mask, max_y,
-                                                  y_lens, example_mask)
+                                                  y_lens, example_mask, rng)
             total_loss = total_loss + ar_loss
             out["ar_loss"] = ar_loss
             out.update(ar_metric)
         if cfg.num_quantizers > 1 and train_stage in (0, 2):
             if nar_stage is None:
-                raise ValueError("nar_stage must be given (1..Q-1)")
+                if rng is None:
+                    raise ValueError("nar_stage must be given (1..Q-1), or an rng to draw it")
+                nar_stage = int(torch.randint(1, cfg.num_quantizers, (), generator=rng))
             nar_loss, nar_metric = self._forward_nar(
                 x, x_mask, codes, t_full, y_mask, y_lens, int(nar_stage), prefix_len,
-                prompt_starts, y_prompts_codes, example_mask,
+                prompt_starts, y_prompts_codes, example_mask, rng,
             )
             total_loss = total_loss + nar_loss
             out["nar_loss"] = nar_loss
@@ -239,12 +269,13 @@ class VALLE(nn.Module):
         out["frames"] = y_lens.sum().float()
         return out
 
-    def _forward_ar(self, x, x_mask, ar_in, ar_tgt, y_mask, max_y, y_lens, example_mask=None):
+    def _forward_ar(self, x, x_mask, ar_in, ar_tgt, y_mask, max_y, y_lens, example_mask=None,
+                    rng=None):
         cfg = self.cfg
         b, s = x.shape
         ty = ar_in.shape[1]
-        x_emb = self._ar_text(x)
-        y_emb = self._ar_audio(ar_in)
+        x_emb = self._ar_text(x, rng)
+        y_emb = self._ar_audio(ar_in, rng=rng)
         if cfg.prepend_bos:
             ar_y_mask = torch.cat([torch.zeros_like(y_mask[:, :1]), y_mask], 1)
         else:
@@ -253,13 +284,13 @@ class VALLE(nn.Module):
         if self.variant == "valle":
             key_pad = torch.cat([x_mask, ar_y_mask], 1)
             bias = mask_ops.AttnMaskSpec(mask_ops.mask_to_bias(key_pad), prefix_s=s)
-            dec, _, _ = self.ar_decoder(torch.cat([x_emb, y_emb], 1), attn_bias=bias)
+            dec, _, _ = self.ar_decoder(torch.cat([x_emb, y_emb], 1), attn_bias=bias, rng=rng)
             dec_y = dec[:, s:]
         else:  # vallf: causal self-attn over audio, cross-attn to text
             bias = mask_ops.AttnMaskSpec(mask_ops.mask_to_bias(ar_y_mask), prefix_s=0)
             mem_bias = mask_ops.AttnMaskSpec(mask_ops.mask_to_bias(x_mask))
             dec_y, _, _ = self.ar_decoder(y_emb, attn_bias=bias, memory=x_emb,
-                                          memory_bias=mem_bias)
+                                          memory_bias=mem_bias, rng=rng)
 
         logits = self.ar_predict_layer(dec_y)  # (B, Ty, V+1)
         pos = torch.arange(ty, device=x.device)[None, :]
@@ -274,7 +305,7 @@ class VALLE(nn.Module):
         return loss, {"ArTop10Accuracy": acc.float() * y_lens.sum().float()}
 
     def _forward_nar(self, x, x_mask, codes, t_full, y_mask, y_lens, nar_stage, prefix_len,
-                     prompt_starts, y_prompts_codes, example_mask=None):
+                     prompt_starts, y_prompts_codes, example_mask=None, rng=None):
         cfg = self.cfg
         b, s = x.shape
         dev = x.device
@@ -291,7 +322,7 @@ class VALLE(nn.Module):
         mode = cfg.prefix_mode
 
         y_nar_in = t_full[:, :-1]  # codebook-0 tokens with EOS at padding
-        x_emb = self._nar_text(x)
+        x_emb = self._nar_text(x, rng)
         stage_emb = self.nar_stage_embeddings[nar_stage - 1].weight  # (1, nd)
         codes_rest = codes[..., 1:]
         j_idx = torch.arange(1, q, device=dev)
@@ -308,7 +339,12 @@ class VALLE(nn.Module):
             tgt_ignore_extra = torch.zeros_like(y_mask)
         elif mode == 1:
             if prefix_len is None:
-                raise ValueError("prefix mode 1 needs prefix_len")
+                if rng is None:
+                    raise ValueError("prefix mode 1 needs prefix_len, or an rng to draw it")
+                int_low = int(0.25 * min_y_lens)
+                prefix_len = int(torch.randint(int_low, max(int_low * 2, int_low + 1), (),
+                                               generator=rng))
+                prefix_len = min(prefix_len, cfg.max_prefix_len)
             in_prefix = torch.arange(t, device=dev)[None, :] < prefix_len  # (1, T)
             w = (in_prefix[0][None, :, None] | (j_idx[None, None, :] < nar_stage)).float()
             y_emb = emb0(y_nar_in) + self._rest_gather(codes_rest, w)
@@ -320,7 +356,10 @@ class VALLE(nn.Module):
                 if prefix_len is None:
                     prefix_len = min(pcap, int(0.25 * min_y_lens))
                 if prompt_starts is None:
-                    raise ValueError("prefix mode 2 needs prompt_starts")
+                    if rng is None:
+                        raise ValueError("prefix mode 2 needs prompt_starts, or an rng")
+                    high = (y_lens.cpu() - prefix_len + 1).clamp(min=1)
+                    prompt_starts = (torch.rand(b, generator=rng) * high).long().to(dev)
                 seg_pos = prompt_starts[:, None] + torch.arange(pcap, device=dev)[None, :]
                 seg_pos = seg_pos.clamp(0, t - 1).long()
                 prompt_codes = codes.gather(1, seg_pos[..., None].expand(b, pcap, q))
@@ -355,19 +394,19 @@ class VALLE(nn.Module):
             y_pad = torch.cat([prompt_mask, y_mask], 1)
         else:
             y_full, y_pad = y_emb, y_mask
-        y_pos = self._nar_audio_pos(y_full, positions=positions)
+        y_pos = self._nar_audio_pos(y_full, positions=positions, rng=rng)
 
         if self.variant == "valle":
             key_pad = torch.cat([x_mask, y_pad], 1)
             bias = mask_ops.AttnMaskSpec(mask_ops.mask_to_bias(key_pad))
             dec, _, _ = self.nar_decoder(torch.cat([x_emb, y_pos], 1), stage_emb=stage_emb,
-                                         attn_bias=bias)
+                                         attn_bias=bias, rng=rng)
             dec_y = dec[:, s + seq_prompt_len:]
         else:
             bias = mask_ops.AttnMaskSpec(mask_ops.mask_to_bias(y_pad))
             mem_bias = mask_ops.AttnMaskSpec(mask_ops.mask_to_bias(x_mask))
             dec, _, _ = self.nar_decoder(y_pos, stage_emb=stage_emb, attn_bias=bias,
-                                         memory=x_emb, memory_bias=mem_bias)
+                                         memory=x_emb, memory_bias=mem_bias, rng=rng)
             dec_y = dec[:, seq_prompt_len:]
 
         logits = self.nar_predict_layers[nar_stage - 1](dec_y)

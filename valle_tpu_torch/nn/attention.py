@@ -12,6 +12,9 @@ scales, ``(kc, vc, layer)`` for a cache in the model dtype, with kc/vc of
 shape (L, B, C, H, Dh).  Unlike JAX, the port writes the new column into the
 cache in place (no copy of the cache per step) and returns the same tensors.
 The per-slot ``cache_index`` branch (continuous batching) is not ported yet.
+
+Attention-probability dropout (``dropout``) is active in train mode only;
+its seeds are drawn from the ``rng`` generator of ``forward``.
 """
 
 from __future__ import annotations
@@ -70,10 +73,11 @@ def _decode_attention_quantized(q, k8, v8, ks, vs, attn_bias):
 
 class MultiheadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
-                 attn_impl: str = "xla", act_quant: bool = False):
+                 attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.attn_impl = attn_impl
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim)) if bias else None
         nn.init.xavier_uniform_(self.in_proj_weight)
@@ -89,6 +93,7 @@ class MultiheadAttention(nn.Module):
         cache_index: Optional[int] = None,
         kv_lengths: Optional[torch.Tensor] = None,
         return_kv: bool = False,
+        rng: Optional[torch.Generator] = None,
     ):
         """Args:
           x_q: (B, Tq, D) queries (pre-projection).
@@ -102,6 +107,7 @@ class MultiheadAttention(nn.Module):
             decode read through kernel 1 so slot b reads only columns
             [0, kv_lengths[b]); None keeps the dense read.
           return_kv: also return the projected (k, v) for cache prefill.
+          rng: CPU generator of the dropout seeds (train mode only).
 
         Returns (out, new_cache_or_None, kv_or_None).
         """
@@ -152,7 +158,8 @@ class MultiheadAttention(nn.Module):
         else:
             k_att, v_att = k, v
 
-        out = dot_product_attention(q, k_att, v_att, bias=attn_bias, impl=self.attn_impl)
+        out = dot_product_attention(q, k_att, v_att, bias=attn_bias, impl=self.attn_impl,
+                                    dropout_rate=self.dropout if self.training else 0.0, rng=rng)
         out = self.out_proj(out.reshape(b, tq, d))
         kv = (k, v) if return_kv else None
         return out, new_cache, kv

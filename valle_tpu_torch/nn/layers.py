@@ -10,6 +10,11 @@ Parameter names follow the reference PyTorch model: ``norm1``, ``norm2``
 (``norm2`` gates cross-attention and ``norm3`` the feed-forward block in a
 VALL-F layer), ``self_attn``, ``multihead_attn``, ``linear1``, ``linear2``,
 and ``layers.{i}`` / ``norm`` in the stack.
+
+Dropout sits where the JAX layer puts it: on the attention probabilities,
+after each attention block (``sa_drop``, ``ca_drop``), after the feed-forward
+activation (``ff_drop``) and after its output (``ff_out_drop``), all at the
+layer's rate, in train mode only, drawn from the ``rng`` of ``forward``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from valle_tpu_torch.nn.attention import MultiheadAttention
+from valle_tpu_torch.nn.dropout import dropout as _dropout
 from valle_tpu_torch.nn.qdense import Dense
 
 
@@ -71,50 +77,56 @@ class TransformerLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  norm_first: bool = True, adaptive_norm: bool = False,
                  cross_attention: bool = False, attn_impl: str = "xla",
-                 act_quant: bool = False):
+                 act_quant: bool = False, dropout: float = 0.0):
         super().__init__()
         self.norm_first = norm_first
         self.cross_attention = cross_attention
+        self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, nhead, attn_impl=attn_impl,
-                                            act_quant=act_quant)
+                                            act_quant=act_quant, dropout=dropout)
         self.linear1 = Dense(d_model, dim_feedforward, act_quant=act_quant)
         self.linear2 = Dense(dim_feedforward, d_model, act_quant=act_quant)
         self.norm1 = conditioned_norm(d_model, adaptive_norm)
         self.norm2 = conditioned_norm(d_model, adaptive_norm)
         if cross_attention:
             self.multihead_attn = MultiheadAttention(d_model, nhead, attn_impl=attn_impl,
-                                                     act_quant=act_quant)
+                                                     act_quant=act_quant, dropout=dropout)
             self.norm3 = conditioned_norm(d_model, adaptive_norm)
-
-    def _ff_block(self, x):
-        return self.linear2(F.relu(self.linear1(x)))
 
     def forward(self, x, *, stage_emb=None, attn_bias=None, memory=None,
                 memory_bias=None, kv_cache=None, cache_index=None,
-                kv_lengths=None, return_kv=False):
+                kv_lengths=None, return_kv=False, rng=None):
         """Returns (x, new_cache_or_None, kv_or_None)."""
         norm_ff = self.norm3 if self.cross_attention else self.norm2
+        rate = self.dropout if self.training else 0.0
+
+        def drop(h):
+            return _dropout(h, rate, rng)
+
+        def ff_block(h):
+            return drop(self.linear2(drop(F.relu(self.linear1(h)))))
 
         def sa_block(h):
-            return self.self_attn(h, attn_bias=attn_bias, kv_cache=kv_cache,
-                                  cache_index=cache_index, kv_lengths=kv_lengths,
-                                  return_kv=return_kv)
+            out, new_cache, kv = self.self_attn(
+                h, attn_bias=attn_bias, kv_cache=kv_cache, cache_index=cache_index,
+                kv_lengths=kv_lengths, return_kv=return_kv, rng=rng)
+            return drop(out), new_cache, kv
 
         def ca_block(h):
-            return self.multihead_attn(h, memory, attn_bias=memory_bias)[0]
+            return drop(self.multihead_attn(h, memory, attn_bias=memory_bias, rng=rng)[0])
 
         if self.norm_first:
             h, new_cache, kv = sa_block(self.norm1(x, stage_emb))
             x = x + h
             if self.cross_attention:
                 x = x + ca_block(self.norm2(x, stage_emb))
-            x = x + self._ff_block(norm_ff(x, stage_emb))
+            x = x + ff_block(norm_ff(x, stage_emb))
         else:
             h, new_cache, kv = sa_block(x)
             x = self.norm1(x + h, stage_emb)
             if self.cross_attention:
                 x = self.norm2(x + ca_block(x), stage_emb)
-            x = norm_ff(x + self._ff_block(x), stage_emb)
+            x = norm_ff(x + ff_block(x), stage_emb)
         return x, new_cache, kv
 
 
@@ -124,18 +136,19 @@ class TransformerStack(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int,
                  norm_first: bool = True, adaptive_norm: bool = False,
                  cross_attention: bool = False, final_norm: bool = True,
-                 attn_impl: str = "xla", act_quant: bool = False):
+                 attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerLayer(d_model, nhead, dim_feedforward, norm_first=norm_first,
                              adaptive_norm=adaptive_norm, cross_attention=cross_attention,
-                             attn_impl=attn_impl, act_quant=act_quant)
+                             attn_impl=attn_impl, act_quant=act_quant, dropout=dropout)
             for _ in range(num_layers)
         )
         self.norm = conditioned_norm(d_model, adaptive_norm) if final_norm and norm_first else None
 
     def forward(self, x, kv_cache=None, *, stage_emb=None, attn_bias=None, memory=None,
-                memory_bias=None, cache_index=None, kv_lengths=None, return_kv=False):
+                memory_bias=None, cache_index=None, kv_lengths=None, return_kv=False,
+                rng=None):
         """kv_cache: a stacked decode cache, (kc, vc) or (kc, vc, ks, vs) with
         a leading layer axis, updated in place.
 
@@ -147,7 +160,7 @@ class TransformerStack(nn.Module):
                 x, stage_emb=stage_emb, attn_bias=attn_bias, memory=memory,
                 memory_bias=memory_bias,
                 kv_cache=None if kv_cache is None else (*kv_cache, i),
-                cache_index=cache_index, kv_lengths=kv_lengths, return_kv=return_kv,
+                cache_index=cache_index, kv_lengths=kv_lengths, return_kv=return_kv, rng=rng,
             )
             if return_kv:
                 ks.append(kv[0])

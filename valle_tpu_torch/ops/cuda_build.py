@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/valle_tpu_torch/lib<name>_<hash>.so`` at
-first use (the hash is of the source, so an edited source is rebuilt), and
-loaded with ``ctypes``.  Nothing here runs at import time: the CPU tests
-import every module on a machine without ``nvcc``.
+first use (the hash is of the source and the shared ``*.cuh`` headers, so an
+edited source is rebuilt; the compiler's output goes beside it as
+``lib<name>_<hash>.log``), and loaded with ``ctypes``.  Nothing here runs at
+import time: the CPU tests import every module on a machine without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -40,8 +42,16 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of ``name``, keyed by its source and the shared headers."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    """The ``nvcc -Xptxas -v`` output of the build of ``name``'s library."""
+    return _lib_path(name).with_suffix(".log")
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -65,7 +75,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.log").write_text(log)
+        log_path(name).write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue

@@ -1,0 +1,134 @@
+"""The training step: loss, gradients, optimizer update, metrics — the twin of
+``valle_tpu/train/step.py``:
+
+  - reduction "sum" loss, no normalisation before the optimizer;
+  - gradients summed over the A micro-batches of the batch's leading axis
+    before one optimizer step (``backward`` accumulates into ``.grad``);
+  - stage-filtered parameters: only ``ar_*`` / ``nar_*`` parameters get
+    gradients and optimizer state at stages 1 / 2;
+  - a global grad-norm clip (1.0 for plain Adam / AdamW only);
+  - the learning rate from ``lr_fn(step, epoch)``, and model averaging.
+
+The step takes a CPU ``torch.Generator`` as its random source: dropout seeds
+and the forward's draws (NAR stage, prefix length) come from it, so drawing
+them never syncs the card, and the same generator state repeats a step.
+Training runs in float32; mixed precision (f32 master weights, bf16
+compute) is not ported yet, and ``init_train_state`` refuses bf16.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from valle_tpu_torch.train.state import TrainState, partition_params, update_model_avg
+
+
+def _forward(model, micro: Dict[str, torch.Tensor], a: int, train_stage: int, rng):
+    kw = {}
+    if "prompt_codes" in micro:
+        kw["y_prompts_codes"] = micro["prompt_codes"][a]
+    if "example_mask" in micro:
+        kw["example_mask"] = micro["example_mask"][a]
+    return model(micro["text_tokens"][a], micro["text_tokens_lens"][a],
+                 micro["audio_features"][a], micro["audio_features_lens"][a],
+                 train_stage=train_stage, rng=rng, **kw)
+
+
+def make_train_step(
+    lr_fn: Callable[[int, int], float],
+    *,
+    train_stage: int = 0,
+    clip_grad_norm: Optional[float] = None,
+    average_period: int = 0,
+    deterministic: bool = False,
+):
+    """Returns ``step(state, batch, rng, epoch) -> (state, metrics)``; the
+    state is updated in place and returned.
+
+    ``batch`` is a dict with a leading micro-batch axis A: text_tokens
+    (A,B,S), text_tokens_lens (A,B), audio_features (A,B,T,Q),
+    audio_features_lens (A,B), and optionally prompt_codes (A,B,P,Q) for
+    prefix mode 4 and example_mask (A,B).  ``deterministic`` turns dropout
+    off (the model runs in eval mode); the forward's draws still come from
+    ``rng``.
+    """
+
+    def step(state: TrainState, batch: dict, rng: torch.Generator, epoch: int = 0):
+        model, opt = state.model, state.optimizer
+        model.train(not deterministic)
+        opt.zero_grad(set_to_none=True)
+        metrics = None
+        for a in range(batch["text_tokens"].shape[0]):
+            out = _forward(model, batch, a, train_stage, rng)
+            out["loss"].backward()
+            names = model.metric_names(train_stage)
+            part = {k: out[k].detach() for k in names}
+            metrics = part if metrics is None else {k: metrics[k] + part[k] for k in names}
+
+        if clip_grad_norm is not None:
+            grads = [p.grad for p in partition_params(model, train_stage)[0].values()
+                     if p.grad is not None]
+            gnorm = torch.stack(torch._foreach_norm(grads)).pow(2).sum().sqrt()
+            torch._foreach_mul_(grads, (clip_grad_norm / (gnorm + 1e-12)).clamp(max=1.0))
+
+        lr = lr_fn(state.step, epoch)
+        opt.step(lr=lr)
+        opt.zero_grad(set_to_none=True)
+        state.step += 1
+        if average_period and state.model_avg is not None:
+            params = dict(model.named_parameters(remove_duplicate=True))
+            update_model_avg(state.model_avg, params, state.step, average_period)
+        metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(*, train_stage: int = 0):
+    """Validation loss / metrics: no dropout and no gradients; the NAR stage
+    draw uses ``rng``.  Returns ``eval_step(model, batch, rng) -> out`` for
+    one micro-batch (no leading A axis)."""
+
+    def eval_step(model, batch: dict, rng: torch.Generator):
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                return _forward(model, {k: v[None] for k, v in batch.items()}, 0,
+                                train_stage, rng)
+        finally:
+            model.train(was_training)
+
+    return eval_step
+
+
+def init_train_state(
+    model,
+    make_optimizer: Callable,
+    *,
+    train_stage: int = 0,
+    with_model_avg: bool = False,
+) -> TrainState:
+    """The state of a fresh run: ``model`` in train mode, the optimizer built
+    by ``make_optimizer(params)`` over the stage's trainable parameters
+    only (the frozen ones get no gradient and no optimizer state), and an f32
+    copy of every parameter when ``with_model_avg``."""
+    if model.cfg.dtype != "float32" or any(
+            p.dtype != torch.float32 for p in model.parameters() if p.is_floating_point()):
+        raise NotImplementedError(
+            "training runs in float32; bf16 mixed precision (f32 master weights) is not "
+            "ported yet")
+    model.train()
+    trainable, frozen = partition_params(model, train_stage)
+    for p in trainable.values():
+        p.requires_grad_(True)
+    for p in frozen.values():
+        p.requires_grad_(False)
+    model_avg = None
+    if with_model_avg:
+        model_avg = {name: p.detach().float().clone()
+                     for name, p in model.named_parameters(remove_duplicate=True)}
+    return TrainState(step=0, model=model, optimizer=make_optimizer(list(trainable.values())),
+                      model_avg=model_avg)
