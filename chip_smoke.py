@@ -8,8 +8,8 @@ ends the run with a non-zero exit code):
 
   1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
      (TF32 is switched off for matmuls and cuDNN);
-  2. build: the three kernels from ``valle_tpu_torch/csrc`` with ``nvcc``, in
-     parallel, with each one's most registers and spilled bytes;
+  2. build: the three kernel sources from ``valle_tpu_torch/csrc`` with
+     ``nvcc``, in parallel, with each one's most registers and spilled bytes;
   3. kernel 1 (ragged decode attention) against its plain PyTorch version at
      decode shapes, int8 / f32 / bf16 caches;
   4. kernel 2 (prefix-LM / dense attention) against its plain version in
@@ -19,15 +19,28 @@ ends the run with a non-zero exit code):
      Philox bits, and the keep rate within 4 sigma of 0.9;
   6. kernel 3 (the backward) against its plain version in four mask modes,
      at rates 0 and 0.1, in f32 and bf16, with a bit-equal rerun;
-  7. generate: full-width VALL-E (the default ModelConfig, seeded random
+  7. kernel 4 (dense-bias attention, forward and backward) against its plain
+     version: the Transformer TTS decoder's causal + padding bias at the
+     training shapes in f32 and bf16, a soft per-head bias and a (1, 1, Tq,
+     Tk) bias with d(bias), Tq != Tk, and the inference shape, with
+     bit-equal reruns;
+  8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
      decode logits held against a CPU copy of the model, and timings;
-  8. train: full-width VALL-E training steps (AR + NAR, dropout 0.1,
+  9. train: full-width VALL-E training steps (AR + NAR, dropout 0.1,
      ScaledAdam + Eden, B=4, S=128, T=752, accumulation 2) with launch counts
      per step, a bit-equal repeated step, and one micro-batch's loss and
      gradients at dropout 0 held against a CPU copy of the model that
      follows the card's ReLU gates, at the initial and the trained weights;
-  9. a ``kernels`` summary line, then the last line
+ 10. tts_train: full-width Transformer TTS baseline training steps
+     (``attn_impl="flash"``, attention dropout 0, B=4, S=128, T=938 mel
+     frames) with launch counts per step, a bit-equal repeated step, and the
+     loss and gradients in eval mode held against a CPU copy by the same
+     ReLU-gate method;
+ 11. tts_inference: the same model's greedy mel loop on 8 requests for 200
+     steps, with launch counts and the first steps' mels held against a CPU
+     copy;
+ 12. a ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Kernel times are the median of 5 windows of back-to-back calls (CUDA
@@ -48,7 +61,7 @@ import time
 import numpy as np
 
 SEED = 0
-KERNELS = ["ragged_decode", "prefix_attention", "prefix_attention_bwd"]
+KERNELS = ["ragged_decode", "prefix_attention", "prefix_attention_bwd"]  # kernel 4 is in 2 / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}  # dense, no TF32
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -82,9 +95,13 @@ def cuda_time(fn, iters: int = 50, windows: int = 5, warmup: int = 3) -> dict:
 
 def device_ms(fn, kernel_names, iters: int = 20):
     """Device milliseconds per call of ``fn()`` spent in the kernels whose
-    names contain one of ``kernel_names``, from ``torch.profiler`` (CUPTI);
-    None when the profiler records no device time.  Unlike :func:`cuda_time`
-    this leaves out the host's launch overhead between calls."""
+    names contain one of ``kernel_names``, from ``torch.profiler`` (CUPTI):
+    the mean device time per launch of each such kernel, summed over the
+    kernels that one call launches once each.  The mean is taken over the
+    launches the profiler recorded, because it can miss some: its total
+    over 5 calls of a one-kernel wrapper has come out at a fifth to four
+    fifths of the event time.  None when it records no device time.  Unlike :func:`cuda_time` this leaves out the host's launch
+    overhead between calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -94,9 +111,10 @@ def device_ms(fn, kernel_names, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if any(n in e.key for n in kernel_names))
-    return total / 1e3 / iters if total > 0 else None
+    per_launch = [e.self_device_time_total / e.count for e in prof.key_averages()
+                  if e.count and e.self_device_time_total > 0
+                  and any(n in e.key for n in kernel_names)]
+    return sum(per_launch) / 1e3 if per_launch else None
 
 
 def ptxas_summary(log_path) -> dict:
@@ -416,6 +434,147 @@ def check_backward(dev):
 
 
 # ---------------------------------------------------------------- phase 7
+# The Transformer TTS shapes: training B=4, H=16, Dh=64 over T=938 mel frames
+# (10 s at 24 kHz, hop 256) with S=128 text tokens; inference B=8 over
+# 200 + 1 frames.
+
+TTS_B, TTS_S, TTS_T, TTS_H, TTS_DH = 4, 128, 938, 16, 64
+INF_B, INF_S, INF_STEPS = 8, 64, 200
+
+
+def _decoder_bias(rng, b: int, t: int, lo: int):
+    """(B, 1, T, T) {0, -1e9}: causal plus key padding past a length in
+    [lo, t]; the first row of the batch is full."""
+    lens = rng.randint(lo, t + 1, b)
+    lens[0] = t
+    col = np.arange(t)
+    masked = (col[None, :] > col[:, None])[None] | (col[None, None, :] >= lens[:, None, None])
+    return np.where(masked, -1e9, 0.0).astype(np.float32)[:, None]
+
+
+def _inference_bias(n: int, step: int):
+    """(1, 1, n, n) bias of inference step ``step``: row r sees columns
+    <= min(r, step)."""
+    col = np.arange(n)
+    masked = (col[None, :] > col[:, None]) | (col[None, :] > step)
+    return np.where(masked, -1e9, 0.0).astype(np.float32)[None, None]
+
+
+def check_flash_bias(dev):
+    """Kernel 4 forward and backward against its plain version, with
+    bit-equal reruns, in f32 and bf16, at the training and inference shapes
+    of the Transformer TTS decoder, with soft and broadcast biases, Tq != Tk,
+    and d(bias) on and off."""
+    import torch
+    from torch.nn import functional as F
+
+    from valle_tpu_torch.ops import flash_attention as fl
+
+    rng = np.random.RandomState(SEED + 6)
+    b, t, h, dh = TTS_B, TTS_T, TTS_H, TTS_DH
+    dec = _decoder_bias(rng, b, t, int(0.8 * t))
+    n = INF_STEPS + 1
+    soft = lambda *shape: rng.randn(*shape).astype(np.float32)  # noqa: E731
+    cases = [  # (name, B, Tq, Tk, bias, dtype, d(bias))
+        ("decoder float32", b, t, t, dec, "float32", False),
+        ("decoder bfloat16", b, t, t, dec, "bfloat16", False),
+        ("soft per-head float32 d(bias)", b, t, t, soft(b, h, t, t), "float32", True),
+        ("broadcast (1,1,Tq,Tk) float32 d(bias)", b, t, t, soft(1, 1, t, t), "float32", True),
+        ("tq 500 != tk float32", b, 500, t, soft(b, 1, 500, t), "float32", False),
+        ("inference float32", INF_B, n, n, _inference_bias(n, INF_STEPS // 2), "float32", False),
+    ]
+    results = {}
+    for name, bb, tq, tk, bias_np, dtype, bias_grad in cases:
+        dt = getattr(torch, dtype)
+        q = torch.from_numpy(soft(bb, tq, h, dh)).to(dev, dt)
+        k = torch.from_numpy(soft(bb, tk, h, dh)).to(dev, dt)
+        v = torch.from_numpy(soft(bb, tk, h, dh)).to(dev, dt)
+        dout = torch.from_numpy(soft(bb, tq, h, dh)).to(dev, dt)
+        bias = torch.from_numpy(bias_np).to(dev)
+        out, lse = fl._forward(q, k, v, bias, with_lse=True)
+        out2, lse2 = fl._forward(q, k, v, bias, with_lse=True)
+        want, want_lse = fl.flash_attention_forward_reference(q, k, v, bias)
+        got = fl.flash_attention_biased_backward(q, k, v, bias, out, dout, lse,
+                                                 bias_grad=bias_grad)
+        again = fl.flash_attention_biased_backward(q, k, v, bias, out, dout, lse,
+                                                   bias_grad=bias_grad)
+        want_b = fl.flash_attention_backward_reference(q, k, v, bias, out, dout, lse, bias_grad)
+        torch.cuda.synchronize()
+        fwd_err = float((out.float() - want.float()).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        got, again, want_b = ([g for g in x if g is not None] for x in (got, again, want_b))
+        errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                for g, w in zip(got, want_b)]
+        bit_equal = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                     and all(torch.equal(g, a) for g, a in zip(got, again)))
+        assert torch.isfinite(out).all() and all(torch.isfinite(g).all() for g in got), name
+        assert bit_equal, f"kernel 4 ({name}) is not bit-reproducible"
+        assert fwd_err <= TOL[dtype], f"kernel 4 forward ({name}) disagrees: {fwd_err}"
+        rounding = {}
+        if dtype == "bfloat16":
+            # the bf16 output must be the f32 result rounded: within half a
+            # bf16 ulp (<= 2^-8 |x|) of the plain version in f32, plus the f32
+            # tolerance
+            want32 = fl.flash_attention_forward_reference(q.float(), k.float(), v.float(),
+                                                          bias)[0]
+            excess = float(((out.float() - want32).abs() - 2.0**-8 * want32.abs()).max())
+            assert excess <= TOL["float32"], f"kernel 4 bf16 forward ({name}) is off: {excess}"
+            rounding = {"bf16_excess_over_half_ulp": excess, "bf16_excess_tol": TOL["float32"]}
+            del want32
+        assert lse_err <= TOL["float32"], f"kernel 4 LSE ({name}) disagrees: {lse_err}"
+        assert max(errs) <= TOL[dtype], f"kernel 4 backward ({name}) disagrees: {errs}"
+        del out2, lse2, want, want_lse, again, want_b, got
+
+        fwd = lambda: fl._forward(q, k, v, bias, with_lse=True)  # noqa: E731
+        bwd = lambda: fl.flash_attention_biased_backward(  # noqa: E731
+            q, k, v, bias, out, dout, lse, bias_grad=bias_grad)
+        t_fwd = cuda_time(fwd, iters=10)
+        t_fwd["device_ms"] = device_ms(fwd, ["flash_bias_fwd"], iters=5)
+        t_bwd = cuda_time(bwd, iters=5)
+        t_bwd["device_ms"] = device_ms(bwd, ["flash_bias_bwd_", "attn_bwd_delta"], iters=3)
+        plain_fwd = cuda_time(lambda: fl.flash_attention_forward_reference(q, k, v, bias),
+                              iters=2, windows=3)["ms"]
+        plain_bwd = cuda_time(lambda: fl.flash_attention_backward_reference(
+            q, k, v, bias, out, dout, lse, bias_grad), iters=1, windows=3)["ms"]
+        # yardstick: SDPA with the float mask bias * scale is the same function
+        mask = (bias * (1.0 / dh ** 0.5)).to(dt)
+        ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_fwd = cuda_time(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
+                            iters=10)["ms"]
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        lib_bwd = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), dout.transpose(1, 2),
+                                                        retain_graph=True), iters=5)["ms"]
+        del ol, ql, kl, vl, mask
+        pairs = bb * h * tq * tk
+        elem = q.element_size()
+        qkv_bytes = (q.numel() + k.numel() + v.numel()) * elem
+        f_bound = bound(qkv_bytes + q.numel() * elem + bias.numel() * 4 + lse.numel() * 4,
+                        4.0 * pairs * dh, dtype)
+        b_bound = bound(2 * qkv_bytes + 2 * q.numel() * elem + bias.numel() * 4 + lse.numel() * 4
+                        + (pairs * 4 if bias_grad else 0), 10.0 * pairs * dh, dtype)
+        shape = {"b": bb, "h": h, "tq": tq, "tk": tk, "dh": dh, "bias_shape": list(bias.shape),
+                 "dtype": dtype, "bias_grad": bias_grad, "tol": TOL[dtype],
+                 "bit_equal_rerun": bit_equal}
+        results[name] = {
+            "forward": {"case": name, **shape, "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+                        **rounding,
+                        **t_fwd, "plain_ms": plain_fwd, "library_ms": lib_fwd,
+                        "bound_ms": f_bound[0], "bound_by": f_bound[1],
+                        "tflops": 4.0 * pairs * dh / t_fwd["ms"] / 1e9},
+            "backward": {"case": name, **shape, "max_abs_err": max(errs),
+                         "err_is": "max |kernel - plain| / max |plain|, worst of dq, dk, dv"
+                                   + (", d(bias)" if bias_grad else ""),
+                         **t_bwd, "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                         "library_is": "SDPA backward, dq dk dv only",
+                         "bound_ms": b_bound[0], "bound_by": b_bound[1],
+                         "tflops": 10.0 * pairs * dh / t_bwd["ms"] / 1e9},
+        }
+        del q, k, v, dout, bias, out, lse
+    emit({"phase": "kernel4_flash_bias", "cases": list(results.values())})
+    return results
+
+
+# ---------------------------------------------------------------- phase 8
 
 
 def teacher_forced_logits(model, x, x_lens, prompts, prompt_lens, tokens, ragged: bool):
@@ -449,8 +608,6 @@ def main_path(dev):
     import torch
 
     from valle_tpu_torch.models import ModelConfig, get_model
-    from valle_tpu_torch.ops.fused_attention import fused_prefix_attention
-    from valle_tpu_torch.ops.ragged_decode import ragged_decode_attention
     from valle_tpu_torch.sample import _nar_refine, _prefill_kv, generate
 
     cfg = ModelConfig(attn_impl="flash", kv_cache_dtype="int8")  # full width
@@ -474,14 +631,12 @@ def main_path(dev):
     generate(model, x, x_lens_t, prompts, prompt_lens_t, generator=gen, **kw)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ragged_decode_attention.launches = 0
-    fused_prefix_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = generate(model, x, x_lens_t, prompts, prompt_lens_t, generator=gen, **kw)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"ragged_decode": ragged_decode_attention.launches,
-                "prefix_attention": fused_prefix_attention.launches}
+    launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     codes, lengths = out["codes"], out["lengths"]
@@ -491,7 +646,8 @@ def main_path(dev):
     steps = min(max_new, int(stop_lens.max()) + 1)  # the last step's logits go unused
     n_layers = cfg.num_layers
     want = {"ragged_decode": n_layers * steps,
-            "prefix_attention": n_layers + (cfg.num_quantizers - 1) * cfg.nar_num_layers}
+            "prefix_attention": n_layers + (cfg.num_quantizers - 1) * cfg.nar_num_layers,
+            "prefix_attention_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
 
     # phase timings, outside the counted run
@@ -532,7 +688,7 @@ def main_path(dev):
     return launches
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 9
 
 TRAIN_A, TRAIN_STEPS = 2, 5
 # The dropout-0 check of one micro-batch on the card against a CPU copy.  The
@@ -589,6 +745,8 @@ def profile_breakdown(fn) -> dict:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     families = {"kernel2 (prefix_attention)": ("prefix_attention_kernel",),
                 "kernel3 (prefix_attention_bwd)": ("attn_bwd_",),
+                "kernel4 (flash_attention)": ("flash_bias_fwd",),
+                "kernel4 (flash_attention_bwd)": ("flash_bias_bwd_",),
                 "matmul (cuBLAS / CUTLASS)": ("gemm", "Gemm", "cutlass", "xmma", "sm90_")}
     by_family = {name: 0.0 for name in families}
     by_family["other"] = 0.0
@@ -603,24 +761,35 @@ def profile_breakdown(fn) -> dict:
                              "device_s": e.self_device_time_total / 1e6} for e in top]}
 
 
-def _relu_gate_hooks(model, gates: dict, flips: dict) -> list:
-    """Hooks on every feed-forward block of ``model``.  With ``gates`` empty
-    they record, per layer, which ReLU inputs are above 0 (as CPU tensors).
-    Given another run's ``gates`` they make the ReLU follow them: the linear1
-    output h is moved |h| + 1 up where the gate is open and down where it is
-    shut, and the move is taken back off before linear2, so the block
-    computes h * gate with the gradient gate; ``flips`` gets, per layer, the
-    number of gates that differ from this run's own and the largest |h| among
-    them.  Returns the hook handles."""
-    import torch
-
+def _relu_pairs(model):
+    """(name, producer, consumer) of every ReLU of ``model`` in eval mode:
+    the feed-forward block of each layer (linear1 -> linear2) and the two
+    ReLUs of the Transformer TTS mel prenet (dropout is off in eval mode)."""
     from valle_tpu_torch.nn.layers import TransformerLayer
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, TransformerLayer):
+            yield name, mod.linear1, mod.linear2
+    prenet = getattr(model, "decoder_prenet", None)
+    if prenet is not None:
+        yield "decoder_prenet.1", prenet[0], prenet[3]
+        yield "decoder_prenet.4", prenet[3], prenet[6]
+
+
+def _relu_gate_hooks(model, gates: dict, flips: dict) -> list:
+    """Hooks on every ReLU of ``model`` (:func:`_relu_pairs`).  With
+    ``gates`` empty they record, per ReLU, which inputs are above 0 (as CPU
+    tensors).  Given another run's ``gates`` they make the ReLU follow them:
+    the producer's output h is moved |h| + 1 up where the gate is open and
+    down where it is shut, and the move is taken back off before the
+    consumer, so the block computes h * gate with the gradient gate;
+    ``flips`` gets, per ReLU, the number of gates that differ from this run's
+    own and the largest |h| among them.  Returns the hook handles."""
+    import torch
 
     record = not gates
     handles = []
-    for name, layer in model.named_modules():
-        if not isinstance(layer, TransformerLayer):
-            continue
+    for name, producer, consumer in _relu_pairs(model):
         moved = []
 
         def after_linear1(mod, args, out, name=name, moved=moved):
@@ -640,12 +809,12 @@ def _relu_gate_hooks(model, gates: dict, flips: dict) -> list:
         def before_linear2(mod, args, moved=moved):
             return None if record else (args[0] - moved.pop(),)
 
-        handles.append(layer.linear1.register_forward_hook(after_linear1))
-        handles.append(layer.linear2.register_forward_pre_hook(before_linear2))
+        handles.append(producer.register_forward_hook(after_linear1))
+        handles.append(consumer.register_forward_pre_hook(before_linear2))
     return handles
 
 
-def _micro_grads(model, batch, nar_stage: int, gates: dict, flips: dict):
+def _micro_grads(model, batch, gates: dict, flips: dict, forward_kw: dict):
     """Loss and per-parameter gradients of micro-batch 0 at dropout 0, with
     the ReLU gates recorded into or taken from ``gates``."""
     model.eval()
@@ -654,7 +823,7 @@ def _micro_grads(model, batch, nar_stage: int, gates: dict, flips: dict):
     try:
         out = model(*(batch[k][0] for k in ("text_tokens", "text_tokens_lens", "audio_features",
                                             "audio_features_lens")),
-                    train_stage=0, nar_stage=nar_stage)
+                    train_stage=0, **forward_kw)
         out["loss"].backward()
     finally:
         for handle in handles:
@@ -676,7 +845,8 @@ def _grad_errors(grads_gpu: dict, grads_cpu: dict):
     return elem, norm
 
 
-def gradient_check(model, batch, nar_stage: int, weights: str) -> dict:
+def gradient_check(model, batch, weights: str, phase: str = "train_gradient_check",
+                   **forward_kw) -> dict:
     """One micro-batch's loss and gradients at dropout 0 on the card against
     a CPU copy of the model (plain versions) that follows the card's ReLU
     gates; fails past LOSS_RTOL, FLIP_SHARE, FLIP_ATOL, GRAD_RTOL or
@@ -687,12 +857,12 @@ def gradient_check(model, batch, nar_stage: int, weights: str) -> dict:
 
     t0 = time.perf_counter()
     gates, flips = {}, {}
-    loss_gpu, grads_gpu = _micro_grads(model, batch, nar_stage, gates, flips)
+    loss_gpu, grads_gpu = _micro_grads(model, batch, gates, flips, forward_kw)
     cpu_model = get_model(model.cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
-    loss_cpu, grads_cpu = _micro_grads(cpu_model, cpu_batch, nar_stage, gates, flips)
-    _, grads_own = _micro_grads(cpu_model, cpu_batch, nar_stage, {}, {})
+    loss_cpu, grads_cpu = _micro_grads(cpu_model, cpu_batch, gates, flips, forward_kw)
+    _, grads_own = _micro_grads(cpu_model, cpu_batch, {}, {}, forward_kw)
     del cpu_model
     grad_err, grad_norm_err = _grad_errors(grads_gpu, grads_cpu)
     own_err, own_norm_err = _grad_errors(grads_gpu, grads_own)
@@ -703,7 +873,7 @@ def gradient_check(model, batch, nar_stage: int, weights: str) -> dict:
     flip_h = max(f["max_abs_h"] for f in flips.values())
     n_gates = sum(g.numel() for g in gates.values())
     n_flips = sum(f["gates"] for f in flips.values())
-    check = {"phase": "train_gradient_check", "weights": weights,
+    check = {"phase": phase, "weights": weights,
              "dropout0_loss_gpu": loss_gpu, "dropout0_loss_cpu": loss_cpu,
              "dropout0_loss_rel_err": loss_err, "loss_rtol": LOSS_RTOL,
              "relu_gates": n_gates, "flipped_gates": n_flips, "flip_share": FLIP_SHARE,
@@ -738,8 +908,6 @@ def train_path(dev, k2d, k3):
     import torch
 
     from valle_tpu_torch.models import ModelConfig, get_model
-    from valle_tpu_torch.ops.fused_attention import (
-        fused_prefix_attention, fused_prefix_attention_backward)
     from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
     from valle_tpu_torch.train.step import init_train_state, make_train_step
 
@@ -749,7 +917,7 @@ def train_path(dev, k2d, k3):
     rng = np.random.RandomState(SEED + 5)
     batch = _train_batch(cfg, rng, dev)
     nar_stage = cfg.num_quantizers // 2
-    checks = [gradient_check(model, batch, nar_stage, "initial")]
+    checks = [gradient_check(model, batch, "initial", nar_stage=nar_stage)]
 
     make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
     state = init_train_state(model, make_opt, train_stage=0)
@@ -763,18 +931,17 @@ def train_path(dev, k2d, k3):
     per_step = TRAIN_A * (cfg.num_layers + cfg.nar_num_layers)
     losses, step_s, launches = [], [], []
     for _ in range(TRAIN_STEPS):
-        fused_prefix_attention.launches = 0
-        fused_prefix_attention_backward.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         state, metrics = step(state, batch, gen, 0)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        launches.append({"prefix_attention": fused_prefix_attention.launches,
-                         "prefix_attention_bwd": fused_prefix_attention_backward.launches})
+        launches.append(read_launches())
         losses.append(float(metrics["loss"]))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     assert all(np.isfinite(losses)), losses
-    want = {"prefix_attention": per_step, "prefix_attention_bwd": per_step}
+    want = {"ragged_decode": 0, "prefix_attention": per_step, "prefix_attention_bwd": per_step,
+            "flash_attention": 0, "flash_attention_bwd": 0}
     assert all(c == want for c in launches), f"launch counts {launches}, expected {want} per step"
 
     breakdown = profile_breakdown(lambda: step(state, batch, gen, 0))
@@ -787,8 +954,8 @@ def train_path(dev, k2d, k3):
         torch.equal(a, b) for a, b in zip(state.model.parameters(), twin.model.parameters()))
     assert repeat_equal, (float(m1["loss"]), float(m2["loss"]))
     del twin
-    checks.append(gradient_check(model, batch, nar_stage,
-                                 f"after {state.step} steps at dropout {cfg.dropout}"))
+    checks.append(gradient_check(model, batch, f"after {state.step} steps at dropout {cfg.dropout}",
+                                 nar_stage=nar_stage))
 
     med = float(np.median(step_s))
     frames = TRAIN_A * TRAIN_B * TRAIN_T
@@ -809,6 +976,184 @@ def train_path(dev, k2d, k3):
           "dropout0_max_grad_rel_err": [c["max_grad_rel_err"] for c in checks],
           "dropout0_flipped_gates": [c["flipped_gates"] for c in checks]})
     return launches[0]
+
+
+# -------------------------------------------------------- phases 10 and 11
+
+TTS_STEPS = 5
+CHECK_STEPS = 8  # inference steps held against the CPU copy
+
+
+def _counters():
+    from valle_tpu_torch.ops.flash_attention import (
+        flash_attention_biased, flash_attention_biased_backward)
+    from valle_tpu_torch.ops.fused_attention import (
+        fused_prefix_attention, fused_prefix_attention_backward)
+    from valle_tpu_torch.ops.ragged_decode import ragged_decode_attention
+
+    return {"ragged_decode": ragged_decode_attention,
+            "prefix_attention": fused_prefix_attention,
+            "prefix_attention_bwd": fused_prefix_attention_backward,
+            "flash_attention": flash_attention_biased,
+            "flash_attention_bwd": flash_attention_biased_backward}
+
+
+def reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _tts_batch(cfg, rng, dev):
+    """A (1, B, ...) batch: text 96-128 tokens, synthetic mels (standard
+    normal, 100 bins) of 750-938 frames; the first row has the full
+    lengths."""
+    import torch
+
+    b, s, t = TTS_B, TTS_S, TTS_T
+    x_lens = rng.randint(3 * s // 4, s + 1, (1, b))
+    y_lens = rng.randint(int(0.8 * t), t + 1, (1, b))
+    x_lens[:, 0], y_lens[:, 0] = s, t
+    arrays = {
+        "text_tokens": rng.randint(1, cfg.num_text_tokens, (1, b, s)),
+        "text_tokens_lens": x_lens,
+        "audio_features": rng.randn(1, b, t, cfg.num_mel_bins).astype(np.float32),
+        "audio_features_lens": y_lens,
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def tts_train_path(dev):
+    """Full-width Transformer TTS baseline training steps through kernels 2,
+    3 and 4, with launch counts per step, a bit-equal repeated step, and the
+    loss and gradients in eval mode held against a CPU copy."""
+    import copy
+    import functools
+
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
+    from valle_tpu_torch.train.step import init_train_state, make_train_step
+
+    # the default widths (d=1024, 16 heads, 12 + 12 layers, FFN 4096, 100 mel
+    # bins), f32; attention dropout 0 keeps the decoder self-attention on
+    # kernel 4, while the prenet (0.5) and positional (0.1) dropouts stay on
+    cfg = ModelConfig(model_name="Transformer", attn_impl="flash", dropout=0.0)
+    torch.manual_seed(SEED)
+    model = get_model(cfg)
+    batch = _tts_batch(cfg, np.random.RandomState(SEED + 7), dev)
+    check = gradient_check(model, batch, "initial", phase="tts_gradient_check")
+
+    make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
+    state = init_train_state(model, make_opt, train_stage=0)
+    step = make_train_step(get_lr_fn("eden", 0.05, warmup_steps=200), train_stage=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(SEED)
+
+    state, metrics = step(state, batch, gen, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, launches = [], [], []
+    for _ in range(TTS_STEPS):
+        reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen, 0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        losses.append(float(metrics["loss"]))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    assert all(np.isfinite(losses)), losses
+    n = cfg.num_layers
+    want = {"ragged_decode": 0, "prefix_attention": 2 * n, "prefix_attention_bwd": 2 * n,
+            "flash_attention": n, "flash_attention_bwd": n}
+    assert all(c == want for c in launches), f"launch counts {launches}, expected {want} per step"
+
+    breakdown = profile_breakdown(lambda: step(state, batch, gen, 0))
+
+    twin = copy.deepcopy(state)
+    _, m1 = step(state, batch, torch.Generator().manual_seed(SEED + 1), 0)
+    _, m2 = step(twin, batch, torch.Generator().manual_seed(SEED + 1), 0)
+    repeat_equal = float(m1["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(state.model.parameters(), twin.model.parameters()))
+    assert repeat_equal, (float(m1["loss"]), float(m2["loss"]))
+    del twin, state, model
+
+    med = float(np.median(step_s))
+    frames = TTS_B * TTS_T
+    emit({"phase": "tts_train", "model": "Transformer TTS default ModelConfig (d=1024, 16 heads, "
+          "12 encoder + 12 decoder layers, FFN 4096, 100 mel bins), attn_impl=flash, attention "
+          "dropout 0, prenet dropout 0.5, positional dropout 0.1, f32",
+          "params": n_params, "batch": TTS_B, "text_tokens": TTS_S, "frames": TTS_T,
+          "text_lens": batch["text_tokens_lens"][0].tolist(),
+          "frame_lens": batch["audio_features_lens"][0].tolist(),
+          "optimizer": "ScaledAdam lr 0.05 clip 2.0 betas (0.9, 0.95), Eden warmup 200",
+          "losses": losses, "step_s": step_s, "step_s_median": med,
+          "frames_per_s": frames / med, "audio_s_per_s": frames * 256 / 24000 / med,
+          "peak_mem_gib": peak_gib, "launches_per_step": launches[0],
+          "profiled_step": breakdown, "repeat_bit_equal": repeat_equal,
+          "eval_max_grad_rel_err": check["max_grad_rel_err"],
+          "eval_flipped_gates": check["flipped_gates"]})
+    return launches[0]
+
+
+def tts_inference_path(dev):
+    """The Transformer TTS baseline's greedy mel loop at full width on 8
+    requests for INF_STEPS steps, with launch counts and the first
+    CHECK_STEPS mels held against a CPU copy."""
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+
+    cfg = ModelConfig(model_name="Transformer", attn_impl="flash")
+    torch.manual_seed(SEED)
+    model = get_model(cfg)
+    rng = np.random.RandomState(SEED + 8)
+    x_lens = rng.randint(INF_S * 5 // 8, INF_S + 1, INF_B)  # 40-64 tokens
+    x = torch.from_numpy(rng.randint(1, cfg.num_text_tokens, (INF_B, INF_S))).to(dev)
+    x_lens_t = torch.from_numpy(x_lens).to(dev)
+
+    model.inference(x, x_lens_t, max_steps=4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = model.inference(x, x_lens_t, max_steps=INF_STEPS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n = cfg.num_layers
+    want = {"ragged_decode": 0, "prefix_attention": n + n * INF_STEPS, "prefix_attention_bwd": 0,
+            "flash_attention": n * INF_STEPS, "flash_attention_bwd": 0}
+    assert launches == want, f"launch counts {launches}, expected {want}"
+    mel, lengths = out["mel"], out["lengths"]
+    assert tuple(mel.shape) == (INF_B, INF_STEPS, cfg.num_mel_bins), tuple(mel.shape)
+    assert torch.isfinite(mel).all()
+    assert int(lengths.min()) >= 1 and int(lengths.max()) <= INF_STEPS
+
+    # the first steps against a CPU copy: step i reads frames <= i only, so a
+    # shorter loop gives the same first frames
+    cpu_model = get_model(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu = cpu_model.inference(x.cpu(), x_lens_t.cpu(), max_steps=CHECK_STEPS)
+    del cpu_model
+    mel_err = float((mel[:, :CHECK_STEPS].cpu() - cpu["mel"]).abs().max())
+    assert mel_err <= LOGIT_ATOL, f"GPU mels differ from the CPU copy by {mel_err}"
+    assert lengths.cpu().clamp(max=CHECK_STEPS).tolist() == cpu["lengths"].tolist(), (
+        lengths.tolist(), cpu["lengths"].tolist())
+    emit({"phase": "tts_inference", "model": "Transformer TTS default ModelConfig, "
+          "attn_impl=flash, f32, greedy, full recompute per step", "batch": INF_B,
+          "text_lens": x_lens.tolist(), "max_steps": INF_STEPS, "launches": launches,
+          "lengths": lengths.tolist(), "call_s": total_s, "ms_per_step": total_s * 1e3 / INF_STEPS,
+          "frames_per_s": INF_B * INF_STEPS / total_s, "peak_mem_gib": peak_gib,
+          "mel_max_abs_err_vs_cpu": mel_err, "checked_steps": CHECK_STEPS,
+          "mel_atol": LOGIT_ATOL})
+    return launches
 
 
 def main() -> int:
@@ -838,12 +1183,12 @@ def main() -> int:
     check_prefix_attention(dev)
     k2d = check_dropout_forward(dev)
     k3 = check_backward(dev)
-    gen_launches = main_path(dev)
-    train_launches = train_path(dev, k2d, k3)
+    k4 = check_flash_bias(dev)
+    paths = {"generate": main_path(dev), "train_step": train_path(dev, k2d, k3),
+             "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}
 
     def entry(name, source, replaces, res, path):
-        by_path = {"generate": gen_launches.get(name, 0),
-                   "train_step": train_launches.get(name, 0)}
+        by_path = {p: counts[name] for p, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": by_path[path], "launches_by_path": by_path, "case": res["case"],
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -860,6 +1205,12 @@ def main() -> int:
         entry("prefix_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
               "valle_tpu/ops/fused_attention.py:139", k3["dense_self float32 rate 0.1"],
               "train_step"),
+        entry("flash_attention", "valle_tpu_torch/csrc/prefix_attention.cu",
+              "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["forward"],
+              "tts_train_step"),
+        entry("flash_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
+              "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["backward"],
+              "tts_train_step"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -77,8 +77,11 @@ def test_get_model_variants_and_unported_options():
                         num_quantizers=2)
     model = get_model(cfg_f, device="cpu")
     assert model.variant == "vallf" and not model.training
+    tts = get_model(ModelConfig(model_name="Transformer", decoder_dim=32, nhead=2,
+                                num_layers=1), device="cpu")
+    assert type(tts).__name__ == "TransformerTTS" and not tts.training
     with pytest.raises(NotImplementedError):
-        get_model(ModelConfig(model_name="Transformer"), device="cpu")
+        get_model(ModelConfig(model_name="Transformer", scaling_xformers=True), device="cpu")
     with pytest.raises(NotImplementedError):
         get_model(ModelConfig(scaling_xformers=True), device="cpu")
     with pytest.raises(NotImplementedError):

@@ -22,6 +22,7 @@ import valle_tpu_torch.ops.cuda_build, valle_tpu_torch.utils.bridge
 import valle_tpu_torch.ops.philox, valle_tpu_torch.nn.dropout
 import valle_tpu_torch.optim, valle_tpu_torch.optim.scaled_adam, valle_tpu_torch.optim.schedulers
 import valle_tpu_torch.train, valle_tpu_torch.train.state, valle_tpu_torch.train.step
+import valle_tpu_torch.ops.flash_attention, valle_tpu_torch.models.transformer_tts
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "valle_tpu") or m.startswith(("jax.", "flax.", "valle_tpu.")))
 print(",".join(bad))
@@ -76,6 +77,10 @@ def test_entry_points_raise_without_cuda_unless_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         state_dict_from_jax({}, cfg)
     assert next(get_model(cfg, device="cpu").parameters()).device.type == "cpu"
+    tts = cfg.replace(model_name="Transformer")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(tts)
+    assert next(get_model(tts, device="cpu").parameters()).device.type == "cpu"
 
 
 def test_kernel_wrappers_use_plain_versions_on_cpu():
@@ -98,12 +103,26 @@ def test_kernel_wrappers_use_plain_versions_on_cpu():
     assert fused_prefix_attention_backward.launches == back
 
 
+def test_kernel_4_wrapper_uses_plain_versions_on_cpu():
+    from valle_tpu_torch.ops.flash_attention import (
+        flash_attention_biased, flash_attention_biased_backward)
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 5, 2, 16, generator=g, requires_grad=True)
+    bias = torch.randn(2, 1, 5, 5, generator=g, requires_grad=True)
+    before = (flash_attention_biased.launches, flash_attention_biased_backward.launches)
+    flash_attention_biased(q, q, q, bias).sum().backward()
+    assert q.grad is not None and bias.grad.shape == bias.shape
+    assert (flash_attention_biased.launches, flash_attention_biased_backward.launches) == before
+
+
 def test_cuda_build_needs_no_nvcc_at_import():
     from valle_tpu_torch.ops import cuda_build
 
     assert (cuda_build.CSRC / "ragged_decode.cu").exists()
     assert (cuda_build.CSRC / "prefix_attention.cu").exists()
     assert (cuda_build.CSRC / "prefix_attention_bwd.cu").exists()
+    assert (cuda_build.CSRC / "attention_common.cuh").exists()
     assert (cuda_build.CSRC / "philox.cuh").exists()
     assert cuda_build.BUILD_DIR.parts[-2:] == ("build", "valle_tpu_torch")
     # the compiler's log is keyed like the library, so it always belongs to it

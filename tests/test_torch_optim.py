@@ -4,8 +4,10 @@ with ``batched_axis_fn=valle_batched_axis`` on one sequence of gradients of
 a small VALL-E (weights and gradients bridged with ``utils/bridge.py``, so
 the tied NAR tables take one summed gradient), over 10 steps that cross two
 size updates, with the 100-step clipping window and with a 4-step window
-that engages the median clipping; Eden, Noam and Cosine; and
-``update_model_avg``.
+that engages the median clipping; the same for a small VALL-F and the
+Transformer TTS baseline, whose cross-attention packs JAX's ``q_proj`` and
+``kv_proj`` leaves into one ``in_proj_weight`` / ``in_proj_bias`` with a
+statistic per block; Eden, Noam and Cosine; and ``update_model_avg``.
 
 Tolerances: parameters rtol 2e-5 / atol 1e-6 after 10 steps (f32 sums in
 another order), schedules rtol 1e-6 (JAX computes them in f32, the port in
@@ -20,7 +22,9 @@ import pytest
 import torch
 
 from valle_tpu.models import VALLE as JaxVALLE
+from valle_tpu.models import VALLF as JaxVALLF
 from valle_tpu.models import ModelConfig as JaxConfig
+from valle_tpu.models import TransformerTTS as JaxTTS
 from valle_tpu.optim import cosine_lr as jax_cosine
 from valle_tpu.optim import eden_lr as jax_eden
 from valle_tpu.optim import get_lr_fn as jax_get_lr_fn
@@ -56,9 +60,39 @@ def jax_params():
     return jax.tree.map(np.array, variables["params"])
 
 
+def _jax_init(model_name):
+    """numpy params of a small VALL-F or Transformer TTS baseline."""
+    cfg = JaxConfig(model_name=model_name, **KW)
+    rng = np.random.RandomState(0)
+    x = jnp.asarray(rng.randint(1, 512, (2, 6)), jnp.int32)
+    lens = jnp.asarray([6, 4], jnp.int32), jnp.asarray([10, 7], jnp.int32)
+    if model_name == "Transformer":
+        model, y, kw = JaxTTS(cfg), jnp.asarray(rng.randn(2, 10, 100), jnp.float32), {}
+    else:
+        model = JaxVALLF(cfg)
+        y = jnp.asarray(rng.randint(0, 1024, (2, 10, 3)), jnp.int32)
+        kw = dict(train_stage=0, nar_stage=jnp.asarray(1))
+    variables = jax.jit(lambda k: model.init({"params": k, "stage": k}, x, lens[0], y, lens[1],
+                                             deterministic=True, **kw))(jax.random.PRNGKey(0))
+    return jax.tree.map(np.array, variables["params"])
+
+
 @pytest.mark.parametrize("clip_period", [100, 4])
 def test_scaled_adam_matches_jax(jax_params, clip_period):
-    cfg = ModelConfig(**KW)
+    _check_scaled_adam(jax_params, ModelConfig(**KW), "valle", clip_period)
+
+
+@pytest.mark.parametrize("model_name,clip_period", [
+    ("VALL-F", 100), ("VALL-F", 4), ("Transformer", 100)])
+def test_scaled_adam_keeps_cross_attention_blocks_apart(model_name, clip_period):
+    """Rows [0:D] and [D:3D] of each cross-attention in-projection keep their
+    own RMS, size statistics and clipping term, as JAX's q_proj / kv_proj."""
+    cfg = ModelConfig(model_name=model_name, **KW)
+    variant = "transformer" if model_name == "Transformer" else "vallf"
+    _check_scaled_adam(_jax_init(model_name), cfg, variant, clip_period)
+
+
+def _check_scaled_adam(jax_params, cfg, variant, clip_period):
     rng = np.random.RandomState(1)
     grads = [jax.tree.map(lambda p: (rng.randn(*p.shape) * 0.1).astype(np.float32), jax_params)
              for _ in range(10)]
@@ -75,25 +109,29 @@ def test_scaled_adam_matches_jax(jax_params, clip_period):
         params = optax.apply_updates(params, upd)
 
     model = get_model(cfg, device="cpu")
-    model.load_state_dict(state_dict_from_jax({"params": jax_params}, cfg, device="cpu"))
+    model.load_state_dict(state_dict_from_jax({"params": jax_params}, cfg, variant,
+                                              device="cpu"))
     trainable, _ = partition_params(model, 0)
     opt = ScaledAdam(trainable.values(), lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95),
                      clipping_update_period=clip_period)
     for g, lr in zip(grads, lrs):
-        bridged = numpy_state_dict_from_jax(g, cfg)
+        bridged = numpy_state_dict_from_jax(g, cfg, variant)
         for name, p in trainable.items():
             p.grad = torch.from_numpy(bridged[name])
         opt.step(lr=lr)
 
-    want = numpy_state_dict_from_jax(jax.tree.map(np.asarray, params), cfg)
+    want = numpy_state_dict_from_jax(jax.tree.map(np.asarray, params), cfg, variant)
     got = model.state_dict()
     assert set(trainable) <= set(want)
     for name in want:
         np.testing.assert_allclose(got[name].numpy(), want[name], rtol=2e-5, atol=1e-6,
                                    err_msg=name)
-    # tied tables are one tensor, updated once
-    assert model.nar_predict_layers[0].weight is model.nar_audio_embeddings[2].weight
     assert len(opt.param_groups[0]["params"]) == len(trainable)
+    if variant == "valle":  # tied tables are one tensor, updated once
+        assert model.nar_predict_layers[0].weight is model.nar_audio_embeddings[2].weight
+    else:  # the packed cross-attention projections keep two blocks
+        blocked = [n for n, p in trainable.items() if len(opt.state[p].get("blocks", ())) == 2]
+        assert blocked and all(".multihead_attn.in_proj_" in n for n in blocked)
 
 
 def test_schedules_match_jax():

@@ -1,0 +1,61 @@
+// Shared by the attention forward (prefix_attention.cu) and backward
+// (prefix_attention_bwd.cu) kernels: the tile shape, the element conversions,
+// the dense bias and dropout arguments, and the head-dim dispatch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int BQ = 64;  // q rows per tile
+constexpr int BK = 64;  // key columns per tile
+constexpr int LD = 68;  // padded leading dimension (keeps float4 rows aligned)
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_float(float x, float* p) { *p = x; }
+__device__ __forceinline__ void from_float(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
+
+// Kernel 4's dense f32 bias: element (b, h, r, c) at
+// p[b * sb + h * sh + r * sq + c * sk], stride 0 on a broadcast dimension.
+struct Bias {
+  const float* p;
+  long long sb, sh, sq, sk;
+};
+
+struct Dropout {
+  unsigned threshold;  // keep when bits >= threshold; 0 = no dropout
+  float inv_keep;      // 1 / (1 - rate)
+  uint2 seed;
+};
+
+// f(std::integral_constant<int, Dh>) for the supported head dims.
+template <typename F>
+cudaError_t dispatch_dh(int Dh, F&& f) {
+  switch (Dh) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Launch `kern` with `smem` bytes of dynamic shared memory, raising the
+// kernel's limit first where it is above the default 48 KiB.
+template <typename... P, typename... A>
+cudaError_t launch(void (*kern)(P...), dim3 grid, size_t smem, cudaStream_t stream, A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -1,13 +1,13 @@
 """Model factory: the twin of ``valle_tpu/models/__init__.py``.
 
-``get_model`` builds VALL-E or VALL-F from a :class:`ModelConfig` on the card
-(or on ``device``) in eval mode, with weights from PyTorch's default
-initialisers under the caller's ``torch.manual_seed``.  It casts the model to
-the config's compute dtype, which serves inference; training goes through
-``valle_tpu_torch.train.step.init_train_state``, which puts the model in train
-mode and refuses bf16 (the JAX package keeps f32 master weights under a bf16
-compute dtype; that is not ported yet).  The Transformer TTS baseline is not
-ported yet.
+``get_model`` builds VALL-E, VALL-F or the Transformer TTS baseline from a
+:class:`ModelConfig` on the card (or on ``device``) in eval mode, with weights
+from PyTorch's default initialisers under the caller's ``torch.manual_seed``.
+It casts the model to the config's compute dtype, which serves inference;
+training goes through ``valle_tpu_torch.train.step.init_train_state``, which
+puts the model in train mode and refuses bf16 (the JAX package keeps f32
+master weights under a bf16 compute dtype; that is not ported yet).  The
+``scaling_xformers`` variants need ``nn/scaling.py``, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 
 from valle_tpu_torch.models.config import ModelConfig
+from valle_tpu_torch.models.transformer_tts import TransformerTTS
 from valle_tpu_torch.models.valle import VALLE, VALLF
 from valle_tpu_torch.utils import resolve_device
 
@@ -84,8 +85,9 @@ def config_from_args(args) -> ModelConfig:
 
 
 def get_model(cfg: ModelConfig, device=None):
-    """VALLE / VALLF for ``cfg`` on ``device`` (default: the card; raises
-    without CUDA), in eval mode and in the config's compute dtype."""
+    """VALLE / VALLF / TransformerTTS for ``cfg`` on ``device`` (default: the
+    card; raises without CUDA), in eval mode and in the config's compute
+    dtype."""
     if cfg.scaling_xformers:
         raise NotImplementedError("scaling_xformers needs nn/scaling.py, not ported yet")
     name = cfg.model_name.lower()
@@ -94,7 +96,7 @@ def get_model(cfg: ModelConfig, device=None):
     elif name in ("vall-f", "vallf"):
         cls = VALLF
     elif name == "transformer":
-        raise NotImplementedError("the Transformer TTS baseline is not ported yet")
+        cls = TransformerTTS
     else:
         raise ValueError(f"unknown model {cfg.model_name}")
     dev = resolve_device(device)
@@ -103,6 +105,7 @@ def get_model(cfg: ModelConfig, device=None):
 
 __all__ = [
     "ModelConfig",
+    "TransformerTTS",
     "VALLE",
     "VALLF",
     "get_model",

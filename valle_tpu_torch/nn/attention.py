@@ -4,7 +4,10 @@ the twin of ``valle_tpu/nn/attention.py``.
 Parameter names follow the reference PyTorch model: one packed
 ``in_proj_weight`` (3D, D) and ``in_proj_bias`` (also for cross-attention,
 which slices q from the first D rows and k, v from the rest) and an
-``out_proj`` linear.
+``out_proj`` linear.  The JAX cross-attention keeps those rows as two leaves,
+``q_proj`` and ``kv_proj``; a cross-attention module marks its packed
+parameters with ``row_blocks = (D, 2D)`` so that ScaledAdam keeps statistics
+per block, as JAX does per leaf (``optim/scaled_adam.py``).
 
 Decode caches are stacked over layers, as in the JAX package:
 ``(kc, vc, ks, vs, layer)`` for the int8 cache with per-(token, head) f32
@@ -73,7 +76,8 @@ def _decode_attention_quantized(q, k8, v8, ks, vs, attn_bias):
 
 class MultiheadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
-                 attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0):
+                 attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0,
+                 cross_attention: bool = False):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.attn_impl = attn_impl
@@ -81,6 +85,10 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim)) if bias else None
         nn.init.xavier_uniform_(self.in_proj_weight)
+        if cross_attention:
+            for p in (self.in_proj_weight, self.in_proj_bias):
+                if p is not None:
+                    p.row_blocks = (embed_dim, 2 * embed_dim)  # JAX's q_proj, kv_proj
         self.out_proj = Dense(embed_dim, embed_dim, use_bias=bias, act_quant=act_quant)
 
     def forward(

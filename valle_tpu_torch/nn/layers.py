@@ -90,7 +90,8 @@ class TransformerLayer(nn.Module):
         self.norm2 = conditioned_norm(d_model, adaptive_norm)
         if cross_attention:
             self.multihead_attn = MultiheadAttention(d_model, nhead, attn_impl=attn_impl,
-                                                     act_quant=act_quant, dropout=dropout)
+                                                     act_quant=act_quant, dropout=dropout,
+                                                     cross_attention=True)
             self.norm3 = conditioned_norm(d_model, adaptive_norm)
 
     def forward(self, x, *, stage_emb=None, attn_bias=None, memory=None,

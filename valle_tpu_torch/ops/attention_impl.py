@@ -1,15 +1,21 @@
 """Attention contraction routing: the twin of ``valle_tpu/ops/attention_impl.py``.
 
 The JAX package's table is kept, with kernel 2 (ops/fused_attention.py) in
-place of both Pallas callees (its own fused kernel and the library flash
-kernel).  Head layout everywhere is (B, T, H, Dh).
+place of its own fused kernel and of the library flash kernel's key-padding
+branch, and kernel 4 (ops/flash_attention.py) in place of the library flash
+kernel's dense-bias branch.  Head layout everywhere is (B, T, H, Dh).
 
-| impl       | AttnMaskSpec, Tq > 1 | key padding (B,1,1,Tk) or none, Tq > 1 | other dense bias |
-|------------|----------------------|----------------------------------------|------------------|
-| "xla"      | plain math           | plain math                             | plain math       |
-| "fused"    | kernels 2/3          | plain math                             | plain math       |
-| "flash"    | kernels 2/3          | kernels 2/3 (dense mode)               | raises on CUDA   |
-| "flash_kp" | plain math           | kernels 2/3 (dense mode)               | plain math       |
+| impl       | AttnMaskSpec, Tq > 1 | key padding (B,1,1,Tk) or none, Tq > 1 | other dense bias, Tq > 1 |
+|------------|----------------------|----------------------------------------|--------------------------|
+| "xla"      | plain math           | plain math                             | plain math               |
+| "fused"    | kernels 2/3          | plain math                             | plain math               |
+| "flash"    | kernels 2/3          | kernels 2/3 (dense mode)               | kernel 4                 |
+| "flash_kp" | plain math           | kernels 2/3 (dense mode)               | plain math               |
+
+Kernel 4 computes ``softmax((q kᵀ + bias) * scale) v`` (the library's order)
+where the plain math computes ``softmax(q * scale kᵀ + bias) v`` (JAX's
+``_xla_attention``); the two agree to rounding for {0, -1e9} masks.  Every
+kernel runs its plain PyTorch version on a CPU tensor.
 
 With dropout active, "fused" keeps its kernels (kernel 2 draws the dropout
 bits itself) and "flash" / "flash_kp" take the plain math with dropout, as
@@ -29,6 +35,7 @@ from typing import Optional, Union
 
 import torch
 
+from valle_tpu_torch.ops.flash_attention import flash_attention_biased
 from valle_tpu_torch.ops.fused_attention import fused_prefix_attention
 from valle_tpu_torch.ops.masks import AttnMaskSpec
 from valle_tpu_torch.ops.philox import draw_seed, dropout_keep_mask
@@ -88,9 +95,6 @@ def dot_product_attention(
             if kv_bias is not None:
                 kv_bias = kv_bias.expand(q.shape[0], k.shape[1]).float().contiguous()
             return fused_prefix_attention(q, k, v, kv_bias)
-        if impl == "flash" and q.is_cuda:
-            raise NotImplementedError(
-                "attn_impl='flash' with a dense per-query bias needs a bias input "
-                "to the prefix-attention kernel (not ported yet)"
-            )
+        if impl == "flash" and bias.dim() == 4:
+            return flash_attention_biased(q, k, v, bias)
     return _xla_attention(q, k, v, bias, dropout_rate, seed)

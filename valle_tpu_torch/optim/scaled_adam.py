@@ -10,10 +10,16 @@
 
 The port holds every layer and every NAR table as a tensor of its own, as
 the reference model does, so per-tensor statistics are what the JAX package
-computes per slice of its stacked leaves (``valle_batched_axis``).  Tied
-parameters (the NAR prediction layers and embedding tables) are one tensor
-and are updated once: the parameter list is de-duplicated.  The
-dominant-parameter log of the JAX optimizer is not ported.
+computes per slice of its stacked leaves (``valle_batched_axis``).  A
+parameter that packs several JAX leaves along dim 0 says so with a
+``row_blocks`` attribute (the block sizes), and each block keeps its own RMS,
+size statistics and clipping-norm term: the cross-attention
+``in_proj_weight`` / ``in_proj_bias`` hold JAX's ``q_proj`` and ``kv_proj``
+(``nn/attention.py``).  The attribute is read when the optimizer is built
+(``copy.deepcopy`` of a parameter drops it).  Tied parameters (the NAR
+prediction layers and embedding tables) are one tensor and are updated once:
+the parameter list is de-duplicated.  The dominant-parameter log of the JAX
+optimizer is not ported.
 
 The step counter lives on the host, so the size update and the clipping
 window are host decisions; the clipping factor stays on the device (no
@@ -27,6 +33,36 @@ import math
 from typing import Iterable, Optional
 
 import torch
+
+
+def _row_blocks(p: torch.Tensor):
+    """(start, end) rows of ``p`` that keep statistics of their own: the whole
+    tensor, or the blocks of its ``row_blocks`` sizes."""
+    sizes = getattr(p, "row_blocks", None) or (p.shape[0],)
+    if sum(sizes) != p.shape[0]:
+        raise ValueError(f"row_blocks {sizes} do not cover the {p.shape[0]} rows")
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    return [(a, a + n) for a, n in zip(starts, sizes)]
+
+
+def _per_block(x: torch.Tensor, blocks, fn) -> torch.Tensor:
+    """(n_blocks,) of ``fn`` over each row block of ``x``; a view of the one
+    result for a single block, so an unblocked tensor launches no copy."""
+    if len(blocks) == 1:
+        return fn(x).reshape(1)
+    return torch.stack([fn(x[a:b]) for a, b in blocks])
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return x.pow(2).mean().sqrt()
+
+
+def _to_rows(stat: torch.Tensor, blocks, ndim: int) -> torch.Tensor:
+    """A per-block statistic (n_blocks,), broadcastable against the parameter."""
+    if len(blocks) == 1:
+        return stat
+    rows = torch.cat([stat[i:i + 1].expand(b - a) for i, (a, b) in enumerate(blocks)])
+    return rows.view(-1, *([1] * (ndim - 1)))
 
 
 class ScaledAdam(torch.optim.Optimizer):
@@ -69,9 +105,10 @@ class ScaledAdam(torch.optim.Optimizer):
         st["delta"] = torch.zeros_like(p, dtype=torch.float32)
         st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
         if p.numel() > 1:
-            st["param_rms"] = p.detach().float().pow(2).mean().sqrt()
-            st["scale_exp_avg_sq"] = torch.zeros((), device=p.device)
-            st["scale_grads"] = torch.zeros(sup, device=p.device)
+            blocks = st["blocks"] = _row_blocks(p)
+            st["param_rms"] = _per_block(p.detach().float(), blocks, _rms)
+            st["scale_exp_avg_sq"] = torch.zeros(len(blocks), device=p.device)
+            st["scale_grads"] = torch.zeros(sup, len(blocks), device=p.device)
 
     def _clipping(self, params, step: int) -> Optional[torch.Tensor]:
         """The whole-model clipping factor (None = 1): the norm of the
@@ -80,10 +117,19 @@ class ScaledAdam(torch.optim.Optimizer):
         if clipping_scale is None:
             return None
         glob = self.state["global"]
-        norms = torch.stack(torch._foreach_norm([p.grad.float() for p in params]))
-        one = torch.ones((), device=norms.device)
-        rms = torch.stack([self.state[p]["param_rms"] if p.numel() > 1 else one for p in params])
-        tot_norm = (norms * rms).pow(2).sum().sqrt()
+        grads, rms = [], []
+        one = torch.ones(1, device=params[0].device)
+        for p in params:
+            g = p.grad.float()
+            if p.numel() == 1:
+                grads.append(g)
+                rms.append(one)
+            else:
+                st = self.state[p]
+                grads += [g[a:b] for a, b in st["blocks"]]
+                rms.append(st["param_rms"])
+        norms = torch.stack(torch._foreach_norm(grads))
+        tot_norm = (norms * torch.cat(rms)).pow(2).sum().sqrt()
         cup = self.defaults["clipping_update_period"]
         if step > 0:
             glob["model_norms"][step % cup] = tot_norm
@@ -134,22 +180,24 @@ class ScaledAdam(torch.optim.Optimizer):
             return
 
         sup = group["size_update_period"]
-        st["scale_grads"][step % sup] = (p32 * g).sum()
+        blocks = st["blocks"]
+        st["scale_grads"][step % sup] = _per_block(p32 * g, blocks, torch.sum)
         prms = st["param_rms"]
         if step % sup == sup - 1:
-            prms = st["param_rms"] = p32.pow(2).mean().sqrt()
+            prms = st["param_rms"] = _per_block(p32, blocks, _rms)
             if step > 0:  # the size (log-scale) update
                 sgr = st["scale_grads"]
                 beta2c = beta2**sup
-                seas = beta2c * st["scale_exp_avg_sq"] + (1 - beta2c) * sgr.pow(2).mean()
+                seas = beta2c * st["scale_exp_avg_sq"] + (1 - beta2c) * sgr.pow(2).mean(0)
                 st["scale_exp_avg_sq"] = seas
                 bc2s = 1 - beta2c ** ((step + 1) // sup)
                 size_lr = lr * group["scalar_lr_scale"]
-                scale_step = -size_lr * math.sqrt(bc2s) * sgr.sum() / (seas.sqrt() + eps)
+                scale_step = -size_lr * math.sqrt(bc2s) * sgr.sum(0) / (seas.sqrt() + eps)
                 scale_step = torch.where(prms < min_rms, 0.0, scale_step)
                 scale_step = torch.where(prms > group["param_max_rms"], -size_lr * sup, scale_step)
-                delta = delta + (1 - beta1) * scale_step * p32
+                delta = delta + (1 - beta1) * _to_rows(scale_step, blocks, p.dim()) * p32
         denom = (eas / bc2 if bc2 < 0.99 else eas).sqrt() + eps
-        delta = delta + (g / denom) * (-lr * (1 - beta1) * prms.clamp(min=min_rms))
+        alpha = -lr * (1 - beta1) * prms.clamp(min=min_rms)
+        delta = delta + (g / denom) * _to_rows(alpha, blocks, p.dim())
         st["delta"] = delta
         p.add_(delta.to(p.dtype))

@@ -48,9 +48,10 @@ def make_train_step(
     state is updated in place and returned.
 
     ``batch`` is a dict with a leading micro-batch axis A: text_tokens
-    (A,B,S), text_tokens_lens (A,B), audio_features (A,B,T,Q),
-    audio_features_lens (A,B), and optionally prompt_codes (A,B,P,Q) for
-    prefix mode 4 and example_mask (A,B).  ``deterministic`` turns dropout
+    (A,B,S), text_tokens_lens (A,B), audio_features (A,B,T,Q) codes (or
+    (A,B,T,M) float mels for the Transformer baseline), audio_features_lens
+    (A,B), and optionally prompt_codes (A,B,P,Q) for prefix mode 4 and
+    example_mask (A,B).  ``deterministic`` turns dropout
     off (the model runs in eval mode); the forward's draws still come from
     ``rng``.
     """

@@ -8,7 +8,10 @@ stacks, splits the stacked NAR embedding tables, re-packs the cross-attention
 q / kv projections into one ``in_proj_weight``, writes the tied NAR
 prediction weights (``nar_predict_layers.{j}`` = table j+2 for j <= Q-3, as
 the reference ties them) and maps the optional prenets (flax Conv / BatchNorm
-/ Dense to the reference's ``nn.Sequential`` indices).
+/ Dense to the reference's ``nn.Sequential`` indices).  The Transformer TTS
+baseline (``variant="transformer"``) maps its encoder and decoder
+stacks the same way, its mel prenet ``decoder_prenet_fc1..3`` to
+``decoder_prenet.0 / .3 / .6`` and its other leaves by name.
 
 Input is the JAX variables dict as ``model.init`` returns it, with numpy
 leaves (``jax.tree.map(np.asarray, variables)``); a bare params tree works
@@ -94,11 +97,35 @@ def _prenets(out: Dict[str, np.ndarray], params: Mapping, stats: Mapping, side: 
             out[f"{side}_audio_prenet.{idx}.bias"] = mlp[name]["bias"]
 
 
+def _transformer_tts(params: Mapping, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {
+        "text_embedding.word_embeddings.weight": params["text_embedding"]["word_embeddings"][
+            "embedding"],
+        "text_position.alpha": params["text_position"]["alpha"],
+        "decoder_position.alpha": params["decoder_position"]["alpha"],
+    }
+    _decoder(out, params["encoder"], "encoder", cfg.num_layers, False, False, cfg.norm_first)
+    _decoder(out, params["decoder"], "decoder", cfg.num_layers, False, True, cfg.norm_first)
+    dense = {f"decoder_prenet.{i}": params[f"decoder_prenet_fc{j}"]
+             for i, j in ((0, 1), (3, 2), (6, 3))}
+    dense.update(predict_layer=params["predict_layer"], stop_layer=params["stop_layer"])
+    for name, leaf in dense.items():
+        out[f"{name}.weight"] = leaf["kernel"].T
+        out[f"{name}.bias"] = leaf["bias"]
+    return out
+
+
 def numpy_state_dict_from_jax(variables: Mapping, cfg: ModelConfig,
                               variant: str = "valle") -> Dict[str, np.ndarray]:
-    """JAX variables (or params) of VALLE/VALLF -> reference-keyed numpy dict."""
+    """JAX variables (or params) of the model that ``variant`` names
+    ("valle", "vallf" or "transformer", the TTS baseline) -> the port's numpy
+    state dict."""
+    if variant not in ("valle", "vallf", "transformer"):
+        raise ValueError(f"unknown variant {variant!r}")
     params = variables["params"] if "params" in variables else variables
     stats = variables.get("batch_stats", {}) if "params" in variables else {}
+    if variant == "transformer":
+        return {k: np.array(v) for k, v in _transformer_tts(params, cfg).items()}
     cross = variant == "vallf"
     q = cfg.num_quantizers
     emb = lambda name: params[name]["word_embeddings"]["embedding"]  # noqa: E731
