@@ -9,7 +9,9 @@ ends the run with a non-zero exit code):
   1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
      (TF32 is switched off for matmuls and cuDNN);
   2. build: the three kernel sources from ``valle_tpu_torch/csrc`` with
-     ``nvcc``, in parallel, with each one's most registers and spilled bytes;
+     ``nvcc``, in parallel, with each one's most registers and spilled bytes,
+     and per backward kernel its registers, spills and tensor-core (HMMA)
+     instructions: every pass must use the tensor cores and none may spill;
   3. kernel 1 (ragged decode attention) against its plain PyTorch version at
      decode shapes, int8 / f32 / bf16 caches;
   4. kernel 2 (prefix-LM / dense attention) against its plain version in
@@ -23,7 +25,8 @@ ends the run with a non-zero exit code):
      version: the Transformer TTS decoder's causal + padding bias at the
      training shapes in f32 and bf16, a soft per-head bias and a (1, 1, Tq,
      Tk) bias with d(bias), Tq != Tk, and the inference shape, with
-     bit-equal reruns;
+     bit-equal reruns; then kernels 3 and 4's backward at head dims 16, 32
+     and 128 on a small shape, likewise;
   8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
      decode logits held against a CPU copy of the model, and timings;
@@ -43,10 +46,12 @@ ends the run with a non-zero exit code):
  12. a ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
-Kernel times are the median of 5 windows of back-to-back calls (CUDA
-events), with the fastest and slowest window as the spread, and beside them
-the device time per call from ``torch.profiler``, which leaves out the host's
-launch overhead.  Exits non-zero
+Backward cases also carry their time over SDPA's, the names of SDPA's
+backward kernels (``torch.profiler``) and, in f32, the bound with the
+products as 3xTF32 on the tensor cores.  Kernel times are the median of 5
+windows of back-to-back calls (CUDA events), with the fastest and slowest
+window as the spread, and beside them the device time per call from
+``torch.profiler``, which leaves out the host's launch overhead.  Exits non-zero
 without CUDA, and where the port's package is not beside it.  Needs one card,
 no network.
 """
@@ -54,6 +59,7 @@ no network.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -63,7 +69,10 @@ import numpy as np
 SEED = 0
 KERNELS = ["ragged_decode", "prefix_attention", "prefix_attention_bwd"]  # kernel 4 is in 2 / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}  # dense, no TF32
+# dense; f32 on the CUDA cores without TF32, and f32-accurate products as
+# 3xTF32 (three TF32 products at 495 TFLOP/s each)
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+                  "tf32x3": 495e12 / 3}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOGIT_ATOL = 1e-3
 
@@ -120,12 +129,87 @@ def device_ms(fn, kernel_names, iters: int = 20):
 def ptxas_summary(log_path) -> dict:
     """Most registers of any kernel instantiation and the spilled bytes,
     from ``nvcc -Xptxas -v``."""
-    import re
-
     text = log_path.read_text()
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
     return {"max_registers": max(regs, default=0), "spill_bytes": sum(spills)}
+
+
+_BWD_KERNEL = re.compile(r"(attn_bwd_dq_kernel|attn_bwd_dkv_kernel|flash_bias_bwd_dq_kernel|"
+                         r"flash_bias_bwd_dkv_kernel|attn_bwd_delta_kernel)"
+                         r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
+
+
+def bwd_kernel_label(mangled: str):
+    """``attn_bwd_dq_kernel<float32, 64, drop>`` for a mangled backward kernel
+    name, or None for another kernel."""
+    m = _BWD_KERNEL.search(mangled)
+    if m is None:
+        return None
+    args = ["float32" if m.group(2) == "f" else "bfloat16"]
+    if m.group(3):
+        args.append(m.group(3))
+    if m.group(4) == "1":
+        args.append("drop")
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def bwd_kernel_resources(lib_path, log_path) -> dict:
+    """Per instantiation of the backward source: registers and spilled bytes
+    (``nvcc -Xptxas -v``) and the tensor-core (HMMA) instructions in its SASS
+    (``cuobjdump -sass`` of the built library)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    res, name = {}, None
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = bwd_kernel_label(m.group(1))
+            if name is not None:
+                res.setdefault(name, {"registers": 0, "spill_bytes": 0, "hmma": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            res[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res[name]["registers"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    name = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = bwd_kernel_label(m.group(1))
+        elif name is not None and "HMMA" in line:
+            res[name]["hmma"] += 1
+    return res
+
+
+def top_device_kernels(fn, n: int = 3, iters: int = 3) -> list:
+    """The ``n`` kernels with the most device time in ``iters`` calls of
+    ``fn()`` (``torch.profiler``), with their device ms per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
+    return [{"name": e.key[:160], "device_ms_per_call": e.self_device_time_total / 1e3 / iters}
+            for e in top]
 
 
 def bound(n_bytes: float, n_ops: float, op_type: str):
@@ -369,9 +453,18 @@ def check_dropout_forward(dev):
     return results
 
 
-def check_backward(dev):
+def _tf32x3_bound(dtype: str, n_bytes: float, n_ops: float) -> dict:
+    """For f32: the bound with the products on the tensor cores as 3xTF32."""
+    if dtype != "float32":
+        return {}
+    ms, by = bound(n_bytes, n_ops, "tf32x3")
+    return {"bound_ms_tf32x3": ms, "bound_by_tf32x3": by}
+
+
+def check_backward(dev, res):
     """Kernel 3 against its plain version with the same mask, in four mask
-    modes, at rates 0 and 0.1, in f32 and bf16; two runs must be bit-equal."""
+    modes, at rates 0 and 0.1, in f32 and bf16; two runs must be bit-equal.
+    ``res``: the backward kernels' registers, spills and HMMA counts."""
     import torch
     from torch.nn import functional as F
 
@@ -414,21 +507,30 @@ def check_backward(dev):
                 ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
                 ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, dropout_p=rate)
                 dol = dout.transpose(1, 2)
-                library_ms = cuda_time(lambda: torch.autograd.grad(
-                    ol, (ql, kl, vl), dol, retain_graph=True), iters=10)["ms"]
-                del ol, ql, kl, vl
+                lib_call = lambda: torch.autograd.grad(  # noqa: E731
+                    ol, (ql, kl, vl), dol, retain_graph=True)
+                library_ms = cuda_time(lib_call, iters=10)["ms"]
+                library_kernels = top_device_kernels(lib_call)
+                del ol, ql, kl, vl, lib_call
                 vis = _visible_columns(tq, tk, prefix_s)
                 n_bytes = ((q.numel() * 4 + k.numel() * 4) * q.element_size()
                            + kb.numel() * 4 + lse.numel() * 4)
-                bound_ms, bound_by = bound(n_bytes, 10.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis,
-                                           dtype)
+                n_ops = 10.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis
+                bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+                drop = ", drop" if rate > 0 else ""
                 results[case] = {
                     "case": case, "b": TRAIN_B, "tq": tq, "tk": tk, "prefix_s": prefix_s,
                     "dtype": dtype, "rate": rate, "max_abs_err": max(errs),
                     "err_is": "max |kernel - plain| / max |plain|, worst of dq, dk, dv",
                     "tol": TOL[dtype], "bit_equal_rerun": True, **timing, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "tflops": 10.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis / timing["ms"] / 1e9}
+                    "library_ms": library_ms, "ms_over_library": timing["ms"] / library_ms,
+                    "library_kernels": library_kernels,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    **_tf32x3_bound(dtype, n_bytes, n_ops),
+                    "kernels": {label: res.get(label) for label in (
+                        f"attn_bwd_dq_kernel<{dtype}, {TRAIN_DH}{drop}>",
+                        f"attn_bwd_dkv_kernel<{dtype}, {TRAIN_DH}{drop}>")},
+                    "tflops": n_ops / timing["ms"] / 1e9}
     emit({"phase": "kernel3_backward", "cases": list(results.values())})
     return results
 
@@ -460,11 +562,11 @@ def _inference_bias(n: int, step: int):
     return np.where(masked, -1e9, 0.0).astype(np.float32)[None, None]
 
 
-def check_flash_bias(dev):
+def check_flash_bias(dev, res):
     """Kernel 4 forward and backward against its plain version, with
     bit-equal reruns, in f32 and bf16, at the training and inference shapes
     of the Transformer TTS decoder, with soft and broadcast biases, Tq != Tk,
-    and d(bias) on and off."""
+    and d(bias) on and off.  ``res`` as in :func:`check_backward`."""
     import torch
     from torch.nn import functional as F
 
@@ -542,16 +644,19 @@ def check_flash_bias(dev):
         lib_fwd = cuda_time(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
                             iters=10)["ms"]
         ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
-        lib_bwd = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), dout.transpose(1, 2),
-                                                        retain_graph=True), iters=5)["ms"]
-        del ol, ql, kl, vl, mask
+        lib_call = lambda: torch.autograd.grad(  # noqa: E731
+            ol, (ql, kl, vl), dout.transpose(1, 2), retain_graph=True)
+        lib_bwd = cuda_time(lib_call, iters=5)["ms"]
+        lib_kernels = top_device_kernels(lib_call)
+        del ol, ql, kl, vl, mask, lib_call
         pairs = bb * h * tq * tk
         elem = q.element_size()
         qkv_bytes = (q.numel() + k.numel() + v.numel()) * elem
         f_bound = bound(qkv_bytes + q.numel() * elem + bias.numel() * 4 + lse.numel() * 4,
                         4.0 * pairs * dh, dtype)
-        b_bound = bound(2 * qkv_bytes + 2 * q.numel() * elem + bias.numel() * 4 + lse.numel() * 4
-                        + (pairs * 4 if bias_grad else 0), 10.0 * pairs * dh, dtype)
+        b_bytes = (2 * qkv_bytes + 2 * q.numel() * elem + bias.numel() * 4 + lse.numel() * 4
+                   + (pairs * 4 if bias_grad else 0))
+        b_bound = bound(b_bytes, 10.0 * pairs * dh, dtype)
         shape = {"b": bb, "h": h, "tq": tq, "tk": tk, "dh": dh, "bias_shape": list(bias.shape),
                  "dtype": dtype, "bias_grad": bias_grad, "tol": TOL[dtype],
                  "bit_equal_rerun": bit_equal}
@@ -566,11 +671,74 @@ def check_flash_bias(dev):
                                    + (", d(bias)" if bias_grad else ""),
                          **t_bwd, "plain_ms": plain_bwd, "library_ms": lib_bwd,
                          "library_is": "SDPA backward, dq dk dv only",
+                         "ms_over_library": t_bwd["ms"] / lib_bwd,
+                         "library_kernels": lib_kernels,
                          "bound_ms": b_bound[0], "bound_by": b_bound[1],
+                         **_tf32x3_bound(dtype, b_bytes, 10.0 * pairs * dh),
+                         "kernels": {label: res.get(label) for label in (
+                             f"flash_bias_bwd_dq_kernel<{dtype}, {dh}>",
+                             f"flash_bias_bwd_dkv_kernel<{dtype}, {dh}>")},
                          "tflops": 10.0 * pairs * dh / t_bwd["ms"] / 1e9},
         }
         del q, k, v, dout, bias, out, lse
     emit({"phase": "kernel4_flash_bias", "cases": list(results.values())})
+    return results
+
+
+HEAD_DIM_CASE = (2, 4, 200, 48)  # B, H, T, prefix_s
+
+
+def check_head_dims(dev):
+    """Kernels 3 and 4's backward at the head dims the training shapes do not
+    reach (16, 32, 128), in f32 and bf16: kernel 3 in prefix mode at rate 0.1
+    and in dense mode at rate 0, kernel 4 with a causal + padding bias, each
+    against its plain version with a bit-equal rerun."""
+    import torch
+
+    from valle_tpu_torch.ops import flash_attention as fl
+    from valle_tpu_torch.ops import fused_attention as fa
+
+    rng = np.random.RandomState(SEED + 8)
+    b, h, t, prefix_s = HEAD_DIM_CASE
+    key_bias = np.where(np.arange(t)[None, :] >= rng.randint(3 * t // 4, t + 1, b)[:, None],
+                        -1e9, 0.0).astype(np.float32)
+    kb = torch.from_numpy(key_bias).to(dev)
+    dec = torch.from_numpy(_decoder_bias(rng, b, t, 3 * t // 4)).to(dev)
+    results = []
+    for dh in (16, 32, 128):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v, dout = (torch.from_numpy(rng.randn(b, t, h, dh).astype(np.float32)).to(dev, dt)
+                             for _ in range(4))
+            for mode, rate in (("prefix", DROPOUT), ("dense", 0.0), ("kernel4 decoder bias", 0.0)):
+                if mode == "kernel4 decoder bias":
+                    out, lse = fl._forward(q, k, v, dec, with_lse=True)
+                    call = lambda: fl.flash_attention_biased_backward(  # noqa: E731
+                        q, k, v, dec, out, dout, lse)[:3]
+                    want = fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse)[:3]
+                else:
+                    ps = prefix_s if mode == "prefix" else None
+                    seed = int(rng.randint(0, 2**62))
+                    out, lse = fa._forward(q, k, v, kb, ps, rate, seed, with_lse=True)
+                    kw = dict(prefix_s=ps, dropout_rate=rate, dropout_seed=seed)
+                    call = lambda: fa.fused_prefix_attention_backward(  # noqa: E731
+                        q, k, v, kb, out, dout, lse, **kw)
+                    want = fa.attention_backward_reference(q, k, v, kb, out, dout, lse, ps, rate,
+                                                           seed)
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                case = f"dh {dh} {mode} {dtype} rate {rate}"
+                errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                        for g, w in zip(got, want)]
+                assert all(torch.isfinite(g).all() for g in got), case
+                assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+                    f"backward ({case}) is not bit-reproducible"
+                assert max(errs) <= TOL[dtype], f"backward ({case}) disagrees: {errs}"
+                results.append({"case": case, "b": b, "h": h, "t": t, "dh": dh,
+                                "max_abs_err": max(errs), "tol": TOL[dtype],
+                                "bit_equal_rerun": True})
+    emit({"phase": "kernel3_4_head_dims",
+          "err_is": "max |kernel - plain| / max |plain|, worst of dq, dk, dv", "cases": results})
     return results
 
 
@@ -1176,14 +1344,22 @@ def main() -> int:
 
     t0 = time.perf_counter()
     seconds = cuda_build.build(KERNELS)
+    bwd_log = cuda_build.log_path("prefix_attention_bwd")
+    bwd = bwd_kernel_resources(bwd_log.with_suffix(".so"), bwd_log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": seconds,
-          "ptxas": {name: ptxas_summary(cuda_build.log_path(name)) for name in KERNELS}})
+          "ptxas": {name: ptxas_summary(cuda_build.log_path(name)) for name in KERNELS},
+          "backward_kernels": bwd})
+    passes = {n: r for n, r in bwd.items() if "delta" not in n}
+    assert len(passes) == 48, f"expected 48 backward pass kernels, found {sorted(passes)}"
+    assert all(r["hmma"] > 0 for r in passes.values()), "a backward pass runs no tensor-core MMA"
+    assert all(r["spill_bytes"] == 0 for r in bwd.values()), "ptxas spills in the backward"
 
     k1 = check_ragged_decode(dev)
     check_prefix_attention(dev)
     k2d = check_dropout_forward(dev)
-    k3 = check_backward(dev)
-    k4 = check_flash_bias(dev)
+    k3 = check_backward(dev, bwd)
+    k4 = check_flash_bias(dev, bwd)
+    check_head_dims(dev)
     paths = {"generate": main_path(dev), "train_step": train_path(dev, k2d, k3),
              "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}
 

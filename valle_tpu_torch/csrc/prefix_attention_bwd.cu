@@ -1,6 +1,6 @@
 // Attention backward for Hopper (sm_90a): kernel 3 (prefix-LM / dense, with
 // dropout) and kernel 4's backward (dense bias), one set of tile bodies for
-// both.
+// both, on the tensor cores.
 //
 // Kernel 3 replaces: valle_tpu/ops/fused_attention.py::_bwd_kernel (driven by
 // _pallas_bwd, pallas_call at fused_attention.py:268, and the custom_vjp at
@@ -30,42 +30,102 @@
 // kBias = false compiles to kernel 3's code alone.
 //
 // In bf16, P (Pd) and dS are rounded to bf16 before their products, as the
-// TPU kernels cast them to the input dtype; every sum is kept in f32 (the TPU
-// kernel 3 sums its dK/dV window partials in the model dtype).  dq, dk, dv
-// are written in the input dtype.
+// TPU kernels cast them to the input dtype (they are the MMA operands); every
+// sum is kept in f32 (the TPU kernel 3 sums its dK/dV window partials in the
+// model dtype).  dq, dk, dv are written in the input dtype.
 //
 // What bounds it on the H100: operations.  Five products per visible (row,
-// column) pair (S, dP, dV, dQ, dK): 10 B H Dh visible flops against 67
-// TFLOP/s of f32 CUDA-core FMA, with a few MB of inputs (plus kernel 4's bias
-// and, when written, 4 B H Tq Tk bytes of d(bias)).
+// column) pair (S, dP, dV, dQ, dK): 10 B H Dh flops per visible pair, with a
+// few MB of inputs (plus kernel 4's bias and, when written, 4 B H Tq Tk bytes
+// of d(bias)).  bf16 runs on the tensor cores at 989 TFLOP/s dense.  f32
+// runs as 3xTF32: three TF32 products per f32 product at 495 TFLOP/s, i.e.
+// 165 TFLOP/s of f32-accurate products, against 67 TFLOP/s of f32 FMA on the
+// CUDA cores.
 //
-// What the design does about it: three launches, no atomics, so two runs give
-// bit-equal gradients.
-//   1. delta: one warp per (b, row, head).
-//   2. dQ (and kernel 4's d(bias), since this pass holds dS per tile): one
-//      block of 256 threads per (64-row q tile, head, batch), walking 64-column
-//      key tiles up to the tile's frontier max(prefix_s, tile end), as the
-//      forward does (kernel 4: every key tile).
-//   3. dK/dV: one block per (64-column key tile, head, batch), walking only
-//      the q tiles that can see it: in prefix mode a key tile at c0 >= prefix_s
-//      is seen by rows >= c0 only, one at c0 < prefix_s by every row (kernel 4:
-//      every q tile).
-// Each block recomputes its S tile with the forward's exact loop (the same
-// staging of q, FMAs in the same order), so P is the forward's to rounding.
-// Dropout bits and dS are formed in an element pass over shared memory where
-// one thread owns 4 adjacent columns (one Philox call).  Each thread holds a
-// 4 x 4 block of scores and a 4 x Dh/16 block of its outputs.  Later work:
-// tensor cores (wgmma) and TMA.
+// What the design does about it:
+//   1. Tensor cores for all five products, with mma.sync: bf16 m16n8k16, and
+//      for f32 m16n8k8 TF32 three times, each operand x split into big =
+//      tf32_rna(x) and small = tf32_rna(x - big), summing small*big,
+//      big*small, big*big in f32, in that order.  TF32 stays off globally;
+//      3xTF32 is this kernel's own arithmetic.  The tensor cores round their
+//      sums toward zero, so the long sums (dQ over keys, dK / dV over rows)
+//      take each k step's three products into a zeroed fragment and add it in
+//      f32: without that the bias reached 1e-5 of the result at T = 880.
+//   2. Tiles are copied row-major, untransposed, with 16-byte cp.async into a
+//      ring of two stages, so the next tile's loads overlap the current
+//      tile's MMAs (zero-filled past the ragged edge; a plain copy where a
+//      row is not 16-byte aligned).  The dQ pass streams K and V; the dK/dV
+//      pass streams Q, dO, LSE and delta.  Rows are padded by 16 bytes: bf16
+//      fragments come from ldmatrix (8 rows of 16 bytes at a row stride of 16
+//      mod 128 bytes), f32 fragments from 32-bit loads whose row stride is 4
+//      mod 32 words; neither has bank conflicts.  bf16 is staged as bf16.
+//   3. The element pass runs in registers on the MMA's S and dP accumulator
+//      fragments, which then serve as the A operand of the next product with
+//      no trip through shared memory: in the dQ pass, dS (rows x keys) is the
+//      A of dQ = dS K; the dK/dV pass computes S^T = K q^T and dP^T = V dO^T
+//      directly, so Pd^T and dS^T are the A of dV = Pd^T dO and dK = dS^T q.
+//      For TF32 the k index of the second product is permuted (k = t -> col
+//      2t, k = t + 4 -> col 2t + 1) on both operands, which leaves the sum
+//      unchanged.  One lane computes the Philox call of each (row, 4-column
+//      group), counter (col / 4, row, b H + h) as before, and the others take
+//      its bits with shuffles.  Kernel 4's bias is read before the products,
+//      so that its latency hides behind them.
+//   4. The kernel is latency-bound, so occupancy decides: 4 warps of 16 rows
+//      (dQ pass) or 16 key columns (dK/dV pass) per block, 16-row streamed
+//      tiles (52 KB of shared memory in f32 at Dh = 64), and launch bounds per
+//      instantiation (bounds_class) that fit four blocks per SM in at most
+//      128 registers where ptxas manages that without spills.  No
+//      instantiation spills.
+//   5. Three launches, no atomics, so two runs give bit-equal gradients:
+//      delta (one warp per (b, row, head)); dQ (and kernel 4's d(bias)) per
+//      (64-row q tile, head, batch), walking key tiles up to the tile's
+//      frontier max(prefix_s, tile end) (kernel 4: every key tile); dK/dV per
+//      (64-column key tile, head, batch), walking only the q tiles that can
+//      see it (prefix mode: rows >= c0 for a key tile at c0 >= prefix_s).
+//      P is recomputed in both passes.  S no longer follows the forward's
+//      FMA order, so P agrees with the forward's to f32 rounding.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "philox.cuh"
 
 namespace {
+
+// The backward's own tile shape (the forward's BQ / BK / LD / kThreads in
+// attention_common.cuh are its own).
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int BM = 16 * kBwdWarps;  // rows a block owns: q rows (dQ pass) or key columns (dK/dV)
+constexpr int BN = 16;  // rows of a streamed tile: keys (dQ pass) or q rows (dK/dV pass)
+
+// Row stride of a staged tile in elements: Dh plus 16 bytes.
+template <typename T, int DH>
+__host__ __device__ constexpr int row_stride() {
+  return DH + 16 / (int)sizeof(T);
+}
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+// The launch bounds of a pass instantiation, chosen so that ptxas reports no
+// spills: 4 asks it to fit four blocks of kBwdThreads per SM (at most 128
+// registers), 1 lets it take up to 255, 0 leaves the choice to it (at Dh =
+// 64 that gave fewer registers than 1).  In f32 at Dh = 64 the dQ passes
+// take 100-114 registers unbounded, and kernel 4's dK/dV pass spills when
+// held to 128.
+template <typename T, int DH, bool kDrop, bool kBias, bool kDq>
+constexpr int bounds_class() {
+  if (DH != 64) return 1;
+  if (!kF32<T>) return 4;
+  return (!kDq && !kBias) ? 4 : 0;
+}
 
 // The value a product operand takes in type T (the TPU kernels' casts).
 template <typename T>
@@ -78,77 +138,224 @@ __device__ __forceinline__ bool visible(int r, int c, int Tq, int Tk, int prefix
   return r < Tq && c < Tk && (prefix_s < 0 || c < prefix_s || (r >= prefix_s && c <= r));
 }
 
-// Kernel 4's S of one element: (q.k + bias) * scale for a row < Tq and a
-// column < Tk, -inf otherwise (so P is 0 there).
-__device__ __forceinline__ float logit(float qk, const float* bb, const Bias& bias, int r, int c,
-                                       int Tq, int Tk, float scale) {
+// Kernel 4's bias of one element for a row < Tq and a column < Tk, -inf
+// otherwise (so P is 0 there); S = (q.k + bias) * scale.  The offsets within
+// one (b, h) slice are 32-bit.
+__device__ __forceinline__ float bias_at(const float* bb, const Bias& bias, int r, int c, int Tq,
+                                         int Tk) {
   if (r >= Tq || c >= Tk) return -INFINITY;
-  return (qk + bb[(long long)r * bias.sq + (long long)c * bias.sk]) * scale;
+  return bb[r * (int)bias.sq + c * (int)bias.sk];  // fits: flash_attention_bwd_launch checks
 }
 
-// Stage a 64-row tile of x (rows [r0, r0 + 64) of a (.., T, H, DH) view with
-// row stride x_st) transposed into s[d * LD + r], times mul; rows >= lim are 0.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_t(float* s, const T* x, long long x_st, int r0, int lim,
-                                        float mul) {
-  for (int i = threadIdx.x; i < 64 * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    float val = 0.f;
-    if (r0 + r < lim) val = to_float(x[(long long)(r0 + r) * x_st + d]) * mul;
-    s[d * LD + r] = val;
+// ------------------------------------------------------------ primitives
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared, or 16 zero bytes when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global to shared, or 4 zero bytes when !full.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b for one m16n8k16 bf16 tile.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for one m16n8k8 TF32 tile.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero:
+// what cvt.rna.tf32.f32 gives, in two integer operations instead of one
+// conversion.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both TF32 values.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// A fragment of 3xTF32: the big and small parts of a0..a3.
+struct SplitA {
+  unsigned big[4], small[4];
+};
+
+__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2, float a3) {
+  SplitA s;
+  split_tf32(a0, s.big[0], s.small[0]);
+  split_tf32(a1, s.big[1], s.small[1]);
+  split_tf32(a2, s.big[2], s.small[2]);
+  split_tf32(a3, s.big[3], s.small[3]);
+  return s;
+}
+
+// c += a b to f32 accuracy: a_s b_b + a_b b_s + a_b b_b, in that order.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const SplitA& a, float b0, float b1) {
+  unsigned bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(c, a.small, bb0, bb1);
+  mma_tf32(c, a.big, bs0, bs1);
+  mma_tf32(c, a.big, bb0, bb1);
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// ------------------------------------------------------------ tile products
+
+// acc[n] += X Y^T over Dh for a warp: X the 16 rows at x (row-major, stride
+// LDT), Y the NT * 8 rows at y.  acc[n] is the m16n8 C fragment of columns
+// 8n .. 8n + 7: lane (g = lane / 4, t = lane % 4) holds rows g, g + 8 and
+// columns 2t, 2t + 1.
+template <typename T, int DH, int NT>
+__device__ __forceinline__ void mma_xyt(float (&acc)[NT][4], const T* x, const T* y, int lane) {
+  constexpr int LDT = row_stride<T, DH>();
+  if constexpr (kF32<T>) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+    for (int k0 = 0; k0 < DH; k0 += 8) {
+      const float* xa = x + g * LDT + k0 + t;
+      const SplitA a = split_a(xa[0], xa[8 * LDT], xa[4], xa[8 * LDT + 4]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* yb = y + (8 * n + g) * LDT + k0 + t;
+        mma_3xtf32(acc[n], a, yb[0], yb[4]);
+      }
+    }
+  } else {
+    static_assert(NT % 2 == 0, "bf16 tiles pair their n8 tiles");
+    const int lr = lane & 7, m = lane >> 3;
+#pragma unroll
+    for (int k0 = 0; k0 < DH; k0 += 16) {
+      unsigned a[4];
+      ldsm_x4(a, x + (lr + (m & 1) * 8) * LDT + k0 + (m >> 1) * 8);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        unsigned b[4];
+        ldsm_x4(b, y + (8 * n + (m >> 1) * 8 + lr) * LDT + k0 + (m & 1) * 8);
+        mma_bf16(acc[n], a, b[0], b[1]);
+        mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+    }
   }
 }
 
-// S = q k^T and dPd = dO v^T for rows ty*4+i, columns tx+16j of the staged
-// tiles, in the forward kernel's FMA order.
-template <int DH>
-__device__ __forceinline__ void scores(const float* sQt, const float* sKt, const float* sDOt,
-                                       const float* sVt, int tx, int ty, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
+// acc[n] += F Z for a warp: F the 16 x (KT * 8) operand held as KT C
+// fragments (already rounded like T), Z the KT * 8 rows at z (row-major,
+// stride LDT) of which the Dh columns are the output's.  In f32 each k step
+// of 8 sums into a zeroed fragment that is then added to acc in f32: the
+// tensor cores round their own sums toward zero, and over the hundreds of
+// steps of a long row that bias reached 1e-5 of the result.
+template <typename T, int DH, int KT>
+__device__ __forceinline__ void mma_fz(float (&acc)[DH / 8][4], const float (&f)[KT][4],
+                                       const T* z, int lane) {
+  constexpr int LDT = row_stride<T, DH>();
+  if constexpr (kF32<T>) {
+    // k = t is column 2t of the fragment and k = t + 4 column 2t + 1, on both
+    // operands.
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < KT; ++j) {
+      const SplitA a = split_a(f[j][0], f[j][2], f[j][1], f[j][3]);
+      const float* zb = z + (8 * j + 2 * t) * LDT + g;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    const float4 qv = *reinterpret_cast<const float4*>(&sQt[d * LD + ty * 4]);
-    const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-    float kv[4];
+      for (int n = 0; n < DH / 8; ++n) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(part, a, zb[8 * n], zb[LDT + 8 * n]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = sKt[d * LD + tx + 16 * j];
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+      }
+    }
+  } else {
+    static_assert(KT % 2 == 0, "bf16 tiles pair their n8 tiles");
+    const int lr = lane & 7, m = lane >> 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < KT; j += 2) {
+      const unsigned a[4] = {pack_bf16(f[j][0], f[j][1]), pack_bf16(f[j][2], f[j][3]),
+                             pack_bf16(f[j + 1][0], f[j + 1][1]),
+                             pack_bf16(f[j + 1][2], f[j + 1][3])};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
-  }
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    const float4 ov = *reinterpret_cast<const float4*>(&sDOt[d * LD + ty * 4]);
-    const float oa[4] = {ov.x, ov.y, ov.z, ov.w};
-    float vv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) vv[j] = sVt[d * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(oa[i], vv[j], dp[i][j]);
+      for (int n = 0; n < DH / 8; n += 2) {
+        unsigned b[4];
+        ldsm_x4_t(b, z + (8 * j + (m & 1) * 8 + lr) * LDT + 8 * n + (m >> 1) * 8);
+        mma_bf16(acc[n], a, b[0], b[1]);
+        mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+    }
   }
 }
 
-// One element of kernel 3's softmax backward: x = score + bias (-inf if
-// masked), dpd = (dO V^T) of the element; returns dS and sets pd = dropped P.
-template <bool kDrop>
-__device__ __forceinline__ float grad_elem(float x, float dpd, float lse, float delta, bool keep,
-                                           float inv_keep, float* pd) {
-  const float p = (x == -INFINITY) ? 0.f : expf(x - lse);
-  float dp = dpd;
-  *pd = p;
-  if constexpr (kDrop) {
-    *pd = keep ? p * inv_keep : 0.f;
-    dp = keep ? dpd * inv_keep : 0.f;
+// Copy rows [r0, r0 + ROWS) of x (row stride x_st elements, Dh contiguous) into
+// s (row stride LDT); rows >= lim are zero.  vec: every row is 16-byte
+// aligned, so the copy is asynchronous (cp.async, completed by the caller's
+// wait); otherwise it is a plain copy.
+template <typename T, int DH, int ROWS>
+__device__ __forceinline__ void stage_rows(T* s, const T* x, long long x_st, int r0, int lim,
+                                           bool vec) {
+  constexpr int LDT = row_stride<T, DH>(), kVec = 16 / (int)sizeof(T), kChunks = DH / kVec;
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kBwdThreads) {
+      const int r = i / kChunks, ch = i % kChunks;
+      const bool ok = r0 + r < lim;
+      cp_async16(s + r * LDT + ch * kVec, ok ? x + (long long)(r0 + r) * x_st + ch * kVec : x, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DH; i += kBwdThreads) {
+      const int r = i / DH, d = i % DH;
+      from_float(r0 + r < lim ? to_float(x[(long long)(r0 + r) * x_st + d]) : 0.f,
+                 &s[r * LDT + d]);
+    }
   }
-  return p * (dp - delta);
 }
+
+// ------------------------------------------------------------ passes
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(
@@ -168,14 +375,16 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(
   }
 }
 
-template <int DH>
-constexpr size_t smem_floats() {
-  return (size_t)DH * LD * 4 + (size_t)BK * LD * 2 + BK + BQ * 2;
+// Shared memory of either pass: four tiles (two stages of the streamed pair)
+// plus the two that stay, and the dK/dV pass's two stages of LSE and delta.
+template <typename T, int DH>
+constexpr size_t bwd_smem_bytes() {
+  return (2 * BM + 4 * BN) * (size_t)row_stride<T, DH>() * sizeof(T) + 4 * BN * sizeof(float);
 }
 
-// The dQ pass of one (64-row q tile, head, batch).  kBias: kernel 4 (q
-// staged unscaled, dense bias, no structural mask, writes d(bias) when
-// dbias is not null); otherwise kernel 3.
+// The dQ pass of one (64-row q tile, head, batch).  kBias: kernel 4 (dense
+// bias, no structural mask, writes d(bias) when dbias is not null);
+// otherwise kernel 3.
 template <typename T, int DH, bool kDrop, bool kBias>
 __device__ __forceinline__ void attn_bwd_dq_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
@@ -183,142 +392,143 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
     const T* __restrict__ v, long long v_sb, long long v_st,
     const float* __restrict__ kv_bias, Bias bias, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
-    float* __restrict__ dbias, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop) {
+    float* __restrict__ dbias, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
+    bool vec) {
   static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
-  constexpr int DJ = DH / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sQt = smem;             // [DH][LD]  q^T (pre-scaled unless kBias)
-  float* sDOt = sQt + DH * LD;   // [DH][LD]  dO^T
-  float* sKt = sDOt + DH * LD;   // [DH][LD]  k^T
-  float* sVt = sKt + DH * LD;    // [DH][LD]  v^T
-  float* sS = sVt + DH * LD;     // [BK][LD]  scores, column-major (c * LD + r)
-  float* sD = sS + BK * LD;      // [BK][LD]  dPd, then dS, column-major
-  float* sBias = sD + BK * LD;   // [BK]      key bias (kernel 3 only)
-  float* sLse = sBias + (kBias ? 0 : BK);  // [BQ]
-  float* sDelta = sLse + BQ;     // [BQ]
+  constexpr int LDT = row_stride<T, DH>(), TILE = BN * LDT;
+  constexpr int NT = BN / 8, DT = DH / 8;  // n8 tiles of a key tile, of Dh
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BM][LDT]
+  T* sDO = sQ + BM * LDT;                  // [BM][LDT]
+  T* sK = sDO + BM * LDT;                  // [2][BN][LDT]
+  T* sV = sK + 2 * TILE;                   // [2][BN][LDT]
 
-  const int r0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int r0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
-  const long long bh4 = (long long)b * H + h;  // kernel 4 indexes (b, h) rows in 64 bits
+  const long long bh4 = (long long)b * H + h;
   int kend = Tk;
-  if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + BQ));
+  if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + BM));
+  const int n_tiles = (kend + BN - 1) / BN;
 
   const T* kb = k + (long long)b * k_sb + (long long)h * DH;
   const T* vb = v + (long long)b * v_sb + (long long)h * DH;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
-  stage_t<T, DH>(sQt, q + (long long)b * q_sb + (long long)h * DH, q_st, r0, Tq,
-                 kBias ? 1.f : scale);
-  stage_t<T, DH>(sDOt, dout + (long long)b * Tq * H * DH + (long long)h * DH, (long long)H * DH,
-                 r0, Tq, 1.f);
-  if (tid < BQ) {
-    const bool ok = r0 + tid < Tq;
-    sLse[tid] = ok ? lse[(kBias ? bh4 : (long long)bh) * Tq + r0 + tid] : 0.f;
-    sDelta[tid] = ok ? delta[(kBias ? bh4 : (long long)bh) * Tq + r0 + tid] : 0.f;
-  }
+  stage_rows<T, DH, BM>(sQ, q + (long long)b * q_sb + (long long)h * DH, q_st, r0, Tq, vec);
+  stage_rows<T, DH, BM>(sDO, dout + (long long)b * Tq * H * DH + (long long)h * DH,
+                        (long long)H * DH, r0, Tq, vec);
+  stage_rows<T, DH, BN>(sK, kb, k_st, 0, kend, vec);
+  stage_rows<T, DH, BN>(sV, vb, v_st, 0, kend, vec);
+  cp_async_commit();
 
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  const int wr = 16 * warp;  // the warp's first row in the tile
+  const int ra = r0 + wr + g, rb = ra + 8;
+  const float lse_a = ra < Tq ? lse[bh4 * Tq + ra] : 0.f;
+  const float lse_b = rb < Tq ? lse[bh4 * Tq + rb] : 0.f;
+  const float dl_a = ra < Tq ? delta[bh4 * Tq + ra] : 0.f;
+  const float dl_b = rb < Tq ? delta[bh4 * Tq + rb] : 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_t<T, DH>(sKt, kb, k_st, k0, kend, 1.f);
-    stage_t<T, DH>(sVt, vb, v_st, k0, kend, 1.f);
-    if constexpr (!kBias) {
-      if (tid < BK)
-        sBias[tid] = (kv_bias != nullptr && k0 + tid < kend) ? kv_bias[(long long)b * Tk + k0 + tid] : 0.f;
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BN;
+    if (it + 1 < n_tiles) {  // the next K / V tile loads while this one computes
+      stage_rows<T, DH, BN>(sK + ((it + 1) & 1) * TILE, kb, k_st, k0 + BN, kend, vec);
+      stage_rows<T, DH, BN>(sV + ((it + 1) & 1) * TILE, vb, v_st, k0 + BN, kend, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* cK = sK + (it & 1) * TILE;
+    const T* cV = sV + (it & 1) * TILE;
 
-    float s[4][4], dp[4][4];
-    scores<DH>(sQt, sKt, sDOt, sVt, tx, ty, s, dp);
+    {
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cl = tx + 16 * j, c = k0 + cl;
-      float4 w, w2;
-      float* wp = reinterpret_cast<float*>(&w);
-      float* wp2 = reinterpret_cast<float*>(&w2);
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + ty * 4 + i;
-        if constexpr (kBias)
-          wp[i] = logit(s[i][j], bb, bias, r, c, Tq, Tk, scale);
-        else
-          wp[i] = (c < kend && visible(r, c, Tq, Tk, prefix_s)) ? s[i][j] + sBias[cl] : -INFINITY;
-        wp2[i] = dp[i][j];
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      // kernel 4's biases (-inf outside Tq x Tk), read before the products so
+      // that their latency hides behind them
+      float add[NT][4];
+      if constexpr (kBias) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            add[n][e] = bias_at(bb, bias, e < 2 ? ra : rb, k0 + 8 * n + 2 * t + (e & 1), Tq, Tk);
       }
-      *reinterpret_cast<float4*>(&sS[cl * LD + ty * 4]) = w;
-      *reinterpret_cast<float4*>(&sD[cl * LD + ty * 4]) = w2;
-    }
-    __syncthreads();
+      mma_xyt<T, DH, NT>(s, sQ + wr * LDT, cK, lane);   // S = q k^T
+      mma_xyt<T, DH, NT>(dp, sDO + wr * LDT, cV, lane); // dPd = dO v^T
 
-    {  // element pass: thread (row, 4-column group); a warp spans 32 rows
-      const int r = tid & (BQ - 1);
+      // element pass: s becomes dS, rounded like T
 #pragma unroll
-      for (int m = 0; m < BK / 16; ++m) {
-        const int g = (tid >> 6) + 4 * m;
-        unsigned keep = 0xFu;
-        if constexpr (kDrop)
-          keep = philox_keep4((unsigned)(k0 >> 2) + g, (unsigned)(r0 + r), bh, drop.seed,
-                              drop.threshold);
+      for (int n = 0; n < NT; ++n) {
+        const int cn = k0 + 8 * n;  // the n8 tile's first column
+        unsigned keep_a = 0xFu, keep_b = 0xFu;
+        if constexpr (kDrop) {
+          // lane L draws (row wr + L % 16, group L / 16) of this 16 x 8 tile
+          const unsigned w = philox_keep4((unsigned)(cn >> 2) + (lane >> 4),
+                                          (unsigned)(r0 + wr + (lane & 15)), bh, drop.seed,
+                                          drop.threshold);
+          keep_a = __shfl_sync(0xffffffffu, w, (t >> 1) * 16 + g) >> (2 * (t & 1));
+          keep_b = __shfl_sync(0xffffffffu, w, (t >> 1) * 16 + g + 8) >> (2 * (t & 1));
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int idx = (4 * g + e) * LD + r;
+          const int r = e < 2 ? ra : rb, c = cn + 2 * t + (e & 1);
+          const float lr = e < 2 ? lse_a : lse_b, dl = e < 2 ? dl_a : dl_b;
           float ds;
           if constexpr (kBias) {
-            const float x = sS[idx];
-            const float p = (x == -INFINITY) ? 0.f : expf(x - sLse[r]);
-            ds = (sD[idx] - sDelta[r]) * p * scale;
-            const int c = k0 + 4 * g + e;
-            if (dbias != nullptr && r0 + r < Tq && c < Tk)
-              dbias[(((kBias ? bh4 : (long long)bh) * Tq + r0 + r) * Tk) + c] = ds;
+            const float x = (s[n][e] + add[n][e]) * scale;
+            const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+            ds = (dp[n][e] - dl) * p * scale;
+            if (dbias != nullptr && r < Tq && c < Tk) dbias[(bh4 * Tq + r) * Tk + c] = ds;
           } else {
-            float pd;
-            ds = grad_elem<kDrop>(sS[idx], sD[idx], sLse[r], sDelta[r], (keep >> e) & 1u,
-                                  drop.inv_keep, &pd);
+            const float kvb = (kv_bias != nullptr && c < Tk) ? kv_bias[(long long)b * Tk + c] : 0.f;
+            const float x =
+                (c < kend && visible(r, c, Tq, Tk, prefix_s)) ? s[n][e] * scale + kvb : -INFINITY;
+            const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+            float dpd = dp[n][e];
+            if constexpr (kDrop) {
+              const bool keep = (((e < 2 ? keep_a : keep_b) >> (e & 1)) & 1u) != 0;
+              dpd = keep ? dpd * drop.inv_keep : 0.f;
+            }
+            ds = p * (dpd - dl);
           }
-          sD[idx] = round_like<T>(ds);
+          s[n][e] = round_like<T>(ds);
         }
       }
+      mma_fz<T, DH, NT>(acc, s, cK, lane);  // dQ += dS k
     }
-    __syncthreads();
-
-    // dQ += dS K: rows ty*4 + i, dims tx + 16 j.
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 dv4 = *reinterpret_cast<const float4*>(&sD[c * LD + ty * 4]);
-      const float da[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
-      float kv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = sKt[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(da[i], kv[j], acc[i][j]);
-    }
+    __syncthreads();  // the next prefetch overwrites this stage
   }
+  cp_async_wait<0>();
 
+  const float post = kBias ? 1.f : scale;  // kernel 4's dS already carries the scale
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= Tq) continue;
-    T* o = dq + (((long long)b * Tq + r) * H + h) * DH;
+  for (int n = 0; n < DT; ++n) {
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      if constexpr (kBias)  // dS already carries the scale
-        from_float(acc[i][j], &o[tx + 16 * j]);
-      else
-        from_float(acc[i][j] * scale, &o[tx + 16 * j]);
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? rb : ra;
+      if (r >= Tq) continue;
+      T* o = dq + (((long long)b * Tq + r) * H + h) * DH + 8 * n + 2 * t;
+      from_float(acc[n][2 * half] * post, &o[0]);
+      from_float(acc[n][2 * half + 1] * post, &o[1]);
     }
   }
 }
 
 // The dK/dV pass of one (64-column key tile, head, batch); kBias as in
-// attn_bwd_dq_tile.
+// attn_bwd_dq_tile.  A warp owns 16 key columns and computes S^T and dP^T
+// for them against NR q rows at a time.
 template <typename T, int DH, bool kDrop, bool kBias>
 __device__ __forceinline__ void attn_bwd_dkv_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
@@ -326,195 +536,290 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
     const T* __restrict__ v, long long v_sb, long long v_st,
     const float* __restrict__ kv_bias, Bias bias, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
-    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop) {
+    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
+    bool vec) {
   static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
-  constexpr int DJ = DH / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sKt = smem;             // [DH][LD]  k^T of this block's key tile
-  float* sVt = sKt + DH * LD;    // [DH][LD]  v^T
-  float* sQt = sVt + DH * LD;    // [DH][LD]  q^T of the current q tile (pre-scaled unless kBias)
-  float* sDOt = sQt + DH * LD;   // [DH][LD]  dO^T
-  float* sS = sDOt + DH * LD;    // [BQ][LD]  scores, then Pd, row-major (r * LD + c)
-  float* sD = sS + BQ * LD;      // [BQ][LD]  dPd, then dS, row-major
-  float* sBias = sD + BQ * LD;   // [BK]      key bias (kernel 3 only)
-  float* sLse = sBias + (kBias ? 0 : BK);  // [BQ]
-  float* sDelta = sLse + BQ;     // [BQ]
+  constexpr int LDT = row_stride<T, DH>(), TILE = BN * LDT;
+  // q rows whose S^T / dP^T a warp holds at once (f32 at Dh = 128: 8, or it spills)
+  constexpr int NR = DH <= 64 ? BN : (kF32<T> ? 8 : 16);
+  constexpr int RT = NR / 8, DT = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [BM][LDT]
+  T* sV = sK + BM * LDT;                   // [BM][LDT]
+  T* sQ = sV + BM * LDT;                   // [2][BN][LDT]
+  T* sDO = sQ + 2 * TILE;                  // [2][BN][LDT]
+  float* sL = reinterpret_cast<float*>(sDO + 2 * TILE);  // [2][BN] lse
+  float* sDl = sL + 2 * BN;                               // [2][BN] delta
 
-  const int c0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int c0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
-  const long long bh4 = (long long)b * H + h;  // kernel 4 indexes (b, h) rows in 64 bits
+  const long long bh4 = (long long)b * H + h;
   const T* qb = q + (long long)b * q_sb + (long long)h * DH;
   const T* dob = dout + (long long)b * Tq * H * DH + (long long)h * DH;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
 
-  stage_t<T, DH>(sKt, k + (long long)b * k_sb + (long long)h * DH, k_st, c0, Tk, 1.f);
-  stage_t<T, DH>(sVt, v + (long long)b * v_sb + (long long)h * DH, v_st, c0, Tk, 1.f);
-  if constexpr (!kBias) {
-    if (tid < BK)
-      sBias[tid] = (kv_bias != nullptr && c0 + tid < Tk) ? kv_bias[(long long)b * Tk + c0 + tid] : 0.f;
-  }
-
-  float acc_k[4][DJ], acc_v[4][DJ];  // columns ty*4 + i, dims tx + 16 j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
   // In prefix mode rows < c0 see no column of this tile unless c0 < prefix_s.
   const int rstart = (!kBias && prefix_s >= 0 && c0 >= prefix_s) ? c0 : 0;
-  for (int r0 = rstart; r0 < Tq; r0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_t<T, DH>(sQt, qb, q_st, r0, Tq, kBias ? 1.f : scale);
-    stage_t<T, DH>(sDOt, dob, (long long)H * DH, r0, Tq, 1.f);
-    if (tid < BQ) {
-      const bool ok = r0 + tid < Tq;
-      sLse[tid] = ok ? lse[(kBias ? bh4 : (long long)bh) * Tq + r0 + tid] : 0.f;
-      sDelta[tid] = ok ? delta[(kBias ? bh4 : (long long)bh) * Tq + r0 + tid] : 0.f;
+  const int n_tiles = (Tq - rstart + BN - 1) / BN;
+
+  // LSE and delta of rows [r0, r0 + BN) into stage `st` (zero past Tq).
+  auto stage_rowstats = [&](int st, int r0) {
+    if (threadIdx.x >= 2 * BN) return;
+    const int i = threadIdx.x % BN, r = r0 + i;
+    const bool ok = r < Tq;
+    const float* src = threadIdx.x < BN ? lse : delta;
+    float* dst = (threadIdx.x < BN ? sL : sDl) + st * BN + i;
+    if (vec)
+      cp_async4(dst, ok ? src + bh4 * Tq + r : src, ok);
+    else
+      *dst = ok ? src[bh4 * Tq + r] : 0.f;
+  };
+
+  stage_rows<T, DH, BM>(sK, k + (long long)b * k_sb + (long long)h * DH, k_st, c0, Tk, vec);
+  stage_rows<T, DH, BM>(sV, v + (long long)b * v_sb + (long long)h * DH, v_st, c0, Tk, vec);
+  stage_rows<T, DH, BN>(sQ, qb, q_st, rstart, Tq, vec);
+  stage_rows<T, DH, BN>(sDO, dob, (long long)H * DH, rstart, Tq, vec);
+  stage_rowstats(0, rstart);
+  cp_async_commit();
+
+  const int wc = 16 * warp;  // the warp's first column in the tile
+  const int ca = c0 + wc + g, cb = ca + 8;
+  float kvb_a = 0.f, kvb_b = 0.f;
+  if constexpr (!kBias) {
+    if (kv_bias != nullptr) {
+      if (ca < Tk) kvb_a = kv_bias[(long long)b * Tk + ca];
+      if (cb < Tk) kvb_b = kv_bias[(long long)b * Tk + cb];
+    }
+  }
+
+  float acc_k[DT][4], acc_v[DT][4];  // rows: the warp's columns; columns: Dh
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int r0 = rstart + it * BN, st = it & 1;
+    if (it + 1 < n_tiles) {  // the next q tile loads while this one computes
+      stage_rows<T, DH, BN>(sQ + (st ^ 1) * TILE, qb, q_st, r0 + BN, Tq, vec);
+      stage_rows<T, DH, BN>(sDO + (st ^ 1) * TILE, dob, (long long)H * DH, r0 + BN, Tq, vec);
+      stage_rowstats(st ^ 1, r0 + BN);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* cQ = sQ + st * TILE;
+    const T* cDO = sDO + st * TILE;
+    const float* cL = sL + st * BN;
+    const float* cDl = sDl + st * BN;
 
-    float s[4][4], dp[4][4];
-    scores<DH>(sQt, sKt, sDOt, sVt, tx, ty, s, dp);
+#pragma unroll 1
+    for (int rc = 0; rc < BN && r0 + rc < Tq; rc += NR) {
+      float s[RT][4], dp[RT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty * 4 + i, r = r0 + rl;
+      for (int n = 0; n < RT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        if constexpr (kBias)
-          sS[rl * LD + cl] = logit(s[i][j], bb, bias, r, c0 + cl, Tq, Tk, scale);
-        else
-          sS[rl * LD + cl] = visible(r, c0 + cl, Tq, Tk, prefix_s) ? s[i][j] + sBias[cl] : -INFINITY;
-        sD[rl * LD + cl] = dp[i][j];
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      // each score's additive term (bias; -inf where masked), read before the
+      // products as in the dQ pass
+      // the keep bits of the fragment's elements in n8 tile n of this chunk
+      auto keep_bits = [&](int n) -> unsigned {
+        // lane L draws (row L % 8, group L / 8) of this 8 x 16 tile
+        const unsigned w = philox_keep4((unsigned)((c0 + wc) >> 2) + (lane >> 3),
+                                        (unsigned)(r0 + rc + 8 * n + (lane & 7)), bh, drop.seed,
+                                        drop.threshold);
+        const int src = (g >> 2) * 8 + 2 * t, bit = g & 3;
+        return ((__shfl_sync(0xffffffffu, w, src) >> bit) & 1u) |
+               (((__shfl_sync(0xffffffffu, w, src + 1) >> bit) & 1u) << 1) |
+               (((__shfl_sync(0xffffffffu, w, src + 16) >> bit) & 1u) << 2) |
+               (((__shfl_sync(0xffffffffu, w, src + 17) >> bit) & 1u) << 3);
+      };
+      // drawn before the products (fewer registers live across them)
+      unsigned keeps = 0;
+      if constexpr (kDrop) {
+#pragma unroll
+        for (int n = 0; n < RT; ++n) keeps |= keep_bits(n) << (4 * n);
       }
-    }
-    __syncthreads();
-
-    {  // element pass: thread (4-column group, row); 16 threads cover one row
-      const int g = tid & 15;
+      float add[RT][4];
 #pragma unroll
-      for (int m = 0; m < BQ / 16; ++m) {
-        const int rl = (tid >> 4) + 16 * m;
-        unsigned keep = 0xFu;
-        if constexpr (kDrop)
-          keep = philox_keep4((unsigned)(c0 >> 2) + g, (unsigned)(r0 + rl), bh, drop.seed,
-                              drop.threshold);
-        float4* ps = reinterpret_cast<float4*>(&sS[rl * LD + 4 * g]);
-        float4* pdd = reinterpret_cast<float4*>(&sD[rl * LD + 4 * g]);
-        float4 xs = *ps, xd = *pdd;
-        float* xsp = reinterpret_cast<float*>(&xs);
-        float* xdp = reinterpret_cast<float*>(&xd);
+      for (int n = 0; n < RT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
+          const int r = r0 + rc + 8 * n + 2 * t + (e & 1), c = e < 2 ? ca : cb;
+          if constexpr (kBias)
+            add[n][e] = bias_at(bb, bias, r, c, Tq, Tk);
+          else
+            add[n][e] = visible(r, c, Tq, Tk, prefix_s) ? (e < 2 ? kvb_a : kvb_b) : -INFINITY;
+        }
+      mma_xyt<T, DH, RT>(s, sK + wc * LDT, cQ + rc * LDT, lane);   // S^T = k q^T
+      mma_xyt<T, DH, RT>(dp, sV + wc * LDT, cDO + rc * LDT, lane); // dPd^T = v dO^T
+
+      // element pass: s becomes Pd^T and dp becomes dS^T, rounded like T
+#pragma unroll
+      for (int n = 0; n < RT; ++n) {
+        const int rl = rc + 8 * n;  // the n8 tile's first row in the q tile
+        unsigned keep = 0xFu;  // bits: (ca, 2t), (ca, 2t + 1), (cb, 2t), (cb, 2t + 1)
+        if constexpr (kDrop) keep = keeps >> (4 * n);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = rl + 2 * t + (e & 1);
+          const float lr = cL[i], dl = cDl[i];
           if constexpr (kBias) {
-            const float p = (xsp[e] == -INFINITY) ? 0.f : expf(xsp[e] - sLse[rl]);
-            xdp[e] = round_like<T>((xdp[e] - sDelta[rl]) * p * scale);
-            xsp[e] = round_like<T>(p);
+            const float x = (s[n][e] + add[n][e]) * scale;
+            const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+            dp[n][e] = round_like<T>((dp[n][e] - dl) * p * scale);
+            s[n][e] = round_like<T>(p);
           } else {
-            float pd;
-            const float ds = grad_elem<kDrop>(xsp[e], xdp[e], sLse[rl], sDelta[rl],
-                                              (keep >> e) & 1u, drop.inv_keep, &pd);
-            xsp[e] = round_like<T>(pd);
-            xdp[e] = round_like<T>(ds);
+            const float x = s[n][e] * scale + add[n][e];
+            const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+            float pd = p, dpd = dp[n][e];
+            if constexpr (kDrop) {
+              const bool kept = ((keep >> e) & 1u) != 0;
+              pd = kept ? p * drop.inv_keep : 0.f;
+              dpd = kept ? dpd * drop.inv_keep : 0.f;
+            }
+            dp[n][e] = round_like<T>(p * (dpd - dl));
+            s[n][e] = round_like<T>(pd);
           }
         }
-        *ps = xs;
-        *pdd = xd;
       }
+      mma_fz<T, DH, RT>(acc_v, s, cDO + rc * LDT, lane);  // dV += Pd^T dO
+      mma_fz<T, DH, RT>(acc_k, dp, cQ + rc * LDT, lane);  // dK += dS^T q
     }
-    __syncthreads();
-
-    // dV += Pd^T dO, dK += dS^T q (q pre-scaled unless kBias, where dS
-    // carries the scale): columns ty*4 + i, dims tx + 16 j.
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&sS[r * LD + ty * 4]);
-      const float4 d4 = *reinterpret_cast<const float4*>(&sD[r * LD + ty * 4]);
-      const float pa[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float da[4] = {d4.x, d4.y, d4.z, d4.w};
-      float ov[DJ], qv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        ov[j] = sDOt[(tx + 16 * j) * LD + r];
-        qv[j] = sQt[(tx + 16 * j) * LD + r];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          acc_v[i][j] = fmaf(pa[i], ov[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(da[i], qv[j], acc_k[i][j]);
-        }
-    }
+    __syncthreads();  // the next prefetch overwrites this stage
   }
+  cp_async_wait<0>();
 
+  const float post = kBias ? 1.f : scale;  // kernel 4's dS already carries the scale
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= Tk) continue;
-    const long long off = (((long long)b * Tk + c) * H + h) * DH;
+  for (int n = 0; n < DT; ++n) {
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      from_float(acc_k[i][j], &dk[off + tx + 16 * j]);
-      from_float(acc_v[i][j], &dv[off + tx + 16 * j]);
+    for (int half = 0; half < 2; ++half) {
+      const int c = half ? cb : ca;
+      if (c >= Tk) continue;
+      const long long off = (((long long)b * Tk + c) * H + h) * DH + 8 * n + 2 * t;
+      from_float(acc_k[n][2 * half] * post, &dk[off]);
+      from_float(acc_k[n][2 * half + 1] * post, &dk[off + 1]);
+      from_float(acc_v[n][2 * half], &dv[off]);
+      from_float(acc_v[n][2 * half + 1], &dv[off + 1]);
     }
   }
 }
 
-// Kernel 3's passes.
-template <typename T, int DH, bool kDrop>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(
-    const T* __restrict__ q, long long q_sb, long long q_st,
-    const T* __restrict__ k, long long k_sb, long long k_st,
-    const T* __restrict__ v, long long v_sb, long long v_st,
-    const float* __restrict__ kv_bias, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
-    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop) {
-  attn_bwd_dq_tile<T, DH, kDrop, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
-                                        Bias{}, dout, lse, delta, dq, nullptr, Tq, Tk, H,
-                                        prefix_s, scale, drop);
-}
+// The pass kernels (kernel 3's attn_bwd_*, kernel 4's flash_bias_bwd_*),
+// defined three times, once per launch bounds of bounds_class() (fit4, fit1,
+// any_regs); each instantiation is taken from one of them.
+#define BWD_PASS_KERNELS(BOUNDS)                                                                     \
+template <typename T, int DH, bool kDrop>                                                         \
+__global__ void BOUNDS attn_bwd_dq_kernel(                                                        \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,                                \
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,           \
+    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop, bool vec) {                   \
+  attn_bwd_dq_tile<T, DH, kDrop, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,     \
+                                        Bias{}, dout, lse, delta, dq, nullptr, Tq, Tk, H,         \
+                                        prefix_s, scale, drop, vec);                              \
+}                                                                                                 \
+                                                                                                  \
+template <typename T, int DH, bool kDrop>                                                         \
+__global__ void BOUNDS attn_bwd_dkv_kernel(                                                       \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,                                \
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,           \
+    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,           \
+    bool vec) {                                                                                   \
+  attn_bwd_dkv_tile<T, DH, kDrop, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,    \
+                                         Bias{}, dout, lse, delta, dk, dv, Tq, Tk, H, prefix_s,   \
+                                         scale, drop, vec);                                       \
+}                                                                                                 \
+                                                                                                  \
+template <typename T, int DH>                                                                     \
+__global__ void BOUNDS flash_bias_bwd_dq_kernel(                                                  \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,                         \
+    const float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ dbias,               \
+    int Tq, int Tk, int H, float scale, bool vec) {                                               \
+  attn_bwd_dq_tile<T, DH, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr,      \
+                                       bias, dout, lse, delta, dq, dbias, Tq, Tk, H, -1, scale,   \
+                                       Dropout{}, vec);                                           \
+}                                                                                                 \
+                                                                                                  \
+template <typename T, int DH>                                                                     \
+__global__ void BOUNDS flash_bias_bwd_dkv_kernel(                                                 \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,                         \
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk,      \
+    int H, float scale, bool vec) {                                                               \
+  attn_bwd_dkv_tile<T, DH, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr,     \
+                                        bias, dout, lse, delta, dk, dv, Tq, Tk, H, -1, scale,     \
+                                        Dropout{}, vec);                                          \
+}                                                                                                 \
+                                                                                                  
+namespace fit4 {
+BWD_PASS_KERNELS(__launch_bounds__(kBwdThreads, 4))
+}  // namespace fit4
+namespace fit1 {
+BWD_PASS_KERNELS(__launch_bounds__(kBwdThreads, 1))
+}  // namespace fit1
+namespace any_regs {
+BWD_PASS_KERNELS(__launch_bounds__(kBwdThreads))
+}  // namespace any_regs
+#undef BWD_PASS_KERNELS
 
 template <typename T, int DH, bool kDrop>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkv_kernel(
-    const T* __restrict__ q, long long q_sb, long long q_st,
-    const T* __restrict__ k, long long k_sb, long long k_st,
-    const T* __restrict__ v, long long v_sb, long long v_st,
-    const float* __restrict__ kv_bias, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
-    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop) {
-  attn_bwd_dkv_tile<T, DH, kDrop, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
-                                         Bias{}, dout, lse, delta, dk, dv, Tq, Tk, H, prefix_s,
-                                         scale, drop);
+auto dq_kernel() {
+  constexpr int c = bounds_class<T, DH, kDrop, false, true>();
+  if constexpr (c == 4) return fit4::attn_bwd_dq_kernel<T, DH, kDrop>;
+  else if constexpr (c == 1) return fit1::attn_bwd_dq_kernel<T, DH, kDrop>;
+  else return any_regs::attn_bwd_dq_kernel<T, DH, kDrop>;
 }
 
-// Kernel 4's passes.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bias_bwd_dq_kernel(
-    const T* __restrict__ q, long long q_sb, long long q_st,
-    const T* __restrict__ k, long long k_sb, long long k_st,
-    const T* __restrict__ v, long long v_sb, long long v_st,
-    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ dbias,
-    int Tq, int Tk, int H, float scale) {
-  attn_bwd_dq_tile<T, DH, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr,
-                                       bias, dout, lse, delta, dq, dbias, Tq, Tk, H, -1, scale,
-                                       Dropout{});
+template <typename T, int DH, bool kDrop>
+auto dkv_kernel() {
+  constexpr int c = bounds_class<T, DH, kDrop, false, false>();
+  if constexpr (c == 4) return fit4::attn_bwd_dkv_kernel<T, DH, kDrop>;
+  else if constexpr (c == 1) return fit1::attn_bwd_dkv_kernel<T, DH, kDrop>;
+  else return any_regs::attn_bwd_dkv_kernel<T, DH, kDrop>;
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bias_bwd_dkv_kernel(
-    const T* __restrict__ q, long long q_sb, long long q_st,
-    const T* __restrict__ k, long long k_sb, long long k_st,
-    const T* __restrict__ v, long long v_sb, long long v_st,
-    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk,
-    int H, float scale) {
-  attn_bwd_dkv_tile<T, DH, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr,
-                                        bias, dout, lse, delta, dk, dv, Tq, Tk, H, -1, scale,
-                                        Dropout{});
+auto bias_dq_kernel() {
+  constexpr int c = bounds_class<T, DH, false, true, true>();
+  if constexpr (c == 4) return fit4::flash_bias_bwd_dq_kernel<T, DH>;
+  else if constexpr (c == 1) return fit1::flash_bias_bwd_dq_kernel<T, DH>;
+  else return any_regs::flash_bias_bwd_dq_kernel<T, DH>;
+}
+
+template <typename T, int DH>
+auto bias_dkv_kernel() {
+  constexpr int c = bounds_class<T, DH, false, true, false>();
+  if constexpr (c == 4) return fit4::flash_bias_bwd_dkv_kernel<T, DH>;
+  else if constexpr (c == 1) return fit1::flash_bias_bwd_dkv_kernel<T, DH>;
+  else return any_regs::flash_bias_bwd_dkv_kernel<T, DH>;
+}
+
+// Launch a pass with kBwdThreads threads and `smem` bytes of dynamic shared
+// memory, raising the kernel's limit first.
+template <typename... P, typename... A>
+cudaError_t launch_pass(void (*kern)(P...), dim3 grid, size_t smem, cudaStream_t stream,
+                        A... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kBwdThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 struct Args {
@@ -530,12 +835,18 @@ struct Args {
   int B, Tq, Tk, H, prefix_s;
 };
 
+// Whether every row of a (.., T, H, Dh) view starts on 16 bytes.
+bool rows_aligned(const void* p, long long sb, long long st, size_t elem) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (sb * (long long)elem) % 16 == 0 &&
+         (st * (long long)elem) % 16 == 0;
+}
+
 // The three passes of kernel 4 (kBias) or kernel 3.
 template <typename T, bool kBias>
 cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, cudaStream_t stream) {
   return dispatch_dh(Dh, [&](auto dh) {
     constexpr int DH = decltype(dh)::value;
-    const size_t smem = sizeof(float) * smem_floats<DH>();
+    const size_t smem = bwd_smem_bytes<T, DH>();
     const float scale = 1.f / sqrtf((float)DH);
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
@@ -544,7 +855,11 @@ cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, cudaStream_t stream)
     T* dq = static_cast<T*>(a.dq);
     T* dk = static_cast<T*>(a.dk);
     T* dv = static_cast<T*>(a.dv);
-    const dim3 gq((a.Tq + BQ - 1) / BQ, a.H, a.B), gk((a.Tk + BK - 1) / BK, a.H, a.B);
+    const dim3 gq((a.Tq + BM - 1) / BM, a.H, a.B), gk((a.Tk + BM - 1) / BM, a.H, a.B);
+    const size_t es = sizeof(T);
+    const bool vec = rows_aligned(q, a.q_sb, a.q_st, es) && rows_aligned(k, a.k_sb, a.k_st, es) &&
+                     rows_aligned(v, a.v_sb, a.v_st, es) &&
+                     rows_aligned(dout, (long long)a.Tq * a.H * DH, (long long)a.H * DH, es);
 
     const int n_rows = a.B * a.Tq * a.H;
     auto kdelta = attn_bwd_delta_kernel<T>;
@@ -553,27 +868,29 @@ cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, cudaStream_t stream)
                              a.H, DH);
     if (err != cudaSuccess) return err;
     if constexpr (kBias) {
-      auto kdq = flash_bias_bwd_dq_kernel<T, DH>;
-      auto kdkv = flash_bias_bwd_dkv_kernel<T, DH>;
-      err = launch(kdq, gq, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                   a.v_st, a.bias, dout, a.lse, a.delta, dq, a.dbias, a.Tq, a.Tk, a.H, scale);
+      auto kdq = bias_dq_kernel<T, DH>();
+      auto kdkv = bias_dkv_kernel<T, DH>();
+      err = launch_pass(kdq, gq, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
+                        a.v_st, a.bias, dout, a.lse, a.delta, dq, a.dbias, a.Tq, a.Tk, a.H,
+                        scale, vec);
       if (err != cudaSuccess) return err;
-      return launch(kdkv, gk, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                    a.v_st, a.bias, dout, a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H, scale);
+      return launch_pass(kdkv, gk, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
+                         a.v_st, a.bias, dout, a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H, scale,
+                         vec);
     } else {
-      auto kdq = attn_bwd_dq_kernel<T, DH, true>;
-      auto kdkv = attn_bwd_dkv_kernel<T, DH, true>;
+      auto kdq = dq_kernel<T, DH, true>();
+      auto kdkv = dkv_kernel<T, DH, true>();
       if (drop.threshold == 0) {
-        kdq = attn_bwd_dq_kernel<T, DH, false>;
-        kdkv = attn_bwd_dkv_kernel<T, DH, false>;
+        kdq = dq_kernel<T, DH, false>();
+        kdkv = dkv_kernel<T, DH, false>();
       }
-      err = launch(kdq, gq, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                   a.v_st, a.kv_bias, dout, a.lse, a.delta, dq, a.Tq, a.Tk, a.H, a.prefix_s,
-                   scale, drop);
+      err = launch_pass(kdq, gq, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
+                        a.v_st, a.kv_bias, dout, a.lse, a.delta, dq, a.Tq, a.Tk, a.H,
+                        a.prefix_s, scale, drop, vec);
       if (err != cudaSuccess) return err;
-      return launch(kdkv, gk, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                    a.v_st, a.kv_bias, dout, a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H, a.prefix_s,
-                    scale, drop);
+      return launch_pass(kdkv, gk, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
+                         a.v_st, a.kv_bias, dout, a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H,
+                         a.prefix_s, scale, drop, vec);
     }
   });
 }
@@ -619,6 +936,9 @@ extern "C" int flash_attention_bwd_launch(
   const Args a{q, k, v, q_sb, q_st, k_sb, k_st, v_sb, v_st, nullptr,
                Bias{bias, b_sb, b_sh, b_sq, b_sk}, out, dout, lse, delta, dq, dk, dv, dbias,
                B, Tq, Tk, H, -1};
+  // the kernels index within one (b, h) slice of the bias in 32 bits
+  if ((long long)Tq * llabs(b_sq) + (long long)Tk * llabs(b_sk) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)launch_bwd<float, true>(Dh, a, Dropout{}, s);
   if (dtype == 1) return (int)launch_bwd<__nv_bfloat16, true>(Dh, a, Dropout{}, s);
   return (int)cudaErrorInvalidValue;
