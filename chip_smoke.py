@@ -10,23 +10,25 @@ ends the run with a non-zero exit code):
      (TF32 is switched off for matmuls and cuDNN);
   2. build: the three kernel sources from ``valle_tpu_torch/csrc`` with
      ``nvcc``, in parallel, with each one's most registers and spilled bytes,
-     and per backward kernel its registers, spills and tensor-core (HMMA)
-     instructions: every pass must use the tensor cores and none may spill;
+     and per attention kernel (forward and backward) its registers, spills
+     and tensor-core (HMMA) instructions: every forward kernel and backward
+     pass must use the tensor cores and none may spill;
   3. kernel 1 (ragged decode attention) against its plain PyTorch version at
      decode shapes, int8 / f32 / bf16 caches;
   4. kernel 2 (prefix-LM / dense attention) against its plain version in
      prefix, causal, dense self- and cross-attention modes;
   5. kernel 2 with dropout 0.1 and its LSE output at the training shapes
-     (prefix and dense, T=880), against the plain version with the same
-     Philox bits, and the keep rate within 4 sigma of 0.9;
+     (prefix and dense, T=880, in f32; dense in bf16), against the plain
+     version with the same Philox bits, with a bit-equal rerun, and the keep
+     rate within 4 sigma of 0.9;
   6. kernel 3 (the backward) against its plain version in four mask modes,
      at rates 0 and 0.1, in f32 and bf16, with a bit-equal rerun;
   7. kernel 4 (dense-bias attention, forward and backward) against its plain
      version: the Transformer TTS decoder's causal + padding bias at the
      training shapes in f32 and bf16, a soft per-head bias and a (1, 1, Tq,
      Tk) bias with d(bias), Tq != Tk, and the inference shape, with
-     bit-equal reruns; then kernels 3 and 4's backward at head dims 16, 32
-     and 128 on a small shape, likewise;
+     bit-equal reruns; then kernels 2, 3 and 4, forward and backward, at
+     head dims 16, 32 and 128 on a small shape, likewise;
   8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
      decode logits held against a CPU copy of the model, and timings;
@@ -46,14 +48,14 @@ ends the run with a non-zero exit code):
  12. a ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
-Backward cases also carry their time over SDPA's, the names of SDPA's
-backward kernels (``torch.profiler``) and, in f32, the bound with the
-products as 3xTF32 on the tensor cores.  Kernel times are the median of 5
-windows of back-to-back calls (CUDA events), with the fastest and slowest
-window as the spread, and beside them the device time per call from
-``torch.profiler``, which leaves out the host's launch overhead.  Exits non-zero
-without CUDA, and where the port's package is not beside it.  Needs one card,
-no network.
+Kernel 2 and 4 cases carry their time over SDPA's and, in f32, the bound
+with the products as 3xTF32 on the tensor cores; backward cases also the
+names of SDPA's backward kernels (``torch.profiler``).  Kernel times are the
+median of 5 windows of back-to-back calls (CUDA events), with the fastest
+and slowest window as the spread, and beside them the device time per call
+from ``torch.profiler``, which leaves out the host's launch overhead.  Exits
+non-zero without CUDA, and where the port's package is not beside it.  Needs
+one card, no network.
 """
 
 from __future__ import annotations
@@ -135,15 +137,16 @@ def ptxas_summary(log_path) -> dict:
     return {"max_registers": max(regs, default=0), "spill_bytes": sum(spills)}
 
 
-_BWD_KERNEL = re.compile(r"(attn_bwd_dq_kernel|attn_bwd_dkv_kernel|flash_bias_bwd_dq_kernel|"
-                         r"flash_bias_bwd_dkv_kernel|attn_bwd_delta_kernel)"
-                         r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
+_ATTN_KERNEL = re.compile(r"(attn_bwd_dq_kernel|attn_bwd_dkv_kernel|flash_bias_bwd_dq_kernel|"
+                          r"flash_bias_bwd_dkv_kernel|attn_bwd_delta_kernel|"
+                          r"prefix_attention_kernel|flash_bias_fwd_kernel)"
+                          r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
 
 
-def bwd_kernel_label(mangled: str):
-    """``attn_bwd_dq_kernel<float32, 64, drop>`` for a mangled backward kernel
-    name, or None for another kernel."""
-    m = _BWD_KERNEL.search(mangled)
+def kernel_label(mangled: str):
+    """``attn_bwd_dq_kernel<float32, 64, drop>`` for a mangled attention
+    kernel name (forward or backward), or None for another kernel."""
+    m = _ATTN_KERNEL.search(mangled)
     if m is None:
         return None
     args = ["float32" if m.group(2) == "f" else "bfloat16"]
@@ -154,10 +157,11 @@ def bwd_kernel_label(mangled: str):
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def bwd_kernel_resources(lib_path, log_path) -> dict:
-    """Per instantiation of the backward source: registers and spilled bytes
-    (``nvcc -Xptxas -v``) and the tensor-core (HMMA) instructions in its SASS
-    (``cuobjdump -sass`` of the built library)."""
+def kernel_resources(lib_path, log_path) -> dict:
+    """Per attention kernel instantiation of one built source (the forward's
+    or the backward's): registers and spilled bytes (``nvcc -Xptxas -v``) and
+    the tensor-core (HMMA) instructions in its SASS (``cuobjdump -sass`` of
+    the built library)."""
     import os
     import shutil
     from pathlib import Path
@@ -166,7 +170,7 @@ def bwd_kernel_resources(lib_path, log_path) -> dict:
     for line in log_path.read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
         if m:
-            name = bwd_kernel_label(m.group(1))
+            name = kernel_label(m.group(1))
             if name is not None:
                 res.setdefault(name, {"registers": 0, "spill_bytes": 0, "hmma": 0})
             continue
@@ -186,7 +190,7 @@ def bwd_kernel_resources(lib_path, log_path) -> dict:
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = bwd_kernel_label(m.group(1))
+            name = kernel_label(m.group(1))
         elif name is not None and "HMMA" in line:
             res[name]["hmma"] += 1
     return res
@@ -294,7 +298,9 @@ def _visible_columns(tq: int, tk: int, prefix_s) -> int:
     return int(np.minimum(cols, tk).sum())
 
 
-def check_prefix_attention(dev):
+def check_prefix_attention(dev, res):
+    """Kernel 2 against its plain version in prefix, causal and dense modes.
+    ``res``: the forward kernels' registers, spills and HMMA counts."""
     import torch
     from torch.nn import functional as F
 
@@ -350,12 +356,16 @@ def check_prefix_attention(dev):
                                iters=20)["ms"]
         vis = _visible_columns(tq, tk, prefix_s)
         n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() + kb.numel() * 4
-        bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * dh * vis, dtype)
+        n_ops = 4.0 * b * h * dh * vis
+        bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
         results[name] = {"case": name, "b": b, "tq": tq, "tk": tk, "prefix_s": prefix_s,
                          "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype], **timing,
                          "plain_ms": plain_ms, "library_ms": library_ms,
+                         "ms_over_library": timing["ms"] / library_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "tflops": 4.0 * b * h * dh * vis / timing["ms"] / 1e9}
+                         **_tf32x3_bound(dtype, n_bytes, n_ops),
+                         "kernel": res.get(f"prefix_attention_kernel<{dtype}, {dh}>"),
+                         "tflops": n_ops / timing["ms"] / 1e9}
     emit({"phase": "kernel2_prefix_attention", "cases": list(results.values())})
 
 
@@ -398,8 +408,10 @@ def _qkv(rng, dev, dt, tq, tk):
                  for shp in (shape_q, shape_k, shape_k))
 
 
-def check_dropout_forward(dev):
-    """Kernel 2 with dropout and the LSE output, at the training shapes."""
+def check_dropout_forward(dev, res):
+    """Kernel 2 with dropout and the LSE output, at the training shapes: prefix
+    and dense in f32, dense in bf16.  ``res`` as in
+    :func:`check_prefix_attention`."""
     import torch
     from torch.nn import functional as F
 
@@ -408,47 +420,60 @@ def check_dropout_forward(dev):
     from valle_tpu_torch.ops.philox import dropout_keep_mask
 
     rng = np.random.RandomState(SEED + 3)
+    cases = {name: (tq, tk, prefix_s, kv_bias)
+             for name, tq, tk, prefix_s, kv_bias in _attention_cases(rng)}
     results = {}
-    for name, tq, tk, prefix_s, kv_bias in _attention_cases(rng):
-        if name not in ("prefix", "dense_self"):
-            continue
-        q, k, v = _qkv(rng, dev, torch.float32, tq, tk)
+    for name, dtype in (("prefix", "float32"), ("dense_self", "float32"),
+                        ("dense_self", "bfloat16")):
+        tq, tk, prefix_s, kv_bias = cases[name]
+        key = name if dtype == "float32" else f"{name} {dtype}"
+        dt = getattr(torch, dtype)
+        q, k, v = _qkv(rng, dev, dt, tq, tk)
         kb = torch.from_numpy(np.ascontiguousarray(kv_bias)).to(dev)
         seed = int(rng.randint(0, 2**62))
         args = (q, k, v, kb, prefix_s, DROPOUT, seed)
         got, lse = fa._forward(*args, with_lse=True)
+        again, lse_again = fa._forward(*args, with_lse=True)
         want, want_lse = fa.attention_forward_reference(*args)
         keep = dropout_keep_mask(seed, TRAIN_B, TRAIN_H, tq, tk, DROPOUT, device=dev)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        err = float((got.float() - want.float()).abs().max())
         lse_err = float((lse - want_lse).abs().max())
         n = keep.numel()
         keep_rate = float(keep.float().mean())
         sigma = float(np.sqrt(DROPOUT * (1 - DROPOUT) / n))
-        assert torch.isfinite(got).all() and torch.isfinite(lse).all(), name
-        assert err <= TOL["float32"], f"kernel 2 with dropout ({name}) disagrees: {err}"
-        assert lse_err <= TOL["float32"], f"kernel 2 LSE ({name}) disagrees: {lse_err}"
+        assert torch.isfinite(got).all() and torch.isfinite(lse).all(), key
+        assert torch.equal(got, again) and torch.equal(lse, lse_again), \
+            f"kernel 2 with dropout ({key}) is not bit-reproducible"
+        assert err <= TOL[dtype], f"kernel 2 with dropout ({key}) disagrees: {err}"
+        assert lse_err <= TOL["float32"], f"kernel 2 LSE ({key}) disagrees: {lse_err}"
         assert abs(keep_rate - (1 - DROPOUT)) <= 4 * sigma, (keep_rate, sigma)
-        del want, want_lse, keep
+        del want, want_lse, keep, again, lse_again
         timing = cuda_time(lambda: fa._forward(*args, with_lse=True), iters=20)
         timing["device_ms"] = device_ms(lambda: fa._forward(*args, with_lse=True),
                                         ["prefix_attention_kernel"])
         plain_ms = cuda_time(lambda: fa.attention_forward_reference(*args), iters=2,
                              windows=3)["ms"]
-        mask = AttnMaskSpec(kb, prefix_s).dense(tq)
+        mask = AttnMaskSpec(kb, prefix_s).dense(tq).to(dt)
         ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
         library_ms = cuda_time(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, attn_mask=mask, dropout_p=DROPOUT), iters=20)["ms"]
         vis = _visible_columns(tq, tk, prefix_s)
-        n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * 4 + kb.numel() * 4 + lse.numel() * 4
-        bound_ms, bound_by = bound(n_bytes, 4.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis, "float32")
-        results[name] = {"case": name, "b": TRAIN_B, "tq": tq, "tk": tk, "prefix_s": prefix_s,
-                         "dtype": "float32", "rate": DROPOUT, "max_abs_err": err,
-                         "lse_max_abs_err": lse_err, "tol": TOL["float32"],
-                         "keep_rate": keep_rate, "keep_rate_sigma": sigma, **timing,
-                         "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "tflops": 4.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis / timing["ms"] / 1e9}
+        n_bytes = ((q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+                   + kb.numel() * 4 + lse.numel() * 4)
+        n_ops = 4.0 * TRAIN_B * TRAIN_H * TRAIN_DH * vis
+        bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+        results[key] = {"case": key, "b": TRAIN_B, "tq": tq, "tk": tk, "prefix_s": prefix_s,
+                        "dtype": dtype, "rate": DROPOUT, "max_abs_err": err,
+                        "lse_max_abs_err": lse_err, "tol": TOL[dtype], "bit_equal_rerun": True,
+                        "keep_rate": keep_rate, "keep_rate_sigma": sigma, **timing,
+                        "plain_ms": plain_ms, "library_ms": library_ms,
+                        "ms_over_library": timing["ms"] / library_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        **_tf32x3_bound(dtype, n_bytes, n_ops),
+                        "kernel": res.get(f"prefix_attention_kernel<{dtype}, {TRAIN_DH}, drop>"),
+                        "tflops": n_ops / timing["ms"] / 1e9}
+        del q, k, v, got, lse
     emit({"phase": "kernel2_dropout", "cases": list(results.values())})
     return results
 
@@ -562,11 +587,12 @@ def _inference_bias(n: int, step: int):
     return np.where(masked, -1e9, 0.0).astype(np.float32)[None, None]
 
 
-def check_flash_bias(dev, res):
+def check_flash_bias(dev, fwd_res, res):
     """Kernel 4 forward and backward against its plain version, with
     bit-equal reruns, in f32 and bf16, at the training and inference shapes
     of the Transformer TTS decoder, with soft and broadcast biases, Tq != Tk,
-    and d(bias) on and off.  ``res`` as in :func:`check_backward`."""
+    and d(bias) on and off.  ``fwd_res`` / ``res``: the forward / backward
+    kernels' registers, spills and HMMA counts."""
     import torch
     from torch.nn import functional as F
 
@@ -614,15 +640,20 @@ def check_flash_bias(dev, res):
         assert fwd_err <= TOL[dtype], f"kernel 4 forward ({name}) disagrees: {fwd_err}"
         rounding = {}
         if dtype == "bfloat16":
-            # the bf16 output must be the f32 result rounded: within half a
-            # bf16 ulp (<= 2^-8 |x|) of the plain version in f32, plus the f32
-            # tolerance
+            # the bf16 output must be the f32 result with P and the output
+            # rounded to bf16, as the TPU kernels round them: within half a
+            # bf16 ulp (<= 2^-8 |x|) of the output plus half an ulp of each
+            # probability times |v| (<= 2^-8 (P |v|)) of the plain version in
+            # f32, plus the f32 tolerance
             want32 = fl.flash_attention_forward_reference(q.float(), k.float(), v.float(),
                                                           bias)[0]
-            excess = float(((out.float() - want32).abs() - 2.0**-8 * want32.abs()).max())
+            pv_abs = fl.flash_attention_forward_reference(q.float(), k.float(),
+                                                          v.float().abs(), bias)[0]
+            excess = float(((out.float() - want32).abs()
+                            - 2.0**-8 * (want32.abs() + pv_abs)).max())
             assert excess <= TOL["float32"], f"kernel 4 bf16 forward ({name}) is off: {excess}"
-            rounding = {"bf16_excess_over_half_ulp": excess, "bf16_excess_tol": TOL["float32"]}
-            del want32
+            rounding = {"bf16_excess_over_rounding": excess, "bf16_excess_tol": TOL["float32"]}
+            del want32, pv_abs
         assert lse_err <= TOL["float32"], f"kernel 4 LSE ({name}) disagrees: {lse_err}"
         assert max(errs) <= TOL[dtype], f"kernel 4 backward ({name}) disagrees: {errs}"
         del out2, lse2, want, want_lse, again, want_b, got
@@ -652,8 +683,8 @@ def check_flash_bias(dev, res):
         pairs = bb * h * tq * tk
         elem = q.element_size()
         qkv_bytes = (q.numel() + k.numel() + v.numel()) * elem
-        f_bound = bound(qkv_bytes + q.numel() * elem + bias.numel() * 4 + lse.numel() * 4,
-                        4.0 * pairs * dh, dtype)
+        f_bytes = qkv_bytes + q.numel() * elem + bias.numel() * 4 + lse.numel() * 4
+        f_bound = bound(f_bytes, 4.0 * pairs * dh, dtype)
         b_bytes = (2 * qkv_bytes + 2 * q.numel() * elem + bias.numel() * 4 + lse.numel() * 4
                    + (pairs * 4 if bias_grad else 0))
         b_bound = bound(b_bytes, 10.0 * pairs * dh, dtype)
@@ -664,7 +695,10 @@ def check_flash_bias(dev, res):
             "forward": {"case": name, **shape, "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
                         **rounding,
                         **t_fwd, "plain_ms": plain_fwd, "library_ms": lib_fwd,
+                        "ms_over_library": t_fwd["ms"] / lib_fwd,
                         "bound_ms": f_bound[0], "bound_by": f_bound[1],
+                        **_tf32x3_bound(dtype, f_bytes, 4.0 * pairs * dh),
+                        "kernel": fwd_res.get(f"flash_bias_fwd_kernel<{dtype}, {dh}>"),
                         "tflops": 4.0 * pairs * dh / t_fwd["ms"] / 1e9},
             "backward": {"case": name, **shape, "max_abs_err": max(errs),
                          "err_is": "max |kernel - plain| / max |plain|, worst of dq, dk, dv"
@@ -689,8 +723,9 @@ HEAD_DIM_CASE = (2, 4, 200, 48)  # B, H, T, prefix_s
 
 
 def check_head_dims(dev):
-    """Kernels 3 and 4's backward at the head dims the training shapes do not
-    reach (16, 32, 128), in f32 and bf16: kernel 3 in prefix mode at rate 0.1
+    """Kernels 2, 3 and 4, forward and backward, at the head dims the
+    training shapes do not reach (16, 32, 128; the scale is not a power of two
+    at 32 and 128), in f32 and bf16: kernels 2 / 3 in prefix mode at rate 0.1
     and in dense mode at rate 0, kernel 4 with a causal + padding bias, each
     against its plain version with a bit-equal rerun."""
     import torch
@@ -712,33 +747,49 @@ def check_head_dims(dev):
                              for _ in range(4))
             for mode, rate in (("prefix", DROPOUT), ("dense", 0.0), ("kernel4 decoder bias", 0.0)):
                 if mode == "kernel4 decoder bias":
-                    out, lse = fl._forward(q, k, v, dec, with_lse=True)
+                    fwd = lambda: fl._forward(q, k, v, dec, with_lse=True)  # noqa: E731
+                    want_out, want_lse = fl.flash_attention_forward_reference(q, k, v, dec)
+                    out, lse = fwd()
                     call = lambda: fl.flash_attention_biased_backward(  # noqa: E731
                         q, k, v, dec, out, dout, lse)[:3]
                     want = fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse)[:3]
                 else:
                     ps = prefix_s if mode == "prefix" else None
                     seed = int(rng.randint(0, 2**62))
-                    out, lse = fa._forward(q, k, v, kb, ps, rate, seed, with_lse=True)
+                    fwd = lambda: fa._forward(q, k, v, kb, ps, rate, seed,  # noqa: E731
+                                              with_lse=True)
+                    want_out, want_lse = fa.attention_forward_reference(q, k, v, kb, ps, rate,
+                                                                        seed)
+                    out, lse = fwd()
                     kw = dict(prefix_s=ps, dropout_rate=rate, dropout_seed=seed)
                     call = lambda: fa.fused_prefix_attention_backward(  # noqa: E731
                         q, k, v, kb, out, dout, lse, **kw)
                     want = fa.attention_backward_reference(q, k, v, kb, out, dout, lse, ps, rate,
                                                            seed)
+                out2, lse2 = fwd()
                 got, again = call(), call()
                 torch.cuda.synchronize()
                 case = f"dh {dh} {mode} {dtype} rate {rate}"
+                fwd_err = float((out.float() - want_out.float()).abs().max())
+                lse_err = float((lse - want_lse).abs().max())
                 errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
                         for g, w in zip(got, want)]
+                assert torch.isfinite(out).all() and torch.isfinite(lse).all(), case
+                assert torch.equal(out, out2) and torch.equal(lse, lse2), \
+                    f"forward ({case}) is not bit-reproducible"
+                assert fwd_err <= TOL[dtype], f"forward ({case}) disagrees: {fwd_err}"
+                assert lse_err <= TOL["float32"], f"forward LSE ({case}) disagrees: {lse_err}"
                 assert all(torch.isfinite(g).all() for g in got), case
                 assert all(torch.equal(g, a) for g, a in zip(got, again)), \
                     f"backward ({case}) is not bit-reproducible"
                 assert max(errs) <= TOL[dtype], f"backward ({case}) disagrees: {errs}"
                 results.append({"case": case, "b": b, "h": h, "t": t, "dh": dh,
+                                "forward_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
                                 "max_abs_err": max(errs), "tol": TOL[dtype],
                                 "bit_equal_rerun": True})
-    emit({"phase": "kernel3_4_head_dims",
-          "err_is": "max |kernel - plain| / max |plain|, worst of dq, dk, dv", "cases": results})
+    emit({"phase": "kernel2_3_4_head_dims",
+          "err_is": "forward: max |kernel - plain|; backward (max_abs_err): max |kernel - plain| "
+                    "/ max |plain|, worst of dq, dk, dv", "cases": results})
     return results
 
 
@@ -1344,21 +1395,27 @@ def main() -> int:
 
     t0 = time.perf_counter()
     seconds = cuda_build.build(KERNELS)
+    fwd_log = cuda_build.log_path("prefix_attention")
+    fwd = kernel_resources(fwd_log.with_suffix(".so"), fwd_log)
     bwd_log = cuda_build.log_path("prefix_attention_bwd")
-    bwd = bwd_kernel_resources(bwd_log.with_suffix(".so"), bwd_log)
+    bwd = kernel_resources(bwd_log.with_suffix(".so"), bwd_log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": seconds,
           "ptxas": {name: ptxas_summary(cuda_build.log_path(name)) for name in KERNELS},
-          "backward_kernels": bwd})
+          "forward_kernels": fwd, "backward_kernels": bwd})
+    # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 x dropout or not; kernel 4 without
+    assert len(fwd) == 24, f"expected 24 forward kernels, found {sorted(fwd)}"
+    assert all(r["hmma"] > 0 for r in fwd.values()), "a forward kernel runs no tensor-core MMA"
+    assert all(r["spill_bytes"] == 0 for r in fwd.values()), "ptxas spills in the forward"
     passes = {n: r for n, r in bwd.items() if "delta" not in n}
     assert len(passes) == 48, f"expected 48 backward pass kernels, found {sorted(passes)}"
     assert all(r["hmma"] > 0 for r in passes.values()), "a backward pass runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in bwd.values()), "ptxas spills in the backward"
 
     k1 = check_ragged_decode(dev)
-    check_prefix_attention(dev)
-    k2d = check_dropout_forward(dev)
+    check_prefix_attention(dev, fwd)
+    k2d = check_dropout_forward(dev, fwd)
     k3 = check_backward(dev, bwd)
-    k4 = check_flash_bias(dev, bwd)
+    k4 = check_flash_bias(dev, fwd, bwd)
     check_head_dims(dev)
     paths = {"generate": main_path(dev), "train_step": train_path(dev, k2d, k3),
              "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}

@@ -123,6 +123,7 @@ def test_cuda_build_needs_no_nvcc_at_import():
     assert (cuda_build.CSRC / "prefix_attention.cu").exists()
     assert (cuda_build.CSRC / "prefix_attention_bwd.cu").exists()
     assert (cuda_build.CSRC / "attention_common.cuh").exists()
+    assert (cuda_build.CSRC / "mma_tile.cuh").exists()
     assert (cuda_build.CSRC / "philox.cuh").exists()
     assert cuda_build.BUILD_DIR.parts[-2:] == ("build", "valle_tpu_torch")
     # the compiler's log is keyed like the library, so it always belongs to it

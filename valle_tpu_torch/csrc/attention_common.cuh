@@ -1,6 +1,7 @@
 // Shared by the attention forward (prefix_attention.cu) and backward
-// (prefix_attention_bwd.cu) kernels: the tile shape, the element conversions,
-// the dense bias and dropout arguments, and the head-dim dispatch.
+// (prefix_attention_bwd.cu) kernels: the element conversions, the dense bias
+// and dropout arguments, the head-dim dispatch and a plain launch helper.
+// The tensor-core tiles are in mma_tile.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,10 +11,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BQ = 64;  // q rows per tile
-constexpr int BK = 64;  // key columns per tile
-constexpr int LD = 68;  // padded leading dimension (keeps float4 rows aligned)
+constexpr int kThreads = 256;  // threads of a block launched by launch()
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -43,10 +43,16 @@ def _logits(q, k, bias, cdt):
 
 def flash_attention_forward_reference(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 4's forward: (out like ``q``, row
-    log-sum-exp (B, H, Tq) in f32, or f64 for f64 inputs)."""
+    log-sum-exp (B, H, Tq) in f32, or f64 for f64 inputs).
+
+    The normalised P is rounded to the input dtype before P.V, as the
+    library's kernel does when the keys fit one block (Tk <= 1024 after its
+    padding to 128, every shape of the port's callers); over several key
+    blocks the library rounds P before it normalises."""
     cdt = _compute_dtype(q)
     s = _logits(q, k, bias, cdt)
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.to(cdt)).to(q.dtype)
+    probs = torch.softmax(s, dim=-1).to(q.dtype).to(cdt)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(cdt)).to(q.dtype)
     return out, torch.logsumexp(s, dim=-1)
 
 

@@ -68,21 +68,27 @@ def attention_forward_reference(
     dropout_seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 2: (out like ``q``, row log-sum-exp
-    (B, H, Tq) in f32, or f64 for f64 inputs)."""
+    (B, H, Tq) in f32, or f64 for f64 inputs).
+
+    In ``_fwd_kernel``'s order: p = exp(logits - row max), dropout, p rounded
+    to the input dtype, P.V summed in the compute dtype, then divided by the
+    row sum of p taken before dropout."""
     cdt = _compute_dtype(q)
     logits = _logits(q, k, kv_bias, prefix_s, cdt)
-    lse = torch.logsumexp(logits, dim=-1)
-    probs = torch.softmax(logits, dim=-1)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1)
+    lse = m[..., 0] + torch.log(l)
     if dropout_rate > 0.0:
         keep = _keep(q, k, dropout_rate, dropout_seed)
-        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(cdt)).to(q.dtype)
-    return out, lse
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(cdt), v.to(cdt))
+    return (acc / l.transpose(1, 2)[..., None]).to(q.dtype), lse
 
 
 def fused_prefix_attention_reference(q, k, v, kv_bias, prefix_s=None):
     """Plain PyTorch version at dropout 0: (B,Tq,H,Dh) x (B,Tk,H,Dh) -> like
-    ``q``, with the f32 softmax of the kernel."""
+    ``q``, with the f32 softmax and the bf16 rounding of P of the kernel."""
     return attention_forward_reference(q, k, v, kv_bias, prefix_s)[0]
 
 
