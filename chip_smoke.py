@@ -12,9 +12,15 @@ ends the run with a non-zero exit code):
      ``nvcc``, in parallel, with each one's most registers and spilled bytes,
      and per attention kernel (forward and backward) its registers, spills
      and tensor-core (HMMA) instructions: every forward kernel and backward
-     pass must use the tensor cores and none may spill;
-  3. kernel 1 (ragged decode attention) against its plain PyTorch version at
-     decode shapes, int8 / f32 / bf16 caches;
+     pass must use the tensor cores and none may spill; per kernel 1
+     instantiation (split and combine kernels) its registers, spills and I2F
+     instructions: none may spill, and no int8-cache instantiation may hold
+     an I2F;
+  3. kernel 1 (ragged decode attention, split-K and combine) against its
+     plain PyTorch version, with a bit-equal rerun: int8 / f32 / bf16 caches
+     at B=8, C=1024; the generate shapes (B=8 and B=1, C=768, 673 live
+     columns, two finished slots at B=8); a long cache (B=1, C=40,000); and
+     head dims 48 and 96 in all three cache types;
   4. kernel 2 (prefix-LM / dense attention) against its plain version in
      prefix, causal, dense self- and cross-attention modes;
   5. kernel 2 with dropout 0.1 and its LSE output at the training shapes
@@ -28,7 +34,8 @@ ends the run with a non-zero exit code):
      training shapes in f32 and bf16, a soft per-head bias and a (1, 1, Tq,
      Tk) bias with d(bias), Tq != Tk, and the inference shape, with
      bit-equal reruns; then kernels 2, 3 and 4, forward and backward, at
-     head dims 16, 32 and 128 on a small shape, likewise;
+     head dims 16, 32, 48, 96 and 128 on a small shape (48 and 96 through
+     the wrappers' zero padding), likewise;
   8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
      decode logits held against a CPU copy of the model, and timings;
@@ -157,11 +164,29 @@ def kernel_label(mangled: str):
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def kernel_resources(lib_path, log_path) -> dict:
-    """Per attention kernel instantiation of one built source (the forward's
-    or the backward's): registers and spilled bytes (``nvcc -Xptxas -v``) and
-    the tensor-core (HMMA) instructions in its SASS (``cuobjdump -sass`` of
-    the built library)."""
+_RAGGED_KERNEL = re.compile(r"ragged_decode_split_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
+                            r"|ragged_decode_combine_kernelILi(\d+)E")
+
+
+def ragged_label(mangled: str):
+    """``ragged_decode_split_kernel<int8, 4, 1>`` (cache type, lanes per
+    head, chunks per lane) or ``ragged_decode_combine_kernel<256>`` (threads)
+    for a mangled kernel 1 name, or None for another kernel."""
+    m = _RAGGED_KERNEL.search(mangled)
+    if m is None:
+        return None
+    if m.group(4) is not None:
+        return f"ragged_decode_combine_kernel<{m.group(4)}>"
+    kv = {"a": "int8", "f": "float32"}.get(m.group(1), "bfloat16")
+    return f"ragged_decode_split_kernel<{kv}, {m.group(2)}, {m.group(3)}>"
+
+
+def kernel_resources(lib_path, log_path, label=kernel_label, opcodes=(("hmma", "HMMA"),)) -> dict:
+    """Per kernel instantiation of one built source that ``label`` names:
+    registers and spilled bytes (``nvcc -Xptxas -v``) and, for each (key,
+    opcode) of ``opcodes``, the instructions of that opcode in its SASS
+    (``cuobjdump -sass`` of the built library; the tensor-core HMMA of the
+    attention kernels by default)."""
     import os
     import shutil
     from pathlib import Path
@@ -170,9 +195,10 @@ def kernel_resources(lib_path, log_path) -> dict:
     for line in log_path.read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
         if m:
-            name = kernel_label(m.group(1))
+            name = label(m.group(1))
             if name is not None:
-                res.setdefault(name, {"registers": 0, "spill_bytes": 0, "hmma": 0})
+                res.setdefault(name, {"registers": 0, "spill_bytes": 0,
+                                      **{key: 0 for key, _ in opcodes}})
             continue
         if name is None:
             continue
@@ -190,9 +216,11 @@ def kernel_resources(lib_path, log_path) -> dict:
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = kernel_label(m.group(1))
-        elif name is not None and "HMMA" in line:
-            res[name]["hmma"] += 1
+            name = label(m.group(1))
+        elif name is not None:
+            for key, op in opcodes:
+                if re.search(rf"\b{op}", line):
+                    res[name][key] += 1
     return res
 
 
@@ -226,64 +254,103 @@ def bound(n_bytes: float, n_ops: float, op_type: str):
 # ---------------------------------------------------------------- phase 3
 
 
-def check_ragged_decode(dev):
+RAGGED_NAMES = ["ragged_decode_split_kernel", "ragged_decode_combine_kernel"]
+PHASE3_LENS = [0, 1024, 517, 300, 1, 777, 64, 900]  # B=8, C=1024: 3,583 live columns
+GENERATE_LENS = [673, 0, 673, 673, 0, 673, 673, 673]  # B=8, C=768: two finished slots
+
+
+def ragged_cases():
+    """(name, b, c, h, dh, lengths, caches) of phase 3."""
+    all3 = ("int8", "float32", "bfloat16")
+    return [
+        ("phase3", 8, 1024, 16, 64, PHASE3_LENS, all3),
+        ("generate B=8", 8, 768, 16, 64, GENERATE_LENS, ("int8",)),
+        ("generate B=1", 1, 768, 16, 64, [673], ("int8",)),
+        ("long cache B=1", 1, 40000, 16, 64, [40000], ("int8",)),
+        ("dh 48", 8, 1024, 16, 48, PHASE3_LENS, all3),
+        ("dh 96", 8, 1024, 8, 96, PHASE3_LENS, all3),
+    ]
+
+
+def ragged_inputs(dev, rng, b, c, h, dh, lens, cache):
+    """(args of ragged_decode_attention, dequantized k and v in q's dtype)
+    on the card: f32 q, K and V from ``rng``, 10% bias holes; int8 caches
+    quantized per (token, head), others cast."""
     import torch
-    from torch.nn import functional as F
 
     from valle_tpu_torch.nn.attention import quantize_kv
-    from valle_tpu_torch.ops.ragged_decode import (
-        ragged_decode_attention, ragged_decode_attention_reference)
 
-    rng = np.random.RandomState(SEED)
-    b, c, h, dh = 8, 1024, 16, 64
-    lens = np.array([0, c, 517, 300, 1, 777, 64, 900], np.int32)
     qf = torch.from_numpy(rng.randn(b, 1, h, dh).astype(np.float32)).to(dev)
     kf = torch.from_numpy(rng.randn(b, c, h, dh).astype(np.float32)).to(dev)
     vf = torch.from_numpy(rng.randn(b, c, h, dh).astype(np.float32)).to(dev)
     bias = torch.from_numpy(np.where(rng.rand(b, c) < 0.1, -1e9, 0.0).astype(np.float32)).to(dev)
-    lengths = torch.from_numpy(lens).to(dev)
-    live = int(lens.sum())
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if cache == "int8":
+        k, ks = quantize_kv(kf)
+        v, vs = quantize_kv(vf)
+        return (qf, k, v, lengths, bias, ks, vs), (k.float() * ks[..., None],
+                                                   v.float() * vs[..., None])
+    dt = getattr(torch, cache)
+    q, k, v = qf.to(dt), kf.to(dt), vf.to(dt)
+    return (q, k, v, lengths, bias, None, None), (k, v)
+
+
+def check_ragged_decode(dev):
+    import torch
+    from torch.nn import functional as F
+
+    from valle_tpu_torch.ops.ragged_decode import (
+        _cached_plan, ragged_decode_attention, ragged_decode_attention_reference)
+
+    rng = np.random.RandomState(SEED)
     results = []
-    for cache in ("int8", "float32", "bfloat16"):
-        if cache == "int8":
-            q = qf
-            k, ks = quantize_kv(kf)
-            v, vs = quantize_kv(vf)
-            elem, op_type, tol = 1, "int8", TOL["float32"]
-            k_lib, v_lib = (k.float() * ks[..., None]), (v.float() * vs[..., None])
-        else:
-            dt = getattr(torch, cache)
-            q, k, v, ks, vs = qf.to(dt), kf.to(dt), vf.to(dt), None, None
-            elem, op_type, tol = k.element_size(), cache, TOL[cache]
-            k_lib, v_lib = k, v
-        args = (q, k, v, lengths, bias, ks, vs)
-        got = ragged_decode_attention(*args)
-        want = ragged_decode_attention_reference(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        assert torch.isfinite(got).all(), cache
-        assert float(got[0].abs().max()) == 0.0, "a length-0 slot must give exact zeros"
-        assert err <= tol, f"kernel 1 ({cache} cache) disagrees with its plain version: {err}"
-        timing = cuda_time(lambda: ragged_decode_attention(*args))
-        timing["device_ms"] = device_ms(lambda: ragged_decode_attention(*args),
-                                        ["ragged_decode_kernel"])
-        plain_ms = cuda_time(lambda: ragged_decode_attention_reference(*args), iters=20)["ms"]
-        # yardstick: one SDPA call on the same (dequantized) data and mask
-        col = torch.arange(c, device=dev)[None, :]
-        mask = torch.where(col < lengths[:, None].long(), bias, float("-inf"))[:, None, None, :]
-        mask = mask.to(q.dtype)
-        ql, kl, vl = (t.transpose(1, 2) for t in (q, k_lib.to(q.dtype), v_lib.to(q.dtype)))
-        # slot 0 (length 0) has no finite column for SDPA, so the yardstick skips it
-        library_ms = cuda_time(lambda: F.scaled_dot_product_attention(
-            ql[1:], kl[1:], vl[1:], attn_mask=mask[1:]))["ms"]
-        n_bytes = (live * h * dh * 2 * elem + (live * h * 4 * 2 if cache == "int8" else 0)
-                   + live * 4 + b * 4 + b * h * dh * (q.element_size() + 4))
-        bound_ms, bound_by = bound(n_bytes, 4.0 * live * h * dh, op_type)
-        results.append({"case": f"{cache} cache", "b": b, "c": c, "h": h, "dh": dh,
-                        "live_columns": live, "max_abs_err": err, "tol": tol, **timing,
-                        "plain_ms": plain_ms, "library_ms": library_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by})
-    emit({"phase": "kernel1_ragged_decode", "cases": results})
+    for name, b, c, h, dh, lens, caches in ragged_cases():
+        for cache in caches:
+            args, (k_lib, v_lib) = ragged_inputs(dev, rng, b, c, h, dh, lens, cache)
+            q, k, lengths, bias = args[0], args[1], args[3], args[4]
+            tol = TOL["bfloat16" if cache == "bfloat16" else "float32"]
+            op_type = "int8" if cache == "int8" else cache
+            got = ragged_decode_attention(*args)
+            again = ragged_decode_attention(*args)
+            want = ragged_decode_attention_reference(*args)
+            torch.cuda.synchronize()
+            case = f"{name} {cache} cache"
+            err = float((got - want).abs().max())
+            assert torch.isfinite(got).all(), case
+            assert torch.equal(got, again), f"kernel 1 ({case}) is not bit-reproducible"
+            dead = [i for i, n in enumerate(lens) if n == 0]
+            assert all(float(got[i].abs().max()) == 0.0 for i in dead), \
+                "a length-0 slot must give exact zeros"
+            assert err <= tol, f"kernel 1 ({case}) disagrees with its plain version: {err}"
+            timing = cuda_time(lambda: ragged_decode_attention(*args))
+            timing["device_ms"] = device_ms(lambda: ragged_decode_attention(*args), RAGGED_NAMES)
+            plain_ms = cuda_time(lambda: ragged_decode_attention_reference(*args), iters=20)["ms"]
+            # yardstick: one SDPA call on the same (dequantized) data and mask, over
+            # the slots of length > 0 (a length-0 slot has no finite column for SDPA)
+            col = torch.arange(c, device=dev)[None, :]
+            mask = torch.where(col < lengths[:, None].long(), bias, float("-inf"))
+            live_slots = torch.tensor([i for i, n in enumerate(lens) if n > 0], device=dev)
+            mask = mask[live_slots][:, None, None, :].to(q.dtype)
+            ql, kl, vl = (t[live_slots].transpose(1, 2).contiguous()
+                          for t in (q, k_lib.to(q.dtype), v_lib.to(q.dtype)))
+            library_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask))["ms"]
+            live = int(sum(min(max(n, 0), c) for n in lens))
+            elem = k.element_size()
+            n_bytes = (live * h * dh * 2 * elem + (live * h * 4 * 2 if cache == "int8" else 0)
+                       + live * 4 + b * 4 + b * h * dh * (q.element_size() + 4))
+            bound_ms, bound_by = bound(n_bytes, 4.0 * live * h * dh, op_type)
+            plan = _cached_plan(b, c, h, dh, elem, torch.cuda.current_device())
+            results.append({"case": case, "b": b, "c": c, "h": h, "dh": dh,
+                            "live_columns": live, "plan": plan._asdict(), "max_abs_err": err,
+                            "tol": tol, "bit_equal_rerun": True, **timing, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by,
+                            "bound_share": bound_ms / timing["device_ms"]
+                            if timing["device_ms"] else None})
+            del args, k_lib, v_lib, ql, kl, vl, mask
+    emit({"phase": "kernel1_ragged_decode", "device_ms_is": "split + combine kernels per call",
+          "cases": results})
     return results[0]
 
 
@@ -724,8 +791,9 @@ HEAD_DIM_CASE = (2, 4, 200, 48)  # B, H, T, prefix_s
 
 def check_head_dims(dev):
     """Kernels 2, 3 and 4, forward and backward, at the head dims the
-    training shapes do not reach (16, 32, 128; the scale is not a power of two
-    at 32 and 128), in f32 and bf16: kernels 2 / 3 in prefix mode at rate 0.1
+    training shapes do not reach (16, 32, 128, and 48 and 96, which the
+    wrappers zero-pad to 64 and 128; the scale is not a power of two but at
+    16 and 64), in f32 and bf16: kernels 2 / 3 in prefix mode at rate 0.1
     and in dense mode at rate 0, kernel 4 with a causal + padding bias, each
     against its plain version with a bit-equal rerun."""
     import torch
@@ -740,7 +808,7 @@ def check_head_dims(dev):
     kb = torch.from_numpy(key_bias).to(dev)
     dec = torch.from_numpy(_decoder_bias(rng, b, t, 3 * t // 4)).to(dev)
     results = []
-    for dh in (16, 32, 128):
+    for dh in (16, 32, 48, 96, 128):
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             q, k, v, dout = (torch.from_numpy(rng.randn(b, t, h, dh).astype(np.float32)).to(dev, dt)
@@ -1399,9 +1467,16 @@ def main() -> int:
     fwd = kernel_resources(fwd_log.with_suffix(".so"), fwd_log)
     bwd_log = cuda_build.log_path("prefix_attention_bwd")
     bwd = kernel_resources(bwd_log.with_suffix(".so"), bwd_log)
+    k1_log = cuda_build.log_path("ragged_decode")
+    k1 = kernel_resources(k1_log.with_suffix(".so"), k1_log, ragged_label, (("i2f", "I2F"),))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": seconds,
           "ptxas": {name: ptxas_summary(cuda_build.log_path(name)) for name in KERNELS},
-          "forward_kernels": fwd, "backward_kernels": bwd})
+          "kernel1_kernels": k1, "forward_kernels": fwd, "backward_kernels": bwd})
+    # kernel 1: five lane layouts per cache type, and the combine kernel in two sizes
+    assert len(k1) == 17, f"expected 17 kernel 1 kernels, found {sorted(k1)}"
+    assert all(r["spill_bytes"] == 0 for r in k1.values()), "ptxas spills in kernel 1"
+    assert all(r["i2f"] == 0 for n, r in k1.items() if "int8" in n), \
+        "an int8-cache instantiation of kernel 1 converts with I2F"
     # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 x dropout or not; kernel 4 without
     assert len(fwd) == 24, f"expected 24 forward kernels, found {sorted(fwd)}"
     assert all(r["hmma"] > 0 for r in fwd.values()), "a forward kernel runs no tensor-core MMA"

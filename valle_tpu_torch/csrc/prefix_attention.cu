@@ -392,7 +392,7 @@ template <typename T>
 cudaError_t launch_prefix(int Dh, const void* q, long long q_sb, long long q_st, const void* k,
                           long long k_sb, long long k_st, const void* v, long long v_sb,
                           long long v_st, const float* kv_bias, void* out, float* lse, int B,
-                          int Tq, int Tk, int H, int prefix_s, Dropout drop,
+                          int Tq, int Tk, int H, int prefix_s, Dropout drop, float scale,
                           cudaStream_t stream) {
   const bool vec = qkv_aligned<T>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st);
   return dispatch_dh(Dh, [&](auto dh) {
@@ -402,8 +402,7 @@ cudaError_t launch_prefix(int Dh, const void* q, long long q_sb, long long q_st,
     return launch_pass(kern, dim3((Tq + BM - 1) / BM, H, B), fwd_smem_bytes<T, DH>(), stream,
                        static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k), k_sb,
                        k_st, static_cast<const T*>(v), v_sb, v_st, kv_bias,
-                       static_cast<T*>(out), lse, Tq, Tk, H, prefix_s,
-                       1.f / sqrtf((float)DH), drop, vec);
+                       static_cast<T*>(out), lse, Tq, Tk, H, prefix_s, scale, drop, vec);
   });
 }
 
@@ -411,7 +410,7 @@ template <typename T>
 cudaError_t launch_bias(int Dh, const void* q, long long q_sb, long long q_st, const void* k,
                         long long k_sb, long long k_st, const void* v, long long v_sb,
                         long long v_st, Bias bias, void* out, float* lse, int B, int Tq, int Tk,
-                        int H, cudaStream_t stream) {
+                        int H, float scale, cudaStream_t stream) {
   const bool vec = qkv_aligned<T>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st);
   return dispatch_dh(Dh, [&](auto dh) {
     constexpr int DH = decltype(dh)::value;
@@ -419,7 +418,7 @@ cudaError_t launch_bias(int Dh, const void* q, long long q_sb, long long q_st, c
     return launch_pass(kern, dim3((Tq + BM - 1) / BM, H, B), fwd_smem_bytes<T, DH>(), stream,
                        static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k), k_sb,
                        k_st, static_cast<const T*>(v), v_sb, v_st, bias, static_cast<T*>(out),
-                       lse, Tq, Tk, H, 1.f / sqrtf((float)DH), vec);
+                       lse, Tq, Tk, H, scale, vec);
   });
 }
 
@@ -431,25 +430,29 @@ cudaError_t launch_bias(int Dh, const void* q, long long q_sb, long long q_st, c
 // out: (B, Tq, H, Dh) contiguous; lse: (B, H, Tq) f32 or null (not written);
 // prefix_s < 0 selects dense mode.  drop_threshold: keep a probability when
 // its Philox bits are >= it (0 = no dropout); inv_keep = 1 / (1 - rate);
-// seed: the 64-bit Philox key.  Returns the cudaError_t of the launch.
+// seed: the 64-bit Philox key; scale: the logits' scale, 1 / sqrt(Dh) of the
+// caller's head dim (the wrapper zero-pads other head dims up to an
+// instantiated one).  Returns the cudaError_t of the launch.
 extern "C" int prefix_attention_launch(
     const void* q, long long q_sb, long long q_st, const void* k, long long k_sb,
     long long k_st, const void* v, long long v_sb, long long v_st, const float* kv_bias,
     void* out, float* lse, int dtype, int B, int Tq, int Tk, int H, int Dh, int prefix_s,
-    unsigned drop_threshold, float inv_keep, unsigned long long seed, void* stream) {
+    unsigned drop_threshold, float inv_keep, unsigned long long seed, float scale,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{drop_threshold, inv_keep,
                      make_uint2((unsigned)(seed & 0xFFFFFFFFull), (unsigned)(seed >> 32))};
   if (dtype == 0)
     return (int)launch_prefix<float>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
-                                     out, lse, B, Tq, Tk, H, prefix_s, drop, s);
+                                     out, lse, B, Tq, Tk, H, prefix_s, drop, scale, s);
   if (dtype == 1)
     return (int)launch_prefix<__nv_bfloat16>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,
-                                             kv_bias, out, lse, B, Tq, Tk, H, prefix_s, drop, s);
+                                             kv_bias, out, lse, B, Tq, Tk, H, prefix_s, drop,
+                                             scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 4.  dtype, q, k, v, out and lse as in prefix_attention_launch;
+// Kernel 4.  dtype, q, k, v, out, lse and scale as in prefix_attention_launch;
 // bias: f32, element (b, h, r, c) at bias[b * b_sb + h * b_sh + r * b_sq +
 // c * b_sk].  Returns the cudaError_t of the launch (cudaErrorInvalidValue
 // where an offset within one (b, h) slice of the bias needs 32 bits or
@@ -458,7 +461,7 @@ extern "C" int flash_attention_launch(
     const void* q, long long q_sb, long long q_st, const void* k, long long k_sb,
     long long k_st, const void* v, long long v_sb, long long v_st, const float* bias,
     long long b_sb, long long b_sh, long long b_sq, long long b_sk, void* out, float* lse,
-    int dtype, int B, int Tq, int Tk, int H, int Dh, void* stream) {
+    int dtype, int B, int Tq, int Tk, int H, int Dh, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Bias bs{bias, b_sb, b_sh, b_sq, b_sk};
   // the kernel indexes within one (b, h) slice of the bias in 32 bits
@@ -466,9 +469,9 @@ extern "C" int flash_attention_launch(
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch_bias<float>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, bs, out, lse,
-                                   B, Tq, Tk, H, s);
+                                   B, Tq, Tk, H, scale, s);
   if (dtype == 1)
     return (int)launch_bias<__nv_bfloat16>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, bs,
-                                           out, lse, B, Tq, Tk, H, s);
+                                           out, lse, B, Tq, Tk, H, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -586,11 +586,10 @@ struct Args {
 
 // The three passes of kernel 4 (kBias) or kernel 3.
 template <typename T, bool kBias>
-cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, cudaStream_t stream) {
+cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, float scale, cudaStream_t stream) {
   return dispatch_dh(Dh, [&](auto dh) {
     constexpr int DH = decltype(dh)::value;
     const size_t smem = bwd_smem_bytes<T, DH>();
-    const float scale = 1.f / sqrtf((float)DH);
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
@@ -646,25 +645,27 @@ cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, cudaStream_t stream)
 // out, dout, dq: (B, Tq, H, Dh) contiguous; dk, dv: (B, Tk, H, Dh)
 // contiguous; lse and delta (scratch, written here): (B, H, Tq) f32.
 // prefix_s < 0 selects dense mode.  drop_threshold / inv_keep / seed as in
-// prefix_attention_launch.  Returns the first cudaError_t of the three
-// launches.
+// prefix_attention_launch; scale: the logits' scale, 1 / sqrt(Dh) of the
+// caller's head dim (the wrapper zero-pads other head dims up to an
+// instantiated one).  Returns the first cudaError_t of the three launches.
 extern "C" int prefix_attention_bwd_launch(
     const void* q, long long q_sb, long long q_st, const void* k, long long k_sb,
     long long k_st, const void* v, long long v_sb, long long v_st, const float* kv_bias,
     const void* out, const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int dtype, int B, int Tq, int Tk, int H, int Dh, int prefix_s,
-    unsigned drop_threshold, float inv_keep, unsigned long long seed, void* stream) {
+    unsigned drop_threshold, float inv_keep, unsigned long long seed, float scale,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, q_sb, q_st, k_sb, k_st, v_sb, v_st, kv_bias, Bias{}, out, dout, lse,
                delta, dq, dk, dv, nullptr, B, Tq, Tk, H, prefix_s};
   const Dropout drop{drop_threshold, inv_keep,
                      make_uint2((unsigned)(seed & 0xFFFFFFFFull), (unsigned)(seed >> 32))};
-  if (dtype == 0) return (int)launch_bwd<float, false>(Dh, a, drop, s);
-  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16, false>(Dh, a, drop, s);
+  if (dtype == 0) return (int)launch_bwd<float, false>(Dh, a, drop, scale, s);
+  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16, false>(Dh, a, drop, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 4's backward.  dtype, q, k, v, out, dout, dq, dk, dv, lse and delta
+// Kernel 4's backward.  dtype, q, k, v, out, dout, dq, dk, dv, lse, delta and scale
 // as in prefix_attention_bwd_launch; bias: f32 read through (b_sb, b_sh,
 // b_sq, b_sk) as in flash_attention_launch; dbias: (B, H, Tq, Tk) f32
 // contiguous, or null to skip it.  Returns the first cudaError_t of the
@@ -674,7 +675,7 @@ extern "C" int flash_attention_bwd_launch(
     long long k_st, const void* v, long long v_sb, long long v_st, const float* bias,
     long long b_sb, long long b_sh, long long b_sq, long long b_sk, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
-    float* dbias, int dtype, int B, int Tq, int Tk, int H, int Dh, void* stream) {
+    float* dbias, int dtype, int B, int Tq, int Tk, int H, int Dh, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, q_sb, q_st, k_sb, k_st, v_sb, v_st, nullptr,
                Bias{bias, b_sb, b_sh, b_sq, b_sk}, out, dout, lse, delta, dq, dk, dv, dbias,
@@ -682,7 +683,7 @@ extern "C" int flash_attention_bwd_launch(
   // the kernels index within one (b, h) slice of the bias in 32 bits
   if ((long long)Tq * llabs(b_sq) + (long long)Tk * llabs(b_sk) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_bwd<float, true>(Dh, a, Dropout{}, s);
-  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16, true>(Dh, a, Dropout{}, s);
+  if (dtype == 0) return (int)launch_bwd<float, true>(Dh, a, Dropout{}, scale, s);
+  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16, true>(Dh, a, Dropout{}, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,43 +20,50 @@ nothing is padded to 128 as the JAX wrapper pads.  Its key-padding branch
 A row whose every column is masked (-1e9) averages v over its Tk columns;
 the JAX wrapper also averages the zero columns it pads to 128, so such rows
 differ from JAX's.  They occur only in rows that the callers' losses skip.
+
+A head dim outside the instantiated ones runs zero-padded, as in kernels 2
+and 3 (``ops/fused_attention.py::run_padded``); d(bias) does not depend on
+Dh.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from valle_tpu_torch.ops import cuda_build
 from valle_tpu_torch.ops.fused_attention import (
-    _DTYPES, _HEAD_DIMS, _check_heads_contiguous, _compute_dtype)
+    _DTYPES, _check_heads_contiguous, _compute_dtype, _scale, kernel_head_dim, run_padded)
 
 
-def _logits(q, k, bias, cdt):
-    """(B, H, Tq, Tk) ``(q kᵀ + bias) * scale`` in the compute dtype."""
+def _logits(q, k, bias, cdt, scale=None):
+    """(B, H, Tq, Tk) ``(q kᵀ + bias) * scale`` in the compute dtype;
+    ``scale`` defaults to 1 / sqrt(Dh)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(cdt), k.to(cdt))
-    return (s + bias.to(cdt)) * (1.0 / math.sqrt(q.shape[-1]))
+    return (s + bias.to(cdt)) * _scale(q, scale)
 
 
-def flash_attention_forward_reference(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_forward_reference(q, k, v, bias, scale=None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 4's forward: (out like ``q``, row
     log-sum-exp (B, H, Tq) in f32, or f64 for f64 inputs).
 
     The normalised P is rounded to the input dtype before P.V, as the
     library's kernel does when the keys fit one block (Tk <= 1024 after its
     padding to 128, every shape of the port's callers); over several key
-    blocks the library rounds P before it normalises."""
+    blocks the library rounds P before it normalises.  ``scale`` defaults to
+    1 / sqrt(Dh)."""
     cdt = _compute_dtype(q)
-    s = _logits(q, k, bias, cdt)
+    s = _logits(q, k, bias, cdt, scale)
     probs = torch.softmax(s, dim=-1).to(q.dtype).to(cdt)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(cdt)).to(q.dtype)
     return out, torch.logsumexp(s, dim=-1)
 
 
-def flash_attention_backward_reference(q, k, v, bias, out, dout, lse, bias_grad: bool = False):
+def flash_attention_backward_reference(q, k, v, bias, out, dout, lse, bias_grad: bool = False,
+                                       scale=None):
     """Plain PyTorch version of kernel 4's backward, in the library's order:
     (dq, dk, dv, d(bias) as (B, H, Tq, Tk) in f32 or None).
 
@@ -64,8 +71,8 @@ def flash_attention_backward_reference(q, k, v, bias, out, dout, lse, bias_grad:
     input dtype before their products, as the library casts them."""
     cdt = _compute_dtype(q)
     lo = q.dtype
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(_logits(q, k, bias, cdt) - lse.to(cdt)[..., None])
+    scale = _scale(q, scale)
+    p = torch.exp(_logits(q, k, bias, cdt, scale) - lse.to(cdt)[..., None])
     dout_c = dout.to(cdt)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout_c, v.to(cdt))
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(lo).to(cdt), dout_c)
@@ -80,12 +87,12 @@ def flash_attention_backward_reference(q, k, v, bias, out, dout, lse, bias_grad:
 _FWD_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3
     + [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3
     + [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 8
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 )
 
 
@@ -106,8 +113,7 @@ def _check_cuda(q, k, v, bias) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k, v must share float32 or bfloat16, "
                          f"got {q.dtype} {k.dtype} {v.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    kernel_head_dim(q.shape[-1])  # raises above 128
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
     for name, x in (("q", q), ("k", k), ("v", v), ("bias", bias)):
@@ -133,6 +139,11 @@ def _forward(q, k, v, bias, with_lse):
         out, lse = flash_attention_forward_reference(q, k, v, bias)
         return out, lse if with_lse else None
     _check_cuda(q, k, v, bias)
+    return run_padded(_launch_forward, (q, k, v), bias, with_lse, n_sliced=1)
+
+
+def _launch_forward(q, k, v, bias, with_lse, *, scale):
+    """Kernel 4's forward at an instantiated head dim: (out, lse or None)."""
     b, tq, h, dh = q.shape
     out = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -143,7 +154,7 @@ def _forward(q, k, v, bias, with_lse):
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
         *_bias_args(q, k, bias), out.data_ptr(), lse.data_ptr() if lse is not None else None,
-        _DTYPES[q.dtype], b, tq, k.shape[1], h, dh,
+        _DTYPES[q.dtype], b, tq, k.shape[1], h, dh, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -165,7 +176,6 @@ def flash_attention_biased_backward(q, k, v, bias, out, dout, lse, *, bias_grad:
     if not q.is_cuda:
         return flash_attention_backward_reference(q, k, v, bias, out, dout, lse, bias_grad)
     _check_cuda(q, k, v, bias)
-    tk = k.shape[1]
     dout = dout.to(q.dtype).contiguous()
     out = out.to(q.dtype).contiguous()
     for name, x in (("out", out), ("dout", dout), ("lse", lse)):
@@ -173,6 +183,14 @@ def flash_attention_biased_backward(q, k, v, bias, out, dout, lse, *, bias_grad:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous float32 tensor")
+    return run_padded(_launch_backward, (q, k, v, out, dout), bias, lse, bias_grad, n_sliced=3)
+
+
+def _launch_backward(q, k, v, out, dout, bias, lse, bias_grad, *, scale):
+    """Kernel 4's backward at an instantiated head dim: (dq, dk, dv, d(bias)
+    or None)."""
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, h, dh), dtype=q.dtype, device=q.device)
@@ -189,7 +207,7 @@ def flash_attention_biased_backward(q, k, v, bias, out, dout, lse, *, bias_grad:
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dbias.data_ptr() if dbias is not None else None,
-        _DTYPES[q.dtype], b, tq, tk, h, dh, torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPES[q.dtype], b, tq, tk, h, dh, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")

@@ -18,6 +18,10 @@ Masking: a structurally masked column is excluded, and the (B, Tk) key bias
 is added.  On every row that sees at least one visible column this equals the
 JAX kernel, which adds -1e9 for the structural mask instead; the two differ
 only on rows whose columns are all masked, which no caller reads.
+
+Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS``; any
+other Dh up to 128 runs zero-padded to the next of them, with the scale of
+the true Dh (:func:`run_padded`, shared with kernel 4).
 """
 
 from __future__ import annotations
@@ -27,20 +31,52 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.nn import functional as F
 
 from valle_tpu_torch.ops import cuda_build
 from valle_tpu_torch.ops.masks import prefix_lm_attn_mask
 from valle_tpu_torch.ops.philox import dropout_keep_mask, keep_threshold
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the head dims kernels 2-4 are instantiated for
 
 
-def _logits(q, k, kv_bias, prefix_s, cdt):
+def kernel_head_dim(dh: int) -> int:
+    """The instantiated head dim that kernels 2-4 run a head dim of ``dh``
+    at: the next of ``KERNEL_HEAD_DIMS``."""
+    for n in KERNEL_HEAD_DIMS:
+        if dh <= n:
+            return n
+    raise ValueError(f"head dim {dh}: kernels 2-4 take head dims up to {KERNEL_HEAD_DIMS[-1]}")
+
+
+def run_padded(launch, padded, *args, n_sliced: int):
+    """``launch(*padded, *args, scale=1 / sqrt(Dh))`` with each tensor of
+    ``padded`` zero-padded on its last axis from Dh (``padded[0]``'s) to
+    ``kernel_head_dim(Dh)``, and the first ``n_sliced`` results sliced back
+    to Dh.  Zero columns of q and k leave q kᵀ unchanged, and zero columns of
+    v, out and dout make the padded columns of out, dq, dk and dv exactly
+    zero, so the kernel computes the function at the true Dh."""
+    dh = padded[0].shape[-1]
+    n = kernel_head_dim(dh)
+    if n != dh:
+        padded = [F.pad(x, (0, n - dh)) for x in padded]
+    res = launch(*padded, *args, scale=1.0 / math.sqrt(dh))
+    if n == dh:
+        return res
+    return tuple(r[..., :dh].contiguous() if i < n_sliced else r for i, r in enumerate(res))
+
+
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _logits(q, k, kv_bias, prefix_s, cdt, scale=None):
     """(B, H, Tq, Tk) scaled logits plus key bias, -inf where structurally
-    masked, in the compute dtype ``cdt``."""
+    masked, in the compute dtype ``cdt``; ``scale`` defaults to
+    1 / sqrt(Dh)."""
     tq, tk = q.shape[1], k.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(cdt), k.to(cdt)) * (1.0 / math.sqrt(q.shape[-1]))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(cdt), k.to(cdt)) * _scale(q, scale)
     if kv_bias is not None:
         logits = logits + kv_bias.to(cdt)[:, None, None, :]
     if prefix_s is not None:
@@ -66,15 +102,17 @@ def attention_forward_reference(
     prefix_s: Optional[int] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 2: (out like ``q``, row log-sum-exp
     (B, H, Tq) in f32, or f64 for f64 inputs).
 
     In ``_fwd_kernel``'s order: p = exp(logits - row max), dropout, p rounded
     to the input dtype, P.V summed in the compute dtype, then divided by the
-    row sum of p taken before dropout."""
+    row sum of p taken before dropout.  ``scale`` (default 1 / sqrt(Dh)) is
+    the logits' scale."""
     cdt = _compute_dtype(q)
-    logits = _logits(q, k, kv_bias, prefix_s, cdt)
+    logits = _logits(q, k, kv_bias, prefix_s, cdt, scale)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1)
@@ -94,6 +132,7 @@ def fused_prefix_attention_reference(q, k, v, kv_bias, prefix_s=None):
 
 def attention_backward_reference(
     q, k, v, kv_bias, out, dout, lse, prefix_s=None, dropout_rate=0.0, dropout_seed=None,
+    scale=None,
 ):
     """Plain PyTorch version of kernel 3: (dq, dk, dv) in the input dtypes.
 
@@ -101,8 +140,8 @@ def attention_backward_reference(
     input dtype before their products, as ``_bwd_kernel`` casts them."""
     cdt = _compute_dtype(q)
     lo = q.dtype
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(_logits(q, k, kv_bias, prefix_s, cdt) - lse.to(cdt)[..., None])
+    scale = _scale(q, scale)
+    p = torch.exp(_logits(q, k, kv_bias, prefix_s, cdt, scale) - lse.to(cdt)[..., None])
     dout_c = dout.to(cdt)
     dpd = torch.einsum("bqhd,bkhd->bhqk", dout_c, v.to(cdt))
     if dropout_rate > 0.0:
@@ -124,13 +163,13 @@ _FWD_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3
     + [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 7
-    + [ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_void_p]
+    + [ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_float, ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3
     + [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 7
-    + [ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_void_p]
+    + [ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_float, ctypes.c_void_p]
 )
 
 
@@ -160,8 +199,7 @@ def _check_cuda(q, k, v, kv_bias) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k, v must share float32 or bfloat16, "
                          f"got {q.dtype} {k.dtype} {v.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    kernel_head_dim(q.shape[-1])  # raises above 128
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -187,6 +225,12 @@ def _forward(q, k, v, kv_bias, prefix_s, rate, seed, with_lse):
         out, lse = attention_forward_reference(q, k, v, kv_bias, prefix_s, rate, seed)
         return out, lse if with_lse else None
     _check_cuda(q, k, v, kv_bias)
+    return run_padded(_launch_forward, (q, k, v), kv_bias, prefix_s, rate, seed, with_lse,
+                      n_sliced=1)
+
+
+def _launch_forward(q, k, v, kv_bias, prefix_s, rate, seed, with_lse, *, scale):
+    """Kernel 2 at an instantiated head dim: (out, lse or None)."""
     b, tq, h, dh = q.shape
     out = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -200,7 +244,7 @@ def _forward(q, k, v, kv_bias, prefix_s, rate, seed, with_lse):
         kv_bias.data_ptr() if kv_bias is not None else None,
         out.data_ptr(), lse.data_ptr() if lse is not None else None,
         _DTYPES[q.dtype], b, tq, k.shape[1], h, dh, -1 if prefix_s is None else prefix_s,
-        *_launch_args(rate, seed), torch.cuda.current_stream(q.device).cuda_stream,
+        *_launch_args(rate, seed), scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"prefix_attention kernel launch failed: cudaError {err}")
@@ -222,7 +266,6 @@ def fused_prefix_attention_backward(
         return attention_backward_reference(q, k, v, kv_bias, out, dout, lse, prefix_s,
                                             dropout_rate, dropout_seed)
     _check_cuda(q, k, v, kv_bias)
-    tk = k.shape[1]
     dout = dout.to(q.dtype).contiguous()
     out = out.to(q.dtype).contiguous()
     for name, x in (("out", out), ("dout", dout), ("lse", lse)):
@@ -230,6 +273,15 @@ def fused_prefix_attention_backward(
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous float32 tensor")
+    return run_padded(_launch_backward, (q, k, v, out, dout), kv_bias, lse, prefix_s,
+                      dropout_rate, dropout_seed, n_sliced=3)
+
+
+def _launch_backward(q, k, v, out, dout, kv_bias, lse, prefix_s, dropout_rate, dropout_seed, *,
+                     scale):
+    """Kernel 3 at an instantiated head dim: (dq, dk, dv)."""
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, h, dh), dtype=q.dtype, device=q.device)
@@ -245,7 +297,7 @@ def fused_prefix_attention_backward(
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPES[q.dtype], b, tq, tk, h, dh, -1 if prefix_s is None else prefix_s,
-        *_launch_args(dropout_rate, dropout_seed),
+        *_launch_args(dropout_rate, dropout_seed), scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
