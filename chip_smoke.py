@@ -38,7 +38,12 @@ ends the run with a non-zero exit code):
      the wrappers' zero padding), likewise;
   8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
-     decode logits held against a CPU copy of the model, and timings;
+     decode logits held against a CPU copy of the model, and timings; then
+     the 8 results' codes decoded to waveforms by the full-width EnCodec
+     (seeded random weights) in f32, held against a CPU copy of the codec,
+     and in bf16 with int16 output, held against f32 at the bar of
+     ``tests/test_encodec_parity.py``, with the codec's decode time and the
+     text-to-wav rate;
   9. train: full-width VALL-E training steps (AR + NAR, dropout 0.1,
      ScaledAdam + Eden, B=4, S=128, T=752, accumulation 2) with launch counts
      per step, a bit-equal repeated step, and one micro-batch's loss and
@@ -52,7 +57,19 @@ ends the run with a non-zero exit code):
  11. tts_inference: the same model's greedy mel loop on 8 requests for 200
      steps, with launch counts and the first steps' mels held against a CPU
      copy;
- 12. a ``kernels`` summary line, then the last line
+ 12. infer: the port's infer CLI (``valle_tpu_torch.bin.infer.main``) from
+     files it writes first (the full-width VALL-E as a ``.pt``, the random
+     codec as the converter's ``.npz``, a ``chars`` symbol table and a 3 s
+     prompt wav at 16 kHz), on two texts, through ``--attn-impl flash``,
+     under PyTorch's default TF32 flags: kernel 2's launches per text (12
+     prefill + 7 x 12 NAR; kernel 1 none); the first launch of each of the
+     run's kernel 2 shapes (batch 1, prefix and dense) against the plain
+     attention on the same inputs; the first text's prefill and 8 decode
+     steps, fed its own codes, against a CPU copy of the model, and its NAR
+     codes against the CPU copy's NAR passes; the prompt's codes from the
+     card's codec against a CPU copy's; and the two wavs, with the CLI's wall
+     time and the codec's encode time;
+ 13. a ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Kernel 2 and 4 cases carry their time over SDPA's and, in f32, the bound
@@ -961,7 +978,9 @@ def main_path(dev):
     assert torch.isfinite(gpu_logits).all()
     assert logit_err <= LOGIT_ATOL, f"GPU logits differ from the CPU copy by {logit_err}"
 
+    del cpu_model
     frames = int(lengths.sum())
+    codec = decode_codes(codes, frames, total_s)
     emit({"phase": "main_path", "model": "VALL-E default ModelConfig (d=1024, 16 heads, "
           "12+12 layers, Q=8), attn_impl=flash, kv_cache int8, ragged_decode",
           "batch": b, "text_lens": x_lens.tolist(), "prompt_lens": prompt_lens.tolist(),
@@ -971,8 +990,70 @@ def main_path(dev):
           "nar_ms_per_pass": nar_ms / (cfg.num_quantizers - 1),
           "frames_per_s": frames / total_s, "audio_s_per_s": frames / 75.0 / total_s,
           "peak_mem_gib": peak_gib, "logit_max_abs_err_vs_cpu": logit_err,
-          "logit_atol": LOGIT_ATOL})
+          "logit_atol": LOGIT_ATOL, "codec": codec})
     return launches
+
+
+CODEC_WAV_RTOL = 1e-4  # f32 wav on the card against the CPU copy, over max |wav|
+BF16_WAV_RTOL = 0.05  # bf16 decode against f32 (tests/test_encodec_parity.py)
+INT16_LSB = 2
+CODE_MATCH = 0.995  # prompt codes equal to the CPU copy's (test_encodec_parity.py)
+
+
+def decode_codes(codes, frames: int, generate_s: float) -> dict:
+    """Phase 8's codes (B, T, Q) to waveforms with the full-width codec of
+    seeded random weights: f32 against a CPU copy, int16 output and bf16
+    against f32.  Returns the codec's numbers for the phase line."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from valle_tpu_torch.codec import Encodec, random_codec_params
+
+    params = random_codec_params(seed=SEED)
+    codec, codec_bf16 = Encodec(params), Encodec(params, decode_dtype="bfloat16")
+    b, t, _ = codes.shape
+    f32 = cuda_time(lambda: codec.decode(codes), iters=1, windows=3, warmup=1)
+    bf16 = cuda_time(lambda: codec_bf16.decode(codes, out_int16=True), iters=1, windows=3,
+                     warmup=1)
+    wav = codec.decode(codes)
+    assert tuple(wav.shape) == (b, 1, t * codec.cfg.hop_length), tuple(wav.shape)
+    assert torch.isfinite(wav).all()
+    with FlopCounterMode(display=False) as counter:  # the convs; the LSTM by hand below
+        wav_cpu = Encodec(params, device="cpu").decode(codes.cpu())
+    hidden = codec.cfg.num_filters * 2 ** len(codec.cfg.upsampling_ratios)
+    lstm_flop = codec.cfg.num_lstm_layers * b * t * 2 * 4 * hidden * 2 * hidden
+    flop = counter.get_total_flops() + lstm_flop
+    scale = float(wav_cpu.abs().max())
+    cpu_err = float((wav.cpu() - wav_cpu).abs().max()) / scale
+    assert cpu_err <= CODEC_WAV_RTOL, f"card wav differs from the CPU copy by {cpu_err}"
+
+    def host_int16(w):
+        return torch.round(w.clamp(-1.0, 1.0) * 32767.0).to(torch.int32)
+
+    i16 = codec.decode(codes, out_int16=True)
+    assert i16.dtype == torch.int16
+    i16_lsb = int((i16.int() - host_int16(wav)).abs().max())
+    wav_bf16 = codec_bf16.decode(codes)
+    bf16_err = float((wav_bf16 - wav).abs().max()) / float(wav.abs().max())
+    bf16_i16 = codec_bf16.decode(codes, out_int16=True)
+    bf16_lsb = int((bf16_i16.int() - host_int16(wav_bf16)).abs().max())
+    assert bf16_err < BF16_WAV_RTOL, f"bf16 wav differs from f32 by {bf16_err}"
+    assert max(i16_lsb, bf16_lsb) <= INT16_LSB, (i16_lsb, bf16_lsb)
+    audio_s = b * t / codec.cfg.frame_rate
+    bound_ms, bound_by = bound(0, flop, "float32")
+    return {"decode_frames": [b, t], "f32_ms": f32["ms"], "f32_ms_spread": [f32["ms_min"],
+            f32["ms_max"]], "bf16_int16_ms": bf16["ms"],
+            "gflop_per_audio_s": flop / 1e9 / audio_s, "lstm_gflop_per_audio_s":
+            lstm_flop / 1e9 / audio_s, "f32_bound_ms": bound_ms, "bound_by": bound_by,
+            "f32_audio_s_per_s": audio_s / (f32["ms"] / 1e3),
+            "bf16_int16_audio_s_per_s": audio_s / (bf16["ms"] / 1e3),
+            "text_to_wav_audio_s_per_s": frames / 75.0 / (generate_s + f32["ms"] / 1e3),
+            "f32_top_kernels": top_device_kernels(lambda: codec.decode(codes), 4, iters=1),
+            "bf16_int16_top_kernels": top_device_kernels(
+                lambda: codec_bf16.decode(codes, out_int16=True), 4, iters=1),
+            "wav_max_err_vs_cpu": cpu_err, "wav_rtol": CODEC_WAV_RTOL,
+            "bf16_max_err_vs_f32": bf16_err, "bf16_rtol": BF16_WAV_RTOL,
+            "int16_lsb": [i16_lsb, bf16_lsb]}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1443,6 +1524,216 @@ def tts_inference_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+INFER_PROMPT_TEXT = "the prompt is read in this voice"
+INFER_TEXTS = ["to get up and running quickly just follow the steps below",
+               "a second request in the same voice"]
+INFER_MAX_NEW = 384
+PROMPT_S, PROMPT_SR = 3, 16000
+
+
+def _prompt_wav(path) -> None:
+    """3 s at 16 kHz, so that the CLI resamples it to 24 kHz: two tones and
+    seeded noise, as 16-bit PCM."""
+    from valle_tpu_torch.data import write_wav
+
+    rng = np.random.RandomState(SEED + 9)
+    t = np.arange(PROMPT_S * PROMPT_SR) / PROMPT_SR
+    wav = 0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.sin(2 * np.pi * 1250 * t)
+    write_wav(str(path), (wav + 0.05 * rng.randn(t.size)).astype(np.float32), PROMPT_SR)
+
+
+def _capture_infer_calls():
+    """Wrap the attention's call of kernel 2 and the CLI's call of
+    ``generate`` so that they keep what the CLI's run gave them: per kernel 2
+    shape (mode, Tq, Tk) the first launch's inputs and output, and per text
+    generate's inputs and codes.  The wrappers call the real functions once
+    each and leave the launch counts alone.  Returns (captured, calls,
+    restore)."""
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.ops import attention_impl
+
+    kernel, gen = attention_impl.fused_prefix_attention, infer.generate
+    captured, calls = {}, []
+
+    def capture(q, k, v, kv_bias, **kw):
+        out = kernel(q, k, v, kv_bias, **kw)
+        key = (kw.get("prefix_s"), q.shape[1], k.shape[1])
+        if key not in captured:
+            captured[key] = [None if t is None else t.clone() for t in (q, k, v, kv_bias, out)]
+        return out
+
+    def record(model, x, x_lens, prompt_codes, **kw):
+        out = gen(model, x, x_lens, prompt_codes, **kw)
+        calls.append({"x": x, "x_lens": x_lens, "prompts": prompt_codes,
+                      "nar_text": kw["nar_text"], "nar_text_lens": kw["nar_text_lens"], **out})
+        return out
+
+    def restore():
+        attention_impl.fused_prefix_attention, infer.generate = kernel, gen
+
+    attention_impl.fused_prefix_attention, infer.generate = capture, record
+    return captured, calls, restore
+
+
+def check_infer_against_cpu(dev, cfg, model_pt, captured, calls):
+    """What the CLI's run computed on the card against plain versions: every
+    kernel 2 shape of the run (batch 1, the prefill's prefix mode and the
+    NAR's dense mode at each text's lengths) against the plain attention on
+    the captured inputs; the first text's prefill and first decode steps,
+    fed its own codes, against a CPU copy of the model; and its NAR codes
+    against the CPU copy's NAR passes on the card's codebook-1 tokens."""
+    import torch
+
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.models import get_model
+    from valle_tpu_torch.ops.fused_attention import fused_prefix_attention_reference
+    from valle_tpu_torch.sample import _nar_refine
+
+    cases = []
+    for (prefix_s, tq, tk), (q, k, v, kb, out) in sorted(
+            captured.items(), key=lambda kv: (kv[0][0] is None, kv[0][1:])):
+        dtype = str(q.dtype).removeprefix("torch.")
+        want = fused_prefix_attention_reference(q, k, v, kb, prefix_s)
+        err = float((out.float() - want.float()).abs().max())
+        mode = "dense" if prefix_s is None else f"prefix s={prefix_s}"
+        assert torch.isfinite(out).all() and err <= TOL[dtype], \
+            f"kernel 2 in the infer run ({mode}, B={q.shape[0]}, Tq={tq}, Tk={tk}) is off: {err}"
+        cases.append({"mode": mode, "b": q.shape[0], "tq": tq, "tk": tk, "dtype": dtype,
+                      "max_abs_err": err, "tol": TOL[dtype]})
+    assert {c["mode"] == "dense" for c in cases} == {True, False}, cases
+
+    sd = infer.load_model_params(model_pt, cfg, "valle")
+    gpu_model, cpu_model = get_model(cfg, device=dev), get_model(cfg, device="cpu")
+    gpu_model.load_state_dict(sd)
+    cpu_model.load_state_dict(sd)
+    c = calls[0]
+    prompt_lens = torch.full((1,), c["prompts"].shape[1], dtype=torch.long)
+    forced = c["codes"][:, :8, 0]
+    gpu_logits = teacher_forced_logits(gpu_model, c["x"], c["x_lens"], c["prompts"],
+                                       prompt_lens.to(c["x"].device), forced, False)
+    cpu_logits = teacher_forced_logits(cpu_model, c["x"].cpu(), c["x_lens"].cpu(),
+                                       c["prompts"].cpu(), prompt_lens, forced.cpu(), False)
+    logit_err = float((gpu_logits - cpu_logits).abs().max())
+    assert torch.isfinite(gpu_logits).all()
+    assert logit_err <= LOGIT_ATOL, f"infer logits differ from the CPU copy by {logit_err}"
+    codes, lengths = c["codes"].cpu(), c["lengths"].cpu()
+    with torch.inference_mode():
+        cpu_codes = _nar_refine(cpu_model, c["nar_text"].cpu(), c["nar_text_lens"].cpu(),
+                                c["prompts"].cpu(), prompt_lens, codes[..., 0], lengths)
+    n = int(lengths[0])
+    nar_match = float((codes[0, :n, 1:] == cpu_codes[0, :n, 1:]).float().mean())
+    assert nar_match >= CODE_MATCH, f"NAR codes match the CPU copy's in {nar_match}"
+    return {"kernel2_cases": cases, "logit_max_abs_err_vs_cpu": logit_err,
+            "logit_atol": LOGIT_ATOL, "logit_steps": 1 + forced.shape[1],
+            "nar_code_match_vs_cpu": nar_match, "nar_code_match_min": CODE_MATCH}
+
+
+def infer_path(dev):
+    """The port's infer CLI, text and a 16 kHz prompt wav to two wavs through
+    the full-width VALL-E (a ``.pt`` of seeded random weights) and codec (the
+    converter's ``.npz`` layout), under PyTorch's default TF32 flags as a
+    user's process has them: kernel 2's launches per text, the run's kernel
+    2 launches, logits and NAR codes against plain versions, the prompt codes
+    against a CPU copy of the codec, and the wavs' lengths."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved_tf32 = [f.allow_tf32 for f in flags]
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            return _infer_path(dev, Path(tmp))
+    finally:
+        for f, allow in zip(flags, saved_tf32):
+            f.allow_tf32 = allow
+
+
+def _infer_path(dev, tmp):
+    import torch
+    from scipy.io import wavfile
+
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.codec import load_codec, random_codec_params, save_codec_npz
+    from valle_tpu_torch.data import convert_audio, read_wav
+    from valle_tpu_torch.models import ModelConfig, get_model
+
+    cfg = ModelConfig()  # the default VALL-E, full width
+    torch.manual_seed(SEED)
+    torch.save({"model": get_model(cfg).state_dict()}, tmp / "model.pt")
+    save_codec_npz(tmp / "codec.npz", random_codec_params(seed=SEED))
+    _prompt_wav(tmp / "prompt.wav")
+    chars = sorted(set("".join(INFER_TEXTS) + INFER_PROMPT_TEXT) - {" "}) + ["_"]
+    (tmp / "tokens.k2symbols").write_text(
+        "".join(f"{c} {i + 1}\n" for i, c in enumerate(chars)))
+    flags = ["--text-extractor", "chars", "--text-prompts", INFER_PROMPT_TEXT,
+             "--text", "|".join(INFER_TEXTS), "--attn-impl", "flash", "--kv-cache-dtype",
+             "int8", "--top-k", "1", "--max-new-tokens", str(INFER_MAX_NEW), "--seed",
+             str(SEED)]
+    argv = ["--checkpoint", str(tmp / "model.pt"), "--codec-checkpoint",
+            str(tmp / "codec.npz"), "--text-tokens", str(tmp / "tokens.k2symbols"),
+            "--audio-prompts", str(tmp / "prompt.wav"), "--output-dir",
+            str(tmp / "out")] + flags
+    captured, calls, restore = _capture_infer_calls()
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        infer.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        restore()
+
+    per_text = cfg.num_layers + (cfg.num_quantizers - 1) * cfg.nar_num_layers
+    want = {"ragged_decode": 0, "prefix_attention": per_text * len(INFER_TEXTS),
+            "prefix_attention_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0}
+    assert launches == want, f"launch counts {launches}, expected {want}"
+    assert len(calls) == len(INFER_TEXTS), len(calls)
+    frames = []
+    for n, call in enumerate(calls):
+        codes = np.load(tmp / "out" / f"{n}_codes.npy")
+        sr, wav = wavfile.read(tmp / "out" / f"{n}.wav")
+        assert codes.ndim == 2 and codes.shape[1] == cfg.num_quantizers, codes.shape
+        assert 0 <= codes.min() and codes.max() < cfg.num_audio_tokens
+        assert (codes == call["codes"][0, :codes.shape[0]].cpu().numpy()).all()
+        assert sr == 24000 and wav.dtype == np.int16 and wav.ndim == 1
+        assert wav.shape[0] == 320 * codes.shape[0], (wav.shape, codes.shape)
+        assert np.isfinite(wav.astype(np.float32)).all()
+        frames.append(int(codes.shape[0]))
+
+    args = infer.get_parser().parse_args(argv)
+    checks = check_infer_against_cpu(dev, infer.config_from_args(args), str(tmp / "model.pt"),
+                                     captured, calls)
+    # the prompt's codes from the card's codec against a CPU copy's
+    card = load_codec(tmp / "codec.npz")
+    prompt = infer.encode_prompt_wavs(args, card, cfg.num_quantizers)
+    prompt_cpu = infer.encode_prompt_wavs(args, load_codec(tmp / "codec.npz", device="cpu"),
+                                          cfg.num_quantizers)
+    assert prompt.shape == prompt_cpu.shape == (1, PROMPT_S * 75, cfg.num_quantizers)
+    assert (prompt == calls[0]["prompts"].cpu().numpy()).all()
+    match = float((prompt == prompt_cpu).mean())
+    assert match >= CODE_MATCH, f"prompt codes match the CPU copy's in {match}"
+    wav, sr = read_wav(str(tmp / "prompt.wav"))
+    wav = torch.from_numpy(convert_audio(wav, sr, 24000, 1)[None]).to(dev)
+    encode = cuda_time(lambda: card.encode(wav), iters=1, windows=3, warmup=1)
+    emit({"phase": "infer", "cli": "python -m valle_tpu_torch.bin.infer", "flags": flags,
+          "model": "VALL-E default ModelConfig, seeded random weights (.pt)",
+          "codec": "EncodecConfig(), seeded random weights (.npz)", "texts": INFER_TEXTS,
+          "tf32_flags": "PyTorch defaults (matmul off, cuDNN on; the codec turns it off)",
+          "launches": launches, "frames": frames, "cli_wall_s": wall_s,
+          "audio_s_per_s": sum(frames) / 75.0 / wall_s,
+          "encode_ms_per_prompt_s": encode["ms"] / PROMPT_S,
+          "encode_ms_spread": [encode["ms_min"], encode["ms_max"]],
+          "prompt_code_match_vs_cpu": match, "prompt_code_match_min": CODE_MATCH, **checks})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1493,7 +1784,8 @@ def main() -> int:
     k4 = check_flash_bias(dev, fwd, bwd)
     check_head_dims(dev)
     paths = {"generate": main_path(dev), "train_step": train_path(dev, k2d, k3),
-             "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}
+             "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev),
+             "infer": infer_path(dev)}
 
     def entry(name, source, replaces, res, path):
         by_path = {p: counts[name] for p, counts in paths.items()}

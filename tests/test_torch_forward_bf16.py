@@ -20,6 +20,7 @@ package's own tests do.  The CUDA kernels are held to these plain versions
 on the card by chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,10 +31,13 @@ from valle_tpu.ops.flash_attention import flash_attention_biased as jax_flash
 from valle_tpu.ops.fused_attention import fused_prefix_attention as jax_fused
 from valle_tpu_torch.ops.flash_attention import flash_attention_biased
 from valle_tpu_torch.ops.fused_attention import fused_prefix_attention
+from tests.test_torch_stall_guard import stall_guard
 
 B, T, H, DH = 2, 200, 2, 64
 PREFIX_S = 48
 MIN_BIT_EQUAL = 0.99
+
+_stall_guard = stall_guard(60)  # about 10x the file's time in the parallel tier-1 run
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -96,9 +100,9 @@ def test_flash_attention_bf16_rounds_p_like_jax():
     col = np.arange(T)
     masked = (col[None, :] > col[:, None])[None] | (col[None, None, :] >= lens[:, None, None])
     bias = np.where(masked, -1e9, 0.0).astype(np.float32)[:, None]  # (B, 1, T, T)
-    with pltpu.force_tpu_interpret_mode():
-        want = jax_flash(*(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
-                         jnp.asarray(bias))
+    with pltpu.force_tpu_interpret_mode():  # one jitted call: see _stall_guard
+        want = jax.jit(jax_flash)(*(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+                                  jnp.asarray(bias))
     got = flash_attention_biased(_bf16(q), _bf16(k), _bf16(v), torch.from_numpy(bias))
     assert got.dtype == torch.bfloat16
     _assert_matches_jax(got.float().numpy(), np.asarray(want.astype(jnp.float32)),

@@ -13,16 +13,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
-import sys
+import importlib, pkgutil, sys
 import valle_tpu_torch
-import valle_tpu_torch.models, valle_tpu_torch.models.valle, valle_tpu_torch.sample
-import valle_tpu_torch.nn.layers, valle_tpu_torch.ops.attention_impl
-import valle_tpu_torch.ops.ragged_decode, valle_tpu_torch.ops.fused_attention
-import valle_tpu_torch.ops.cuda_build, valle_tpu_torch.utils.bridge
-import valle_tpu_torch.ops.philox, valle_tpu_torch.nn.dropout
-import valle_tpu_torch.optim, valle_tpu_torch.optim.scaled_adam, valle_tpu_torch.optim.schedulers
-import valle_tpu_torch.train, valle_tpu_torch.train.state, valle_tpu_torch.train.step
-import valle_tpu_torch.ops.flash_attention, valle_tpu_torch.models.transformer_tts
+for mod in pkgutil.walk_packages(valle_tpu_torch.__path__, "valle_tpu_torch."):
+    importlib.import_module(mod.name)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "valle_tpu") or m.startswith(("jax.", "flax.", "valle_tpu.")))
 print(",".join(bad))
@@ -35,9 +29,16 @@ def _run(code_or_args, cwd=ROOT, timeout=120):
 
 
 def test_port_imports_no_jax_and_no_valle_tpu():
+    """Every module of the port, found by walking the package (codec, data
+    and bin included, and whatever later slices add)."""
     res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", f"port pulled in: {res.stdout.strip()}"
+    found = _run("import pkgutil, valle_tpu_torch; print(' '.join(m.name for m in "
+                 "pkgutil.walk_packages(valle_tpu_torch.__path__, 'valle_tpu_torch.')))")
+    names = set(found.stdout.split())
+    assert {"valle_tpu_torch.codec.encodec_model", "valle_tpu_torch.data.text_tokenizer",
+            "valle_tpu_torch.bin.infer", "valle_tpu_torch.sample"} <= names, sorted(names)
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -81,6 +82,26 @@ def test_entry_points_raise_without_cuda_unless_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         get_model(tts)
     assert next(get_model(tts, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_codec_and_infer_cli_raise_without_cuda_unless_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.codec import EncodecConfig, load_codec, random_codec_params
+    from valle_tpu_torch.codec import save_codec_npz
+
+    small = EncodecConfig(num_filters=4, hidden_size=16, codebook_dim=16)
+    save_codec_npz(tmp_path / "codec.npz", random_codec_params(small))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_codec(tmp_path / "codec.npz")
+    assert load_codec(tmp_path / "codec.npz", device="cpu").device.type == "cpu"
+    argv = ["--checkpoint", str(tmp_path / "model.npz"), "--output-dir", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer.main(argv + ["--device", "cuda"])
+    assert not (tmp_path / "out").exists()  # it raised before it wrote anything
 
 
 def test_kernel_wrappers_use_plain_versions_on_cpu():

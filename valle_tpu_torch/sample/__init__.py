@@ -11,8 +11,9 @@ As in the JAX package, prompts are right-aligned in a fixed prompt region so
 every sequence's next-token column is the same across the batch, and the KV
 cache grows in 128-step segments.  JAX runs the loop as a ``lax.while_loop``;
 here it is a Python loop over steps (a CUDA graph of the step is later work),
-and a ``torch.Generator`` takes the place of the JAX key.  The continual task
-(``continual``) is not ported yet.
+and a ``torch.Generator`` takes the place of the JAX key.  ``continual``
+keeps codebook 1 of given codes and regenerates the others with the NAR
+passes.
 """
 
 from __future__ import annotations
@@ -279,3 +280,74 @@ def _nar_refine(model, nar_text, nar_text_lens, prompt_codes, prompt_lens, token
                 y_emb[:, :p] += prompt_rest(i)
             y_emb[:, p:] += model.nar_embed_rest(i, samples) * gen_valid[..., None]
     return torch.stack(codes, -1)
+
+
+@torch.inference_mode()
+def continual(model, x: torch.Tensor, x_lens: torch.Tensor, y: torch.Tensor,
+              y_lens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Continual task: keep codebook 1 of the codes ``y`` (B, T, Q), take
+    each row's first ``min(y_lens // 2, 225)`` frames (3 s) as its acoustic
+    prompt and regenerate codebooks 2..Q of the rest with the NAR passes
+    (greedy).
+
+    The prefix is taken per row from its true length, not from the padded
+    width.  Each returned row is shifted left so that its regenerated
+    region starts at index 0: ``lengths = y_lens - prefix``.
+
+    Returns {"codes": (B, T, Q) int64, "lengths": (B,) int64}.
+    """
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    x, x_lens, y = (torch.as_tensor(a, device=dev) for a in (x, x_lens, y))
+    b, t, q = y.shape
+    y = y.long()
+    if y_lens is None:
+        y_lens = torch.full((b,), t, dtype=torch.long, device=dev)
+    y_lens = torch.as_tensor(y_lens, device=dev).long()
+    plen = torch.clamp(y_lens // 2, max=3 * 75)  # (B,)
+
+    s = x.shape[1]
+    x_mask = mask_ops.make_pad_mask(x_lens, s)
+    x_emb = model.nar_text_encode(x)
+    y0 = y[..., 0]
+    y_emb = model.nar_embed0(y0)
+    y_mask = mask_ops.make_pad_mask(y_lens, t)
+    nar_mem_bias = mask_ops.mask_to_bias(x_mask[:, None, None, :])
+    if model.variant == "vallf":
+        bias = mask_ops.mask_to_bias(y_mask[:, None, None, :])
+        gen_start = 0
+    else:
+        key_pad = torch.cat([x_mask, y_mask], 1)
+        bias = mask_ops.mask_to_bias(key_pad[:, None, None, :])
+        gen_start = s
+
+    steps = torch.arange(t, device=dev)[None, :]
+    positions = steps.expand(b, t)
+    prefix_sel = (steps < plen[:, None])[..., None]
+
+    def add_prompt(i):
+        return model.nar_embed_rest(i, y[:, :, i + 1]) * prefix_sel
+
+    if cfg.prefix_mode != 0:
+        for j in range(q - 1):
+            y_emb = y_emb + add_prompt(j)
+
+    lengths = torch.clamp(y_lens - plen, min=0)
+    # per-row left shift: output index j <- input position plen_b + j
+    shift_idx = torch.clamp(steps + plen[:, None], max=t - 1)
+    out_valid = steps < lengths[:, None]
+
+    def out_row(vals):  # (B, t) predictions at audio positions -> shifted
+        return torch.where(out_valid, vals.gather(1, shift_idx), torch.zeros_like(vals))
+
+    codes = [out_row(y0)]
+    gen_sel = (steps >= plen[:, None])[..., None]
+    for i in range(q - 1):
+        samples = model.nar_forward_stage(i, y_emb, positions, x_emb, bias, gen_start,
+                                          nar_mem_bias)
+        codes.append(out_row(samples))
+        if i < q - 2:
+            if cfg.prefix_mode == 0:
+                y_emb = y_emb + add_prompt(i)
+            y_emb = y_emb + model.nar_embed_rest(i, samples) * gen_sel
+    return {"codes": torch.stack(codes, -1), "lengths": lengths}

@@ -2,8 +2,9 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,30 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts and lists -> ``{"a/b/0/c": array}``, the key layout of the
+    JAX package's ``.npz`` files (lists under digit keys)."""
+    out = {}
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict:
+    """``{"a/b/c": array}`` -> nested dicts."""
+    out: Dict = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return out
