@@ -69,8 +69,34 @@ ends the run with a non-zero exit code):
      codes against the CPU copy's NAR passes; the prompt's codes from the
      card's codec against a CPU copy's; and the two wavs, with the CLI's wall
      time and the codec's encode time;
- 13. a ``kernels`` summary line, then the last line
-     ``{"ok": true, "device": {...}}``.
+ 13. serve: the port's serve CLI (``valle_tpu_torch.bin.serve.main``) on 24
+     requests (16 with the prompt wav and its text, 8 promptless; texts of
+     20-160 characters in buckets 256 / 512) from the same files, in the
+     serving defaults (bf16, int8 KV cache), ``--attn-impl flash``, batch
+     16, greedy, once per weight mode (``--quantize-weights none / w8 /
+     w8a8``): wall time, audio-s/s and launches per run (kernel 2 on every
+     prefill and NAR pass, kernel 1 none: the CLI's decode reads are plain,
+     as JAX's); the first kernel 2 launch of each shape against the plain
+     attention with a bit-equal rerun; every int8 product shape of the w8a8
+     run (decode, prefill, NAR, the 1,025-output head) bit-equal to its plain
+     integer sums; JAX's one-layer bars (0.01 W8, 0.02 W8A8) for each
+     quantized weight of the first AR layer and the head on the card; the
+     w8 / w8a8 first full batch's prefill logits against the unquantized
+     run's (0.03 / 0.035: the JAX package's own whole-model readings exceed
+     the one-layer bars, ``scripts/quant_logit_error.py``); and per mode the
+     device time by kernel family of a profiled prefill, 16 decode steps and
+     7 NAR passes of that batch;
+ 14. continuous: ``serve_continuous`` (32 requests, batch 8, chunk 128,
+     admission width 8, ``ragged_decode``) with the same model in bf16 with
+     an int8 KV cache, greedy, EOS forbidden: launches (kernel 1 on every
+     decode step), AR slot occupancy and audio-s/s, beside ``generate`` on
+     the same requests in batches of 8; kernel 1 at a decode step with
+     mixed live lengths and finished slots against its plain version, with
+     a bit-equal rerun; every kernel 2 shape likewise; lengths equal to
+     generate's, codebook-1 codes equal up to the first near-tie (a top-two
+     gap of at most 4 bf16 ulps in generate's logits);
+ 15. a ``kernels`` summary line (each kernel's launches on every path), then
+     the last line ``{"ok": true, "device": {...}}``.
 
 Kernel 2 and 4 cases carry their time over SDPA's and, in f32, the bound
 with the products as 3xTF32 on the tensor cores; backward cases also the
@@ -88,7 +114,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -103,7 +131,13 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOGIT_ATOL = 1e-3
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1096,9 +1130,11 @@ def _train_batch(cfg, rng, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
 
-def profile_breakdown(fn) -> dict:
+def profile_breakdown(fn, extra_families=()) -> dict:
     """One call of ``fn()`` under ``torch.profiler``: wall seconds, device
-    busy seconds, the device time by kernel family and the top kernels."""
+    busy seconds, the device time by kernel family and the top kernels.
+    ``extra_families``: (name, name substrings) pairs matched before the
+    standard families."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1111,11 +1147,14 @@ def profile_breakdown(fn) -> dict:
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()  # device kernels, not annotated spans
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    families = {"kernel2 (prefix_attention)": ("prefix_attention_kernel",),
-                "kernel3 (prefix_attention_bwd)": ("attn_bwd_",),
-                "kernel4 (flash_attention)": ("flash_bias_fwd",),
-                "kernel4 (flash_attention_bwd)": ("flash_bias_bwd_",),
-                "matmul (cuBLAS / CUTLASS)": ("gemm", "Gemm", "cutlass", "xmma", "sm90_")}
+    families = dict(extra_families)
+    families |= {"kernel1 (ragged_decode)": tuple(RAGGED_NAMES),
+                 "kernel2 (prefix_attention)": ("prefix_attention_kernel",),
+                 "kernel3 (prefix_attention_bwd)": ("attn_bwd_",),
+                 "kernel4 (flash_attention)": ("flash_bias_fwd",),
+                 "kernel4 (flash_attention_bwd)": ("flash_bias_bwd_",),
+                 "matmul (cuBLAS / CUTLASS)": ("gemm", "Gemm", "cutlass", "xmma", "sm90_",
+                                               "nvjet")}
     by_family = {name: 0.0 for name in families}
     by_family["other"] = 0.0
     for e in kernels:
@@ -1544,25 +1583,75 @@ def _prompt_wav(path) -> None:
     write_wav(str(path), (wav + 0.05 * rng.randn(t.size)).astype(np.float32), PROMPT_SR)
 
 
+def capture_first_calls(module, name: str, key_of):
+    """Wrap ``module.<name>`` so that it keeps, per ``key_of(args, kwargs)``,
+    the first call's arguments and output (tensors cloned).  The wrapper
+    calls the real function once per call and leaves the launch counts
+    alone.  Returns (captured: key -> (args, kwargs, out), restore)."""
+    import torch
+
+    fn = getattr(module, name)
+    captured = {}
+    keep = lambda t: t.clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        key = key_of(args, kwargs)
+        if key not in captured:
+            captured[key] = ([keep(a) for a in args], {k: keep(v) for k, v in kwargs.items()},
+                             keep(out))
+        return out
+
+    # the wrapper shares the function's attributes: a launch counted through
+    # the module's name while it is patched lands on the function
+    wrapper.__dict__ = fn.__dict__
+    setattr(module, name, wrapper)
+    return captured, lambda: setattr(module, name, fn)
+
+
+def capture_kernel2():
+    """The first kernel 2 launch of each (mode, B, Tq, Tk) of a run."""
+    from valle_tpu_torch.ops import attention_impl
+
+    return capture_first_calls(
+        attention_impl, "fused_prefix_attention",
+        lambda a, kw: (kw.get("prefix_s"), a[0].shape[0], a[0].shape[1], a[1].shape[1]))
+
+
+def check_kernel2_captures(captured, run: str) -> list:
+    """Each captured kernel 2 launch against the plain attention on its
+    inputs, and a rerun of the kernel on them, which must be bit-equal."""
+    import torch
+
+    from valle_tpu_torch.ops.fused_attention import (
+        fused_prefix_attention, fused_prefix_attention_reference)
+
+    cases = []
+    for (prefix_s, b, tq, tk), (args, kw, out) in sorted(
+            captured.items(), key=lambda kv: (kv[0][0] is None, kv[0][1:])):
+        q = args[0]
+        dtype = str(q.dtype).removeprefix("torch.")
+        want = fused_prefix_attention_reference(*args[:4], prefix_s)
+        err = float((out.float() - want.float()).abs().max())
+        mode = "dense" if prefix_s is None else f"prefix s={prefix_s}"
+        assert torch.isfinite(out).all() and err <= TOL[dtype], \
+            f"kernel 2 in the {run} run ({mode}, B={b}, Tq={tq}, Tk={tk}) is off: {err}"
+        rerun = torch.equal(fused_prefix_attention(*args, **kw), out)
+        assert rerun, f"kernel 2 in the {run} run ({mode}, B={b}, Tq={tq}): rerun differs"
+        cases.append({"mode": mode, "b": b, "tq": tq, "tk": tk, "dtype": dtype,
+                      "max_abs_err": err, "tol": TOL[dtype], "rerun_bit_equal": rerun})
+    return cases
+
+
 def _capture_infer_calls():
     """Wrap the attention's call of kernel 2 and the CLI's call of
     ``generate`` so that they keep what the CLI's run gave them: per kernel 2
-    shape (mode, Tq, Tk) the first launch's inputs and output, and per text
-    generate's inputs and codes.  The wrappers call the real functions once
-    each and leave the launch counts alone.  Returns (captured, calls,
-    restore)."""
+    shape the first launch's inputs and output, and per text generate's
+    inputs and codes.  Returns (captured, calls, restore)."""
     from valle_tpu_torch.bin import infer
-    from valle_tpu_torch.ops import attention_impl
 
-    kernel, gen = attention_impl.fused_prefix_attention, infer.generate
-    captured, calls = {}, []
-
-    def capture(q, k, v, kv_bias, **kw):
-        out = kernel(q, k, v, kv_bias, **kw)
-        key = (kw.get("prefix_s"), q.shape[1], k.shape[1])
-        if key not in captured:
-            captured[key] = [None if t is None else t.clone() for t in (q, k, v, kv_bias, out)]
-        return out
+    captured, restore_kernel = capture_kernel2()
+    gen, calls = infer.generate, []
 
     def record(model, x, x_lens, prompt_codes, **kw):
         out = gen(model, x, x_lens, prompt_codes, **kw)
@@ -1571,9 +1660,10 @@ def _capture_infer_calls():
         return out
 
     def restore():
-        attention_impl.fused_prefix_attention, infer.generate = kernel, gen
+        restore_kernel()
+        infer.generate = gen
 
-    attention_impl.fused_prefix_attention, infer.generate = capture, record
+    infer.generate = record
     return captured, calls, restore
 
 
@@ -1588,26 +1678,14 @@ def check_infer_against_cpu(dev, cfg, model_pt, captured, calls):
 
     from valle_tpu_torch.bin import infer
     from valle_tpu_torch.models import get_model
-    from valle_tpu_torch.ops.fused_attention import fused_prefix_attention_reference
     from valle_tpu_torch.sample import _nar_refine
 
-    cases = []
-    for (prefix_s, tq, tk), (q, k, v, kb, out) in sorted(
-            captured.items(), key=lambda kv: (kv[0][0] is None, kv[0][1:])):
-        dtype = str(q.dtype).removeprefix("torch.")
-        want = fused_prefix_attention_reference(q, k, v, kb, prefix_s)
-        err = float((out.float() - want.float()).abs().max())
-        mode = "dense" if prefix_s is None else f"prefix s={prefix_s}"
-        assert torch.isfinite(out).all() and err <= TOL[dtype], \
-            f"kernel 2 in the infer run ({mode}, B={q.shape[0]}, Tq={tq}, Tk={tk}) is off: {err}"
-        cases.append({"mode": mode, "b": q.shape[0], "tq": tq, "tk": tk, "dtype": dtype,
-                      "max_abs_err": err, "tol": TOL[dtype]})
+    cases = check_kernel2_captures(captured, "infer")
     assert {c["mode"] == "dense" for c in cases} == {True, False}, cases
 
     sd = infer.load_model_params(model_pt, cfg, "valle")
-    gpu_model, cpu_model = get_model(cfg, device=dev), get_model(cfg, device="cpu")
-    gpu_model.load_state_dict(sd)
-    cpu_model.load_state_dict(sd)
+    gpu_model = get_model(cfg, device=dev, state_dict=sd)
+    cpu_model = get_model(cfg, device="cpu", state_dict=sd)
     c = calls[0]
     prompt_lens = torch.full((1,), c["prompts"].shape[1], dtype=torch.long)
     forced = c["codes"][:, :8, 0]
@@ -1630,46 +1708,60 @@ def check_infer_against_cpu(dev, cfg, model_pt, captured, calls):
             "nar_code_match_vs_cpu": nar_match, "nar_code_match_min": CODE_MATCH}
 
 
-def infer_path(dev):
+SYMBOLS = "abcdefghijklmnopqrstuvwxyz"  # the chars frontend's symbols ("_" is a space)
+
+
+def write_serving_files(tmp) -> dict:
+    """The files a user hands the CLIs, written once for the infer, serve and
+    continuous phases: the full-width VALL-E (seeded random weights, f32) as
+    a ``.pt``, the random codec as the converter's ``.npz``, a 3 s prompt wav
+    at 16 kHz and a ``chars`` symbol table."""
+    import torch
+
+    from valle_tpu_torch.codec import random_codec_params, save_codec_npz
+    from valle_tpu_torch.models import ModelConfig, get_model
+
+    torch.manual_seed(SEED)
+    torch.save({"model": get_model(ModelConfig()).state_dict()}, tmp / "model.pt")
+    save_codec_npz(tmp / "codec.npz", random_codec_params(seed=SEED))
+    _prompt_wav(tmp / "prompt.wav")
+    (tmp / "tokens.k2symbols").write_text(
+        "".join(f"{c} {i + 1}\n" for i, c in enumerate(list(SYMBOLS) + ["_"])))
+    torch.cuda.empty_cache()
+    return {name: tmp / name for name in ("model.pt", "codec.npz", "prompt.wav",
+                                          "tokens.k2symbols")} | {"dir": tmp}
+
+
+def infer_path(dev, files):
     """The port's infer CLI, text and a 16 kHz prompt wav to two wavs through
     the full-width VALL-E (a ``.pt`` of seeded random weights) and codec (the
     converter's ``.npz`` layout), under PyTorch's default TF32 flags as a
     user's process has them: kernel 2's launches per text, the run's kernel
     2 launches, logits and NAR codes against plain versions, the prompt codes
     against a CPU copy of the codec, and the wavs' lengths."""
-    import tempfile
-    from pathlib import Path
-
     import torch
 
     flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
     saved_tf32 = [f.allow_tf32 for f in flags]
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            return _infer_path(dev, Path(tmp))
+        return _infer_path(dev, files)
     finally:
         for f, allow in zip(flags, saved_tf32):
             f.allow_tf32 = allow
 
 
-def _infer_path(dev, tmp):
+def _infer_path(dev, files):
     import torch
     from scipy.io import wavfile
 
     from valle_tpu_torch.bin import infer
-    from valle_tpu_torch.codec import load_codec, random_codec_params, save_codec_npz
+    from valle_tpu_torch.codec import load_codec
     from valle_tpu_torch.data import convert_audio, read_wav
-    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.models import ModelConfig
 
     cfg = ModelConfig()  # the default VALL-E, full width
-    torch.manual_seed(SEED)
-    torch.save({"model": get_model(cfg).state_dict()}, tmp / "model.pt")
-    save_codec_npz(tmp / "codec.npz", random_codec_params(seed=SEED))
-    _prompt_wav(tmp / "prompt.wav")
-    chars = sorted(set("".join(INFER_TEXTS) + INFER_PROMPT_TEXT) - {" "}) + ["_"]
-    (tmp / "tokens.k2symbols").write_text(
-        "".join(f"{c} {i + 1}\n" for i, c in enumerate(chars)))
+    tmp = files["dir"]
     flags = ["--text-extractor", "chars", "--text-prompts", INFER_PROMPT_TEXT,
              "--text", "|".join(INFER_TEXTS), "--attn-impl", "flash", "--kv-cache-dtype",
              "int8", "--top-k", "1", "--max-new-tokens", str(INFER_MAX_NEW), "--seed",
@@ -1734,6 +1826,426 @@ def _infer_path(dev, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+SERVE_MODES = ("none", "w8", "w8a8")
+SERVE_BATCH = 16
+SERVE_BUCKETS = (256, 512)
+SERVE_WORDS = ("the", "voice", "reads", "a", "short", "line", "of", "text", "in", "quiet",
+               "rooms", "where", "light", "falls", "over", "old", "maps", "and", "every",
+               "request", "waits", "its", "turn")
+# JAX's bars for one Dense layer against its float output (tests/test_quantize.py)
+QUANT_LAYER_RTOL = {"w8": 0.01, "w8a8": 0.02}
+QUANT_LAYERS = ("ar_decoder.layers.0.self_attn.in_proj_weight",
+                "ar_decoder.layers.0.self_attn.out_proj.weight",
+                "ar_decoder.layers.0.linear1.weight", "ar_decoder.layers.0.linear2.weight",
+                "ar_predict_layer.weight")
+# the whole model's prefill logits against the unquantized run's: the JAX
+# package's own full-width readings exceed the one-layer bars (W8 0.0217,
+# W8A8 0.0211 in bf16; 0.0147 / 0.0206 in f32: scripts/quant_logit_error.py),
+# so these bars are about 1.5x those
+QUANT_LOGIT_RTOL = {"w8": 0.03, "w8a8": 0.035}
+WINDOW_STEPS = 16  # decode steps in the profiled window of each weight mode
+
+
+def _text_of(rng, n: int) -> str:
+    """A text of exactly ``n`` characters of the symbol table's words."""
+    words = []
+    while len(" ".join(words)) < n:
+        words.append(SERVE_WORDS[rng.randint(len(SERVE_WORDS))])
+    return " ".join(words)[:n].strip().ljust(n, "a")
+
+
+def _serve_requests(path, wav) -> list:
+    """24 requests: 16 with the prompt wav and its text, 8 promptless; texts
+    of 20-160 characters, the promptless ones of 20-30 in the 256 bucket."""
+    rng = np.random.RandomState(SEED + 11)
+    rows = []
+    for i in range(24):
+        prompted, short = i < 16, 16 <= i < 20
+        text = _text_of(rng, rng.randint(20, 31) if short else rng.randint(20, 161))
+        rows.append(f"r{i:02d}\t{text}\t{wav if prompted else '-'}\t"
+                    f"{INFER_PROMPT_TEXT if prompted else '-'}")
+    path.write_text("\n".join(rows) + "\n")
+    return rows
+
+
+INT8_FAMILY = ("int8 products (torch._int_mm)", ("gemm_s8", "s8s8", "imma", "int8", "Int8"))
+
+
+def check_quantized_layers(sd, dev) -> dict:
+    """JAX's one-layer bars on the card: each quantized weight of the first
+    AR layer and the head (the full-width weights of the ``.pt``), W8 and
+    W8A8 through ``qdense.linear`` in f32 on 64 rows of N(0, 1)
+    activations, against the float product."""
+    import torch
+
+    from valle_tpu_torch.nn import qdense
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name in QUANT_LAYERS:
+        w = sd[name].to(dev).float()
+        x = torch.randn(64, w.shape[1], generator=g, device=dev)
+        exact = x @ w.t()
+        w8, scale = qdense._quantize_kernel(w)
+        for mode, bar in QUANT_LAYER_RTOL.items():
+            approx = qdense.linear(x, w8, None, scale, act_quant=mode == "w8a8")
+            rel = float((approx - exact).abs().max() / exact.abs().max())
+            assert rel < bar, f"{name} {mode}: {rel} off the float layer (bar {bar})"
+            out[f"{name} {mode}"] = rel
+    return out
+
+
+def quant_product_ms(sd, dev, rows: int) -> dict:
+    """Device ms per call (CUDA events) of each quantized weight's product at
+    ``rows`` rows of bf16 activations: the bf16 product, W8's dequantised
+    copy alone and its whole product, the int8 product (``torch._int_mm``)
+    alone and W8A8's whole product; and their sums over the weights of one
+    decode step (12 layers x 4 products + the head) or one NAR pass
+    (12 x 4)."""
+    import torch
+    from torch.nn import functional as F
+
+    from valle_tpu_torch.nn import qdense
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    per = {}
+    for name in QUANT_LAYERS:
+        w = sd[name].to(dev)
+        wb, (w8, scale) = w.bfloat16(), qdense._quantize_kernel(w)
+        x = torch.randn(rows, w.shape[1], generator=g, device=dev).bfloat16()
+        x8 = torch.randint(-127, 128, (rows, w.shape[1]), generator=g, device=dev,
+                           dtype=torch.int8)
+        fns = {"bf16": lambda: F.linear(x, wb), "w8_dequant_copy": lambda: w8.to(x.dtype),
+               "w8": lambda: qdense.linear(x, w8, None, scale),
+               "int8_product": lambda: qdense.int8_matmul(x8, w8),
+               "w8a8": lambda: qdense.linear(x, w8, None, scale, act_quant=True)}
+        per[name.split(".")[-2]] = {k: cuda_time(fn, iters=20, windows=3)["ms"]
+                                    for k, fn in fns.items()}
+    layer = [per[k] for k in ("self_attn", "out_proj", "linear1", "linear2")]
+    sums = {k: 12 * sum(p[k] for p in layer) for k in layer[0]}
+    head = per["ar_predict_layer"]
+    return {"rows": rows, "per_weight": per, "per_nar_pass": sums,
+            "per_decode_step": {k: v + head[k] for k, v in sums.items()}}
+
+
+def _window_breakdown(model, batch) -> dict:
+    """Device time by kernel family (``torch.profiler``) of a prefill, 16
+    decode steps and the 7 NAR passes over the full bucket, on the first serve
+    batch's inputs: where a weight mode's time goes."""
+    import torch
+
+    from valle_tpu_torch.sample import _decode_bias, _make_cache, _nar_refine, _prefill_kv
+
+    x, x_lens, prompts, plens, bucket = batch
+    b = x.shape[0]
+    families = (INT8_FAMILY,)
+
+    def prefill():
+        with torch.inference_mode():
+            return _prefill_kv(model, x, x_lens, prompts, plens)
+
+    logits, (k, v), mem, key_pad, mem_bias, tpre = prefill()
+
+    def decode():
+        with torch.inference_mode():
+            cache = _make_cache("int8", k, v, tpre + WINDOW_STEPS)
+            tok = torch.zeros((b, 1), dtype=torch.long, device=x.device)
+            for t in range(WINDOW_STEPS):
+                model.ar_decode_step(tok, (plens + t)[:, None], cache, tpre + t,
+                                     _decode_bias(~key_pad, tpre + WINDOW_STEPS, t))
+
+    tokens = torch.zeros((b, bucket), dtype=torch.long, device=x.device)
+    full = torch.full((b,), bucket, dtype=torch.long, device=x.device)
+
+    def nar():
+        with torch.inference_mode():
+            _nar_refine(model, x, x_lens, prompts, plens, tokens, full)
+
+    out = {}
+    for name, fn in (("prefill", prefill), ("decode_16_steps", decode), ("nar_7_passes", nar)):
+        fn()  # warm-up
+        out[name] = profile_breakdown(fn, families)
+    return out
+
+
+def serve_path(dev, files):
+    """The port's serve CLI (``valle_tpu_torch.bin.serve.main``) on 24
+    requests in the serving defaults (bf16, int8 KV cache), ``--attn-impl
+    flash``, batch 16, buckets 256 / 512, greedy, once per weight mode
+    (``--quantize-weights none / w8 / w8a8``): wall time, audio-s/s and
+    launches per run; the first kernel 2 launch of each shape against the
+    plain attention with a bit-equal rerun; every int8 product shape of the
+    w8a8 run bit-equal to its plain integer sums; the w8 / w8a8 runs' first
+    prefill logits against the unquantized run's at JAX's relative bars; and
+    per mode the device time by kernel family of a profiled window."""
+    import torch
+
+    from valle_tpu_torch import sample
+    from valle_tpu_torch.bin import infer, serve
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.nn import qdense
+
+    tmp = files["dir"]
+    rows = _serve_requests(tmp / "requests.tsv", files["prompt.wav"])
+    runs, paths, first_logits, batch = {}, {}, {}, None
+    cfg = ModelConfig(dtype="bfloat16", kv_cache_dtype="int8", attn_impl="flash")  # the CLI's
+    for mode in SERVE_MODES:
+        out_dir = tmp / f"serve_{mode}"
+        argv = ["--requests", str(tmp / "requests.tsv"), "--checkpoint", str(files["model.pt"]),
+                "--codec-checkpoint", str(files["codec.npz"]), "--text-tokens",
+                str(files["tokens.k2symbols"]), "--text-extractor", "chars", "--batch-size",
+                str(SERVE_BATCH), "--length-buckets", ",".join(map(str, SERVE_BUCKETS)),
+                "--attn-impl", "flash", "--top-k", "1", "--quantize-weights", mode,
+                "--seed", str(SEED), "--output-dir", str(out_dir)]
+        int8_matmul = qdense.int8_matmul
+        kernel2, restore_k2 = capture_kernel2()
+        int8_calls, restore_mm = capture_first_calls(
+            qdense, "int8_matmul", lambda a, kw: (*a[0].shape, a[1].shape[0]))
+        prefills, restore_pre = capture_first_calls(sample, "_prefill_kv",
+                                                    lambda a, kw: a[1].shape[0])
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            int8_matmul.launches = 0
+            t0 = time.perf_counter()
+            serve.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            int8_launches = int8_matmul.launches
+        finally:
+            restore_k2(), restore_mm(), restore_pre()
+        manifest = [json.loads(line) for line in
+                    (out_dir / "manifest.jsonl").read_text().splitlines()]
+        assert sorted(m["id"] for m in manifest) == sorted(r.split("\t")[0] for r in rows)
+        jobs = sum(-(-sum(m["bucket"] == bk for m in manifest) // SERVE_BATCH)
+                   for bk in SERVE_BUCKETS)
+        per_job = cfg.num_layers + (cfg.num_quantizers - 1) * cfg.nar_num_layers
+        want = {"ragged_decode": 0, "prefix_attention": per_job * jobs,
+                "prefix_attention_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0}
+        assert launches == want, f"serve {mode}: launch counts {launches}, expected {want}"
+        assert (int8_launches > 0) == (mode == "w8a8"), (mode, int8_launches)
+        for m in manifest:
+            codes = np.load(out_dir / f"{m['id']}_codes.npy")
+            assert codes.shape == (m["frames"], cfg.num_quantizers)
+            assert 0 <= m["frames"] <= m["bucket"]
+            assert codes.size == 0 or (0 <= codes.min() and codes.max() < 1024)
+            assert (out_dir / f"{m['id']}.wav").exists() == (m["frames"] > 0)
+        kernel2_cases = check_kernel2_captures(kernel2, f"serve {mode}")
+        assert {c["mode"] == "dense" for c in kernel2_cases} == {True, False}, kernel2_cases
+        int8_cases = []
+        for (m_rows, k_in, n_out), (args, _, out) in sorted(int8_calls.items()):
+            exact = torch.equal(out, qdense.int_mm_reference(args[0], args[1].t()))
+            assert exact, f"int8 product ({m_rows} x {k_in} -> {n_out}) differs from its sums"
+            int8_cases.append([m_rows, k_in, n_out])
+        if mode == "w8a8":
+            assert {c[0] <= SERVE_BATCH for c in int8_cases} == {True, False}, int8_cases
+            assert any(c[2] == 1025 for c in int8_cases), int8_cases
+        args, _, out = prefills[SERVE_BATCH]  # the first full batch (bucket 512)
+        first_logits[mode] = out[0].float()
+        batch = (*args[1:5], SERVE_BUCKETS[-1])  # its inputs, for the profiled windows
+        del prefills, int8_calls, kernel2, args, out
+        frames = sum(m["frames"] for m in manifest)
+        runs[mode] = {"wall_s": wall, "frames": frames, "audio_s": frames / 75.0,
+                      "audio_s_per_s": frames / 75.0 / wall, "jobs": jobs,
+                      "launches": launches, "int8_product_calls": int8_launches,
+                      "kernel2_cases": kernel2_cases, "int8_product_shapes_bit_equal": int8_cases}
+        paths[f"serve_{mode}"] = launches
+
+    ref, off = first_logits["none"], []
+    for mode, rtol in QUANT_LOGIT_RTOL.items():
+        rel = float((first_logits[mode] - ref).abs().max() / ref.abs().max())
+        runs[mode]["prefill_logit_rel_err_vs_none"] = rel
+        runs[mode]["prefill_logit_rtol"] = rtol
+        if rel > rtol:
+            off.append(f"serve {mode}: prefill logits {rel} off the unquantized run's")
+
+    sd = infer.load_model_params(str(files["model.pt"]), cfg, "valle")
+    layer_errors = check_quantized_layers(sd, dev)
+    x = batch[0]
+    products = {"decode": quant_product_ms(sd, dev, x.shape[0]),
+                "nar": quant_product_ms(sd, dev, x.shape[0] * (x.shape[1] + batch[2].shape[1]
+                                                             + SERVE_BUCKETS[-1]))}
+    for mode in SERVE_MODES:
+        model = get_model(cfg.replace(act_quant=mode == "w8a8"), device=dev, state_dict=sd,
+                          quantize=mode != "none")
+        runs[mode]["window"] = _window_breakdown(model, batch)
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "serve", "cli": "python -m valle_tpu_torch.bin.serve",
+          "model": "VALL-E default ModelConfig, seeded random weights (.pt), bf16, int8 KV",
+          "requests": len(rows), "batch_size": SERVE_BATCH, "buckets": SERVE_BUCKETS,
+          "window": f"prefill, {WINDOW_STEPS} decode steps, 7 NAR passes of the first batch",
+          "layer_rel_err_vs_float": layer_errors, "layer_rtol": QUANT_LAYER_RTOL,
+          "quantized_products_ms": products, "runs": runs})
+    assert not off, off  # after the phase's line, which carries every reading
+    return paths
+
+
+# ---------------------------------------------------------------- phase 14
+
+
+CONT_REQUESTS = 32
+CONT_SCHED = dict(batch_size=8, chunk=128, admit_width=8, cap_steps=2048, nar_bucket=384,
+                  ragged_decode=True, top_k=1, forbid_eos=True)
+NEAR_TIE_ULPS = 4  # a top-two logit gap of at most 4 bf16 ulps of the top logit
+
+
+def _bf16_ulp(x: float) -> float:
+    return float(np.ldexp(1.0, np.frexp(abs(x))[1] - 8))
+
+
+def continuous_path(dev, files):
+    """``serve_continuous`` on 32 requests (the full-width VALL-E in bf16 with
+    an int8 KV cache, ``ragged_decode``), then ``generate`` on the same
+    requests in batches of 8: launches (kernel 1 on every decode step),
+    slot occupancy and audio-s/s of both; kernel 1 on the first decode step
+    with mixed live lengths and finished slots against its plain version,
+    with a bit-equal rerun; every kernel 2 shape likewise; lengths equal to
+    generate's, codebook-1 codes equal up to the first near-tie (whose
+    top-two gap in generate's logits is printed) and every codebook equal
+    for the requests without one."""
+    import torch
+
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.nn import attention
+    from valle_tpu_torch.ops.ragged_decode import (
+        ragged_decode_attention, ragged_decode_attention_reference)
+    from valle_tpu_torch.sample import generate
+    from valle_tpu_torch.sample.continuous import serve_continuous
+
+    cfg = ModelConfig(dtype="bfloat16", attn_impl="flash", kv_cache_dtype="int8")
+    model = get_model(cfg, device=dev,
+                      state_dict=infer.load_model_params(str(files["model.pt"]), cfg, "valle"))
+    rng = np.random.RandomState(SEED + 13)
+    r, s, p, q = CONT_REQUESTS, 64, 225, cfg.num_quantizers
+    req = {"x": rng.randint(1, cfg.num_text_tokens, (r, s)), "x_lens": rng.randint(40, s + 1, r),
+           "prompts": rng.randint(0, cfg.num_audio_tokens, (r, p, q)),
+           "prompt_lens": rng.randint(150, p + 1, r), "stop_lens": rng.randint(64, 385, r)}
+    counts = {"prefill": 0, "decode": 0}
+    gaps = []
+    real = {"prefill": model.ar_prefill, "decode": model.ar_decode_step}
+
+    def counted(name, record):
+        def fn(*args, **kw):
+            counts[name] += 1
+            out = real[name](*args, **kw)
+            if record:  # the top-two gap of the logits that pick the next token
+                top = out[0].float().topk(2, dim=-1).values
+                gaps.append(torch.stack([top[:, 0], top[:, 0] - top[:, 1]], 1))
+            return out
+        return fn
+
+    k2, restore_k2 = capture_kernel2()
+    model.ar_prefill, model.ar_decode_step = counted("prefill", False), counted("decode", False)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = serve_continuous(model, req, generator=torch.Generator(device=dev).manual_seed(SEED),
+                               **CONT_SCHED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        restore_k2()
+    steps, prefills = counts["decode"], counts["prefill"]
+    n_layers = cfg.num_layers
+    nar_batches = -(-r // CONT_SCHED["batch_size"])
+    want = {"ragged_decode": n_layers * steps,
+            "prefix_attention": n_layers * prefills + 7 * cfg.nar_num_layers * nar_batches,
+            "prefix_attention_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0}
+    assert launches == want, f"continuous: launch counts {launches}, expected {want}"
+    lengths = [o["length"] for o in out]
+    assert lengths == req["stop_lens"].tolist(), (lengths, req["stop_lens"].tolist())
+    frames = sum(lengths)
+    kernel2_cases = check_kernel2_captures(k2, "continuous")
+    del k2
+
+    # kernel 1 at the first decode step with live slots of different lengths
+    # and finished ones (after a refill), in a rerun on the first 16 requests
+    # (the capture reads the lengths on the host at every launch)
+    def mixed(a, kw):
+        lens = a[3]
+        live = lens[lens > 0]
+        return bool((lens == 0).any()) and live.numel() > 1 and bool((live != live[0]).any())
+
+    k1, restore_k1 = capture_first_calls(attention, "ragged_decode_attention", mixed)
+    try:
+        serve_continuous(model, {k: v[:16] for k, v in req.items()}, **CONT_SCHED)
+    finally:
+        restore_k1()
+    assert True in k1, "no decode step had mixed lengths and finished slots"
+    args, kw, got = k1.pop(True)
+    del k1
+    want_k1 = ragged_decode_attention_reference(*args)
+    k1_err = float((got - want_k1).abs().max())
+    k1_rerun = torch.equal(ragged_decode_attention(*args, **kw), got)
+    assert k1_err <= TOL["float32"] and k1_rerun, (k1_err, k1_rerun)
+    k1_lens = args[3].tolist()
+    del args, got, want_k1
+
+    # generate on the same requests in batches of 8, recording the logits' gaps
+    counts.update(prefill=0, decode=0)
+    model.ar_prefill, model.ar_decode_step = counted("prefill", True), counted("decode", True)
+    b = CONT_SCHED["batch_size"]
+    gen_codes, gen_gaps = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for g0 in range(0, r, b):
+        gaps.clear()
+        take = lambda k: torch.from_numpy(req[k][g0: g0 + b]).to(dev)  # noqa: E731
+        res = generate(model, take("x"), take("x_lens"), take("prompts"), take("prompt_lens"),
+                       generator=torch.Generator(device=dev).manual_seed(SEED),
+                       stop_lens=take("stop_lens"), max_new_tokens=CONT_SCHED["nar_bucket"],
+                       top_k=1, forbid_eos=True, ragged_decode=True)
+        gen_codes.append(res["codes"].cpu().numpy())
+        gen_gaps.append(torch.stack(gaps, 1).cpu().numpy())  # (b, steps + 1, 2)
+        assert res["lengths"].cpu().tolist() == req["stop_lens"][g0: g0 + b].tolist()
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = read_launches()
+    del model.ar_prefill, model.ar_decode_step  # the wrappers; the methods again
+    gen_steps = counts["decode"]
+    assert gen_launches["ragged_decode"] == n_layers * gen_steps, gen_launches
+    assert gen_launches["prefix_attention"] == (n_layers + 7 * cfg.nar_num_layers) * nar_batches
+
+    equal, ties = 0, []
+    for i, o in enumerate(out):
+        g, row = divmod(i, b)
+        mine, theirs = o["codes"][:, 0], gen_codes[g][row, :o["length"], 0]
+        diff = np.flatnonzero(mine != theirs)
+        if diff.size == 0:
+            assert (o["codes"] == gen_codes[g][row, :o["length"]]).all(), f"request {i}: NAR codes"
+            equal += 1
+            continue
+        j = int(diff[0])
+        top, gap = (float(v) for v in gen_gaps[g][row, j])
+        limit = NEAR_TIE_ULPS * _bf16_ulp(top)
+        ties.append({"request": i, "step": j, "top_logit": top, "gap": gap, "limit": limit})
+    emit({"phase": "continuous", "model": "VALL-E default ModelConfig, seeded random weights "
+          "(.pt), bf16, int8 KV, attn_impl=flash", "requests": r, "schedule": CONT_SCHED,
+          "stop_lens": req["stop_lens"].tolist(), "decode_steps": steps, "prefills": prefills,
+          "launches": launches, "ar_slot_occupancy": frames / (b * steps), "wall_s": wall,
+          "audio_s_per_s": frames / 75.0 / wall,
+          "kernel1_step": {"lengths": k1_lens, "max_abs_err": k1_err, "tol": TOL["float32"],
+                           "rerun_bit_equal": k1_rerun},
+          "kernel2_cases": kernel2_cases,
+          "generate": {"batches": nar_batches, "decode_steps": gen_steps,
+                       "launches": gen_launches, "ar_slot_occupancy": frames / (b * gen_steps),
+                       "wall_s": gen_wall, "audio_s_per_s": frames / 75.0 / gen_wall},
+          "requests_with_equal_codes": equal, "first_near_ties": ties,
+          "near_tie": f"top-two gap <= {NEAR_TIE_ULPS} bf16 ulps of the top logit"})
+    off = [t for t in ties if t["gap"] > t["limit"]]
+    assert not off, f"codes differ from generate's without a near-tie: {off}"
+    return launches, gen_launches
+
+
 def main() -> int:
     import torch
 
@@ -1784,8 +2296,12 @@ def main() -> int:
     k4 = check_flash_bias(dev, fwd, bwd)
     check_head_dims(dev)
     paths = {"generate": main_path(dev), "train_step": train_path(dev, k2d, k3),
-             "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev),
-             "infer": infer_path(dev)}
+             "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_serving_files(Path(tmp))
+        paths["infer"] = infer_path(dev, files)
+        paths.update(serve_path(dev, files))
+        paths["continuous"], paths["continuous_generate"] = continuous_path(dev, files)
 
     def entry(name, source, replaces, res, path):
         by_path = {p: counts[name] for p, counts in paths.items()}

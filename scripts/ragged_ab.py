@@ -3,7 +3,7 @@
 ``generate`` in several checkouts of the repo, one fresh process each, on one
 CUDA card.
 
-    python3 scripts/ragged_ab.py PARENT . . PARENT
+    python3 scripts/ragged_ab.py PARENT . . PARENT [--decode-only]
 
 Give the checkouts in an order that cancels drift (parent, change, change,
 parent).  Each process imports ``valle_tpu_torch`` and ``chip_smoke`` (for
@@ -21,6 +21,10 @@ made here from one seed:
   ``chip_smoke.py`` drives it: the decode ms per step (the call's wall time
   less the prefill and NAR passes, over the steps) and, from
   ``torch.profiler``, kernel 1's device ms over the whole call.
+
+``--decode-only`` skips the kernel cases and the profile and times three
+``generate`` calls instead of one (decode ms per step: their median, and
+each), for a quick check of the decode loop's host cost.
 
 Each kernel time is the CUDA-event median of 5 windows of back-to-back calls
 and the device time per call (every kernel whose name holds
@@ -40,6 +44,7 @@ CHILD = r"""
 import json, sys, time
 import numpy as np
 import torch
+DECODE_ONLY = "--decode-only" in sys.argv
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from valle_tpu_torch.nn.attention import quantize_kv
@@ -57,6 +62,8 @@ cases += [("generate B=8", 8, 768, 16, 64, GEN, "int8"), ("generate B=1", 1, 768
           ("long cache B=1", 1, 40000, 16, 64, [40000], "int8")]
 cases += [(f"dh {dh}", 8, 1024, h, dh, P3, c) for h, dh in ((16, 48), (8, 96))
           for c in ("int8", "float32", "bfloat16")]
+if DECODE_ONLY:
+    cases = []
 rng = np.random.RandomState(0)
 res = {}
 for name, b, c, h, dh, lens, cache in cases:
@@ -99,11 +106,14 @@ xl, pl, sl = (torch.from_numpy(a).to(dev) for a in (x_lens, prompt_lens, stop_le
 kw = dict(top_k=1, forbid_eos=True, ragged_decode=True, max_new_tokens=max_new, stop_lens=sl)
 run = lambda: generate(model, x, xl, prompts, pl, generator=torch.Generator(device=dev).manual_seed(0), **kw)
 run()
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-out = run()
-torch.cuda.synchronize()
-total_s = time.perf_counter() - t0
+totals = []
+for _ in range(3 if DECODE_ONLY else 1):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    totals.append(time.perf_counter() - t0)
+total_s = float(np.median(totals))
 steps = min(max_new, int(stop_lens.max()) + 1)
 def prefill():
     with torch.inference_mode():
@@ -113,13 +123,18 @@ def nar():
         _nar_refine(model, x, xl, prompts, pl, out["codes"][..., 0], out["lengths"])
 prefill_ms = cs.cuda_time(prefill, iters=3, windows=3, warmup=1)["ms"]
 nar_ms = cs.cuda_time(nar, iters=1, windows=3, warmup=1)["ms"]
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    run()
-    torch.cuda.synchronize()
-k1 = [e for e in prof.key_averages() if "ragged_decode" in e.key and e.self_device_time_total > 0]
+k1 = []
+if not DECODE_ONLY:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    k1 = [e for e in prof.key_averages()
+          if "ragged_decode" in e.key and e.self_device_time_total > 0]
 res["generate"] = {"generate_s": total_s, "prefill_ms": prefill_ms, "nar_ms": nar_ms,
                    "decode_steps": steps,
                    "decode_ms_per_step": (total_s * 1e3 - prefill_ms - nar_ms) / steps,
+                   "decode_ms_per_step_each": [(t * 1e3 - prefill_ms - nar_ms) / steps
+                                               for t in totals],
                    "kernel1_device_ms_per_call": sum(e.self_device_time_total for e in k1) / 1e3,
                    "kernel1_launches": {e.key[:80]: e.count for e in k1}}
 print(json.dumps(res))
@@ -127,14 +142,15 @@ print(json.dumps(res))
 
 
 def main() -> int:
-    args = sys.argv[1:]
+    flags = [a for a in sys.argv[1:] if a == "--decode-only"]
+    args = [a for a in sys.argv[1:] if a != "--decode-only"]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
     rows = []
     for checkout in args:
         root = Path(checkout).resolve()
-        proc = subprocess.run([sys.executable, "-c", CHILD], cwd=root, capture_output=True,
+        proc = subprocess.run([sys.executable, "-c", CHILD, *flags], cwd=root, capture_output=True,
                               text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -147,6 +163,8 @@ def main() -> int:
     summary = {case: [r[case].get("device_ms") for r in rows] for case in rows[0]
                if case != "generate"}
     summary["generate decode_ms_per_step"] = [r["generate"]["decode_ms_per_step"] for r in rows]
+    summary["generate decode_ms_per_step_each"] = [
+        r["generate"]["decode_ms_per_step_each"] for r in rows]
     summary["generate kernel1_device_ms_per_call"] = [
         r["generate"]["kernel1_device_ms_per_call"] for r in rows]
     print(json.dumps({"checkouts": args, "nvidia_smi": smi, "device_ms": summary}))

@@ -84,6 +84,7 @@ def test_get_model_variants_and_unported_options():
         get_model(ModelConfig(model_name="Transformer", scaling_xformers=True), device="cpu")
     with pytest.raises(NotImplementedError):
         get_model(ModelConfig(scaling_xformers=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        get_model(ModelConfig(act_quant=True, decoder_dim=32, nhead=2, num_layers=1),
-                  device="cpu")
+    # act_quant (W8A8) is ported: on float weights it builds and changes nothing
+    w8a8 = get_model(ModelConfig(act_quant=True, decoder_dim=32, nhead=2, num_layers=1),
+                     device="cpu")
+    assert w8a8.ar_predict_layer.act_quant and w8a8.ar_predict_layer.weight_scale is None

@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_valle_tpu():
                  "pkgutil.walk_packages(valle_tpu_torch.__path__, 'valle_tpu_torch.')))")
     names = set(found.stdout.split())
     assert {"valle_tpu_torch.codec.encodec_model", "valle_tpu_torch.data.text_tokenizer",
-            "valle_tpu_torch.bin.infer", "valle_tpu_torch.sample"} <= names, sorted(names)
+            "valle_tpu_torch.bin.infer", "valle_tpu_torch.sample", "valle_tpu_torch.bin.serve",
+            "valle_tpu_torch.sample.continuous", "valle_tpu_torch.nn.qdense"} <= names, \
+        sorted(names)
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -102,6 +104,21 @@ def test_codec_and_infer_cli_raise_without_cuda_unless_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         infer.main(argv + ["--device", "cuda"])
     assert not (tmp_path / "out").exists()  # it raised before it wrote anything
+
+
+def test_serve_cli_raises_without_cuda_unless_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+    from valle_tpu_torch.bin import serve
+
+    argv = ["--requests", str(tmp_path / "reqs.tsv"), "--checkpoint", str(tmp_path / "m.npz"),
+            "--text-tokens", str(tmp_path / "t.k2symbols"), "--output-dir", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(argv)
+    assert not (tmp_path / "out").exists()
+    assert serve.get_parser().parse_args(argv).device == "cuda"
+    with pytest.raises(FileNotFoundError):  # past the device check, at the checkpoint
+        serve.main(argv + ["--device", "cpu"])
 
 
 def test_kernel_wrappers_use_plain_versions_on_cpu():

@@ -12,9 +12,11 @@ full-width seeded random codec ``.npz``, the same 1 s 16 kHz prompt wav
     the bridge's state dict (which JAX reads through ``convert_state_dict``)
     and from its ``model_avg`` under ``--use-averaged-model``: every
     ``{n}_codes.npy`` equal, every ``{n}.wav`` within 2 LSB;
-  - ``--continual`` (prefix mode 1) and the promptless path likewise;
-  - the flags the port refuses: Orbax directories, ``--quantize-weights``,
-    ``--continual`` without prompts or with text.
+  - ``--continual`` (prefix mode 1), the promptless path and
+    ``--quantize-weights w8a8`` (int8 weights and activations, quantized on
+    the host from the f32 weights) likewise;
+  - the flags the port refuses: Orbax directories, ``--continual`` without
+    prompts or with text.
 
 Each JAX CLI run is made once, in a module fixture.
 """
@@ -90,6 +92,8 @@ CASES = {
                             "--text-prompts", PROMPT_TEXT, "--audio-prompts", f["wav"],
                             "--prefix-mode", "1"],
     "promptless": lambda f: ["--checkpoint", f["npz"], "--text", TEXTS],
+    "w8a8": lambda f: ["--checkpoint", f["npz"], "--text", TEXTS, "--text-prompts", PROMPT_TEXT,
+                       "--audio-prompts", f["wav"], "--quantize-weights", "w8a8"],
 }
 OUTPUTS = {"continual": ["continual"], "promptless": ["0", "1"]}
 
@@ -178,8 +182,6 @@ def test_cli_refuses_what_it_does_not_take(files, tmp_path):
             "--output-dir", str(tmp_path), "--device", "cpu"]
     with pytest.raises(ValueError, match="Orbax"):
         infer.main(["--checkpoint", str(files["root"])] + base)
-    with pytest.raises(NotImplementedError, match="qdense"):
-        infer.main(["--checkpoint", files["npz"], "--quantize-weights", "w8"] + base)
     with pytest.raises(ValueError, match="averaged"):
         infer.main(["--checkpoint", files["npz"], "--use-averaged-model", "true"] + base)
     with pytest.raises(ValueError, match="--audio-prompts"):

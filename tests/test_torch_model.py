@@ -175,3 +175,35 @@ def test_attn_mask_spec_of_prefill_equals_the_merged_bias_on_visible_rows():
                                                          jnp.asarray(key_pad))))
     spec = tm.AttnMaskSpec(tm.mask_to_bias(torch.from_numpy(key_pad)), prefix_s=4).dense(9)
     np.testing.assert_array_equal(merged < -1e8, spec.numpy() < -1e8)
+
+
+@pytest.mark.parametrize("variant", ["valle", "vallf"])
+def test_bf16_prefill_logits_match_jax(variant):
+    """In bf16 the JAX model keeps f32 parameters, embeddings and residual
+    stream and computes its projections, attention and logits in bf16; the
+    port casts only what JAX casts (``models.get_model``).  Prefill logits
+    (d=64, 4 heads, 2 layers, Q=4, ``"xla"`` attention on both sides) within
+    one bf16 ulp of the largest JAX logit.  A port that cast the whole model
+    to bf16 was 1.5 ulps off here, and at 12 layers (d=256) twice as far as
+    JAX from the f32 logits."""
+    kw = dict(decoder_dim=64, nhead=4, num_layers=2, num_quantizers=Q, dtype="bfloat16",
+              model_name="VALL-F" if variant == "vallf" else "VALL-E")
+    x, x_lens, prompts, prompt_lens = _prefill_inputs()
+    jmodel = (JaxVALLF if variant == "vallf" else JaxVALLE)(JaxConfig(**kw))
+    variables = jax.jit(lambda k: jmodel.init(
+        {"params": k, "stage": k}, jnp.asarray(x), jnp.asarray(x_lens), jnp.asarray(prompts),
+        jnp.full((B,), T, jnp.int32), train_stage=0, deterministic=True,
+        nar_stage=jnp.asarray(1)))(jax.random.PRNGKey(0))
+    want = jax.jit(lambda v, *a: jax_prefill_kv(jmodel, v, *a)[0])(
+        variables, *map(jnp.asarray, (x, x_lens, prompts, prompt_lens)))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    model = _port(variant, kw, jax.tree.map(np.asarray, variables))
+    assert model.ar_text_embedding.weight.dtype == torch.float32
+    assert model.ar_decoder.layers[0].linear1.weight.dtype == torch.bfloat16
+    with torch.inference_mode():
+        got = _prefill_kv(model, *(torch.from_numpy(a).long() for a in _prefill_inputs()))[0]
+    assert got.dtype == torch.bfloat16
+    top = np.abs(want).max()
+    ulp = np.ldexp(np.float32(1), np.frexp(top)[1] - 8)  # bf16 ulp at the largest logit
+    assert np.abs(got.float().numpy() - want).max() <= ulp

@@ -13,6 +13,9 @@ Checkpoints (``--checkpoint``):
     reference's, so it loads as it is;
   - an ``.npz`` of flattened flax params, through ``utils/bridge.py``.
 An Orbax directory needs JAX's checkpoint stack and is refused.
+``--quantize-weights w8|w8a8`` quantizes the decoder weights to int8 on the
+host, from the f32 checkpoint, then moves the int8 weights and their f32
+scales to the card (``nn/qdense.py``; ``w8a8`` also quantizes activations).
 ``--codec-checkpoint`` is the ``.npz`` that ``python -m
 valle_tpu.bin.convert_codec`` writes from the public EnCodec weights.
 
@@ -67,7 +70,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quantize-weights", type=str, default="none",
                         choices=("none", "w8", "w8a8"),
-                        help="int8 decoder weights; not ported yet (nn/qdense.py)")
+                        help="int8 decoder weights (W8), optionally with per-row "
+                        "int8 activations (W8A8); see valle_tpu_torch/nn/qdense.py")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (raises without CUDA) | cpu")
     return parser
@@ -126,17 +130,17 @@ def _write(args, codec, codes: np.ndarray, name: str) -> None:
 def main(argv=None) -> None:
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, force=True)
-    if args.quantize_weights != "none":
-        raise NotImplementedError(
-            "--quantize-weights needs the int8 Dense of nn/qdense.py, not ported yet")
     dev = resolve_device(None if args.device == "cuda" else args.device)
     args.output_dir.mkdir(parents=True, exist_ok=True)
 
     cfg = config_from_args(args)
+    if args.quantize_weights == "w8a8":
+        cfg = cfg.replace(act_quant=True)
     variant = "vallf" if cfg.model_name.lower() in ("vall-f", "vallf") else "valle"
-    model = get_model(cfg, device=dev)
-    model.load_state_dict(load_model_params(args.checkpoint, cfg, variant,
-                                            use_averaged=args.use_averaged_model))
+    # quantized on the host from the f32 weights, then cast and moved
+    model = get_model(cfg, device=dev, quantize=args.quantize_weights != "none",
+                      state_dict=load_model_params(args.checkpoint, cfg, variant,
+                                                   use_averaged=args.use_averaged_model))
 
     text_tokenizer = TextTokenizer(backend=args.text_extractor)
     collater = get_text_token_collater(args.text_tokens)

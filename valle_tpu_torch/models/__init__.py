@@ -2,8 +2,11 @@
 
 ``get_model`` builds VALL-E, VALL-F or the Transformer TTS baseline from a
 :class:`ModelConfig` on the card (or on ``device``) in eval mode, with weights
-from PyTorch's default initialisers under the caller's ``torch.manual_seed``.
-It casts the model to the config's compute dtype, which serves inference;
+from PyTorch's default initialisers under the caller's ``torch.manual_seed``,
+or from a ``state_dict``, optionally int8-quantized (``nn/qdense.py``).  It
+casts the model for the config's compute dtype, which serves inference: the
+VALL-E models as the JAX package computes (f32 embeddings and norms, the
+rest in the compute dtype), the TTS baseline wholly;
 training goes through ``valle_tpu_torch.train.step.init_train_state``, which
 puts the model in train mode and refuses bf16 (the JAX package keeps f32
 master weights under a bf16 compute dtype; that is not ported yet).  The
@@ -14,10 +17,18 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from valle_tpu_torch.models.config import ModelConfig
 from valle_tpu_torch.models.transformer_tts import TransformerTTS
 from valle_tpu_torch.models.valle import VALLE, VALLF
+from valle_tpu_torch.nn.embedding import SinePositionalEmbedding, TokenEmbedding
+from valle_tpu_torch.nn.qdense import SCALE_SUFFIX, quantize_variables
 from valle_tpu_torch.utils import resolve_device
+
+# modules whose parameters stay f32 under a bf16 compute dtype: flax's nn.Embed
+# without a dtype returns its f32 table, and LayerNorm computes in f32
+_F32_MODULES = (TokenEmbedding, SinePositionalEmbedding, torch.nn.LayerNorm)
 
 
 def str2bool(v) -> bool:
@@ -84,10 +95,31 @@ def config_from_args(args) -> ModelConfig:
     )
 
 
-def get_model(cfg: ModelConfig, device=None):
+def _cast_for_compute(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """Cast the float parameters and buffers of a VALL-E model to ``dtype``,
+    in place, except those of the embeddings and norms (and weights tied to
+    an embedding) and int8 weights' scales: flax's f32 ``param_dtype`` under
+    a compute ``dtype``, where the cast that flax makes at every call is
+    made once."""
+    keep = {id(t) for m in model.modules() if isinstance(m, _F32_MODULES)
+            for t in (*m.parameters(), *m.buffers())}
+    for m in model.modules():
+        for name, t in (*m.named_parameters(recurse=False), *m.named_buffers(recurse=False)):
+            if t.is_floating_point() and id(t) not in keep and not name.endswith(SCALE_SUFFIX):
+                t.data = t.data.to(dtype)
+    return model
+
+
+def get_model(cfg: ModelConfig, device=None, state_dict=None, quantize: bool = False):
     """VALLE / VALLF / TransformerTTS for ``cfg`` on ``device`` (default: the
-    card; raises without CUDA), in eval mode and in the config's compute
-    dtype."""
+    card; raises without CUDA), in eval mode and cast for the config's
+    compute dtype.
+
+    state_dict: weights to load (f32, or int8 with scales as
+      ``utils/bridge.py`` gives a quantized JAX tree).
+    quantize: quantize the ``DEFAULT_TARGETS`` weights to int8
+      (``nn/qdense.py``) on the host, from the f32 weights, before the cast
+      and the move to ``device``; ``cfg.act_quant`` then selects W8A8."""
     if cfg.scaling_xformers:
         raise NotImplementedError("scaling_xformers needs nn/scaling.py, not ported yet")
     name = cfg.model_name.lower()
@@ -100,7 +132,16 @@ def get_model(cfg: ModelConfig, device=None):
     else:
         raise ValueError(f"unknown model {cfg.model_name}")
     dev = resolve_device(device)
-    return cls(cfg).to(device=dev, dtype=cfg.compute_dtype).eval()
+    model = cls(cfg)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    if quantize:
+        quantize_variables(model)
+    if isinstance(model, VALLE):
+        _cast_for_compute(model, cfg.compute_dtype)
+    else:
+        model.to(dtype=cfg.compute_dtype)
+    return model.to(device=dev).eval()
 
 
 __all__ = [

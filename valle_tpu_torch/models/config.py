@@ -1,8 +1,8 @@
 """Model configuration: the twin of ``valle_tpu/models/config.py``.
 
 Same fields, defaults and validation; ``compute_dtype`` returns a torch dtype.
-Fields that only the JAX training or serving paths read (``remat``,
-``act_quant``) are kept so that one configuration describes both packages.
+``remat``, which only the JAX trainer reads, is kept so that one
+configuration describes both packages.
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ class ModelConfig:
     # "int8" stores symmetric per-(token, head) int8 values + f32 scales.
     kv_cache_dtype: str = "model"  # model | int8
     remat: str = "none"  # training-only in the JAX package; no effect here
-    act_quant: bool = False  # W8A8 serving mode; not ported yet (Dense raises)
+    # with int8-quantized weights (nn.qdense.quantize_variables), also
+    # quantize activations per row at run time: W8A8 (no effect on float weights)
+    act_quant: bool = False
 
     def __post_init__(self):
         if isinstance(self.remat, bool):

@@ -10,7 +10,11 @@ Parameter names are the reference PyTorch model's, so the port loads a
 reference ``state_dict`` as it is and a JAX parameter tree through
 ``utils/bridge.py``.  The NAR codebook tables stay Q separate embeddings
 (``nar_audio_embeddings.{j}``), and with ``share_embedding`` the prediction
-layer j shares its weight with table j+2, as in the reference.
+layer j shares its weight with table j+2, as in the reference.  As in the
+JAX model, the compute dtype (``cfg.compute_dtype``) is that of the
+projections, attention and logits; the embeddings, positional embeddings
+and norms keep f32 parameters, so in bf16 the residual stream stays f32
+(``models.get_model`` casts the rest).
 
 Dropout is at the JAX model's rates (attention and layer dropout at
 ``cfg.dropout``, the AR positions and the NAR audio position at 0.1, the NAR
@@ -59,6 +63,7 @@ class _Prenet(nn.Sequential):
     """``nn.Sequential`` whose dropout modules draw from the forward's rng."""
 
     def forward(self, x, rng=None):
+        x = x.to(next(self.parameters()).dtype)  # the compute dtype, as flax casts
         for mod in self:
             x = mod(x, rng) if isinstance(mod, Dropout) else mod(x)
         return x
@@ -111,6 +116,7 @@ class VALLE(nn.Module):
         self.cfg = cfg
         d, nd = cfg.decoder_dim, cfg.nar_decoder_dim
         v, q = cfg.num_audio_tokens, cfg.num_quantizers
+        dt = cfg.compute_dtype
         cross = self.variant == "vallf"
 
         self.ar_text_embedding = TokenEmbedding(d, cfg.num_text_tokens)
@@ -125,9 +131,10 @@ class VALLE(nn.Module):
         self.ar_decoder = TransformerStack(
             cfg.num_layers, d, cfg.nhead, d * 4, norm_first=cfg.norm_first,
             adaptive_norm=False, cross_attention=cross, final_norm=cfg.norm_first,
-            attn_impl=cfg.attn_impl, act_quant=cfg.act_quant, dropout=cfg.dropout,
+            attn_impl=cfg.attn_impl, act_quant=cfg.act_quant, dropout=cfg.dropout, dtype=dt,
         )
-        self.ar_predict_layer = Dense(d, v + 1, use_bias=False, act_quant=cfg.act_quant)
+        self.ar_predict_layer = Dense(d, v + 1, use_bias=False, act_quant=cfg.act_quant,
+                                      dtype=dt)
 
         if q > 1:
             self.nar_text_embedding = TokenEmbedding(nd, cfg.num_text_tokens)
@@ -145,9 +152,10 @@ class VALLE(nn.Module):
                 cfg.nar_num_layers, nd, cfg.nar_nhead, nd * 4, norm_first=cfg.norm_first,
                 adaptive_norm=True, cross_attention=cross, final_norm=cfg.norm_first,
                 attn_impl=cfg.attn_impl, act_quant=cfg.act_quant, dropout=cfg.dropout,
+                dtype=dt,
             )
             self.nar_predict_layers = nn.ModuleList(
-                Dense(nd, v, use_bias=False) for _ in range(q - 1)
+                Dense(nd, v, use_bias=False, dtype=dt) for _ in range(q - 1)
             )
             if cfg.share_embedding:
                 # predict[j] ties to embedding table j+2 for j <= Q-3; only

@@ -14,7 +14,13 @@ Decode caches are stacked over layers, as in the JAX package:
 scales, ``(kc, vc, layer)`` for a cache in the model dtype, with kc/vc of
 shape (L, B, C, H, Dh).  Unlike JAX, the port writes the new column into the
 cache in place (no copy of the cache per step) and returns the same tensors.
-The per-slot ``cache_index`` branch (continuous batching) is not ported yet.
+``cache_index`` is one column for every slot (an int), or a (B,) tensor of
+per-slot columns (continuous batching, ``sample/continuous.py``): slot b
+writes its K/V, and its scales, at its own column ``cache_index[b]``.
+
+The projections go through ``nn/qdense.py``: ``dtype`` is the compute dtype
+that their inputs are cast to, and ``in_proj_weight`` may be int8 with f32
+row scales ``in_proj_weight_scale`` (W8, or W8A8 under ``act_quant``).
 
 Attention-probability dropout (``dropout``) is active in train mode only;
 its seeds are drawn from the ``rng`` generator of ``forward``.
@@ -29,7 +35,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from valle_tpu_torch.nn.qdense import Dense
+from valle_tpu_torch.nn.qdense import Dense, Int8Weights, linear
 from valle_tpu_torch.ops.attention_impl import dot_product_attention
 from valle_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
@@ -74,14 +80,30 @@ def _decode_attention_quantized(q, k8, v8, ks, vs, attn_bias):
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v8.to(q.dtype))
 
 
-class MultiheadAttention(nn.Module):
+def _write_columns(buf: torch.Tensor, li: int, columns, val: torch.Tensor) -> None:
+    """Write ``val`` (B, Tq, ...) into layer ``li`` of the stacked cache
+    ``buf`` (L, B, C, ...), in place: at columns [i, i + Tq) of every slot
+    for an int ``columns``, at column c_b of slot b for a pair of (B,)
+    index tensors (arange(B), c) (Tq = 1)."""
+    if isinstance(columns, tuple):
+        buf[li].index_put_(columns, val[:, 0].to(buf.dtype))
+    else:
+        buf[li, :, columns: columns + val.shape[1]] = val.to(buf.dtype)
+
+
+class MultiheadAttention(Int8Weights, nn.Module):
+    quantizable = ("in_proj_weight",)
+
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
                  attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0,
-                 cross_attention: bool = False):
+                 cross_attention: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.attn_impl = attn_impl
         self.dropout = dropout
+        self.act_quant = act_quant
+        self.cross_attention = cross_attention
+        self.compute_dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim)) if bias else None
         nn.init.xavier_uniform_(self.in_proj_weight)
@@ -89,7 +111,9 @@ class MultiheadAttention(nn.Module):
             for p in (self.in_proj_weight, self.in_proj_bias):
                 if p is not None:
                     p.row_blocks = (embed_dim, 2 * embed_dim)  # JAX's q_proj, kv_proj
-        self.out_proj = Dense(embed_dim, embed_dim, use_bias=bias, act_quant=act_quant)
+        self.register_buffer("in_proj_weight_scale", None)
+        self.out_proj = Dense(embed_dim, embed_dim, use_bias=bias, act_quant=act_quant,
+                              dtype=dtype)
 
     def forward(
         self,
@@ -98,7 +122,7 @@ class MultiheadAttention(nn.Module):
         *,
         attn_bias=None,
         kv_cache=None,
-        cache_index: Optional[int] = None,
+        cache_index=None,
         kv_lengths: Optional[torch.Tensor] = None,
         return_kv: bool = False,
         rng: Optional[torch.Generator] = None,
@@ -121,12 +145,16 @@ class MultiheadAttention(nn.Module):
         """
         d, h = self.embed_dim, self.num_heads
         dh = d // h
-        w, bias = self.in_proj_weight, self.in_proj_bias
+        w, bias, scale = self.in_proj_weight, self.in_proj_bias, self.in_proj_weight_scale
+        quant, dt = self.act_quant, self.compute_dtype
         if x_kv is None:
-            q, k, v = F.linear(x_q, w, bias).split(d, dim=-1)
+            q, k, v = linear(x_q, w, bias, scale, quant, dt).split(d, dim=-1)
         else:
-            q = F.linear(x_q, w[:d], None if bias is None else bias[:d])
-            k, v = F.linear(x_kv, w[d:], None if bias is None else bias[d:]).split(d, dim=-1)
+            rows = lambda t, r: None if t is None else t[r]  # noqa: E731
+            q = linear(x_q, w[:d], rows(bias, slice(None, d)), rows(scale, slice(None, d)),
+                       quant, dt)
+            k, v = linear(x_kv, w[d:], rows(bias, slice(d, None)), rows(scale, slice(d, None)),
+                          quant, dt).split(d, dim=-1)
         b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
         q = q.view(b, tq, h, dh)
         k = k.view(b, tk, h, dh)
@@ -134,18 +162,19 @@ class MultiheadAttention(nn.Module):
 
         new_cache = None
         if kv_cache is not None:
-            if isinstance(cache_index, torch.Tensor) and cache_index.dim() > 0:
-                raise NotImplementedError(
-                    "per-slot cache_index (continuous batching) is not ported yet")
-            idx = 0 if cache_index is None else int(cache_index)
+            if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+                if tq != 1:
+                    raise ValueError(
+                        f"per-slot cache_index writes one column per slot, got Tq={tq}")
+                columns = (torch.arange(b, device=q.device), cache_index.long())
+            else:
+                columns = 0 if cache_index is None else int(cache_index)
             if len(kv_cache) == 5:
                 kc, vc, ks, vs, li = kv_cache
                 k8, k_sc = quantize_kv(k)
                 v8, v_sc = quantize_kv(v)
-                kc[li, :, idx: idx + tq] = k8
-                vc[li, :, idx: idx + tq] = v8
-                ks[li, :, idx: idx + tq] = k_sc
-                vs[li, :, idx: idx + tq] = v_sc
+                for buf, val in ((kc, k8), (vc, v8), (ks, k_sc), (vs, v_sc)):
+                    _write_columns(buf, li, columns, val)
                 new_cache = (kc, vc, ks, vs)
                 if kv_lengths is not None:
                     out = _ragged_decode(q, kc[li], vc[li], kv_lengths, attn_bias, ks[li], vs[li])
@@ -156,8 +185,8 @@ class MultiheadAttention(nn.Module):
             if len(kv_cache) != 3:
                 raise ValueError(f"unknown kv_cache layout of {len(kv_cache)} entries")
             kc, vc, li = kv_cache
-            kc[li, :, idx: idx + tq] = k.to(kc.dtype)
-            vc[li, :, idx: idx + tq] = v.to(vc.dtype)
+            _write_columns(kc, li, columns, k)
+            _write_columns(vc, li, columns, v)
             new_cache = (kc, vc)
             if kv_lengths is not None:
                 out = _ragged_decode(q, kc[li], vc[li], kv_lengths, attn_bias).to(q.dtype)

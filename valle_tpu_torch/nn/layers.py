@@ -11,6 +11,12 @@ Parameter names follow the reference PyTorch model: ``norm1``, ``norm2``
 VALL-F layer), ``self_attn``, ``multihead_attn``, ``linear1``, ``linear2``,
 and ``layers.{i}`` / ``norm`` in the stack.
 
+``dtype`` is the compute dtype of the JAX modules (flax's ``dtype``, with
+f32 ``param_dtype``): the norms compute in f32 and return that dtype, and
+the projections cast their inputs to it, so that in bf16 the residual
+stream stays f32 as JAX's does (the embeddings are f32 there).  None keeps
+every tensor in its own dtype.
+
 Dropout sits where the JAX layer puts it: on the attention probabilities,
 after each attention block (``sa_drop``, ``ca_drop``), after the feed-forward
 activation (``ff_drop``) and after its output (``ff_out_drop``), all at the
@@ -32,21 +38,29 @@ from valle_tpu_torch.nn.qdense import Dense
 
 class StageLayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` that takes (and ignores) the stage embedding, so every
-    norm of a layer is called the same way."""
+    norm of a layer is called the same way.  With ``dtype`` it normalises in
+    f32 and returns ``dtype``, as flax's ``LayerNorm(dtype=...)`` does."""
+
+    def __init__(self, d_model: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
+        super().__init__(d_model, eps=eps)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor, stage_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return super().forward(x)
+        if self.compute_dtype is None or x.dtype == self.weight.dtype == self.compute_dtype:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(self.compute_dtype)
 
 
 class AdaptiveLayerNorm(nn.Module):
     """weight * LayerNorm(x) + bias, with (weight, bias) projected from the
     stage embedding."""
 
-    def __init__(self, d_model: int, eps: float = 1e-5):
+    def __init__(self, d_model: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_model = d_model
-        self.project_layer = nn.Linear(d_model, 2 * d_model)
-        self.norm = nn.LayerNorm(d_model, eps=eps)
+        self.project_layer = Dense(d_model, 2 * d_model, dtype=dtype)
+        self.norm = StageLayerNorm(d_model, eps=eps, dtype=dtype)
 
     def forward(self, x: torch.Tensor, stage_emb: torch.Tensor) -> torch.Tensor:
         weight, bias = self.project_layer(stage_emb).split(self.d_model, dim=-1)
@@ -54,7 +68,7 @@ class AdaptiveLayerNorm(nn.Module):
 
 
 def conditioned_norm(d_model: int, adaptive: bool = False, eps: float = 1e-5,
-                     norm_type: str = "layer") -> nn.Module:
+                     norm_type: str = "layer", dtype: Optional[torch.dtype] = None) -> nn.Module:
     """The norm that the JAX ``ConditionedNorm`` computes: a layer norm, or
     an adaptive one for NAR stage conditioning.  A factory rather than a
     wrapper module, so the parameter names stay the reference's
@@ -64,8 +78,8 @@ def conditioned_norm(d_model: int, adaptive: bool = False, eps: float = 1e-5,
     if norm_type != "layer":
         raise NotImplementedError(f"norm_type {norm_type!r} needs nn/scaling.py, not ported yet")
     if adaptive:
-        return AdaptiveLayerNorm(d_model, eps)
-    return StageLayerNorm(d_model, eps=eps)
+        return AdaptiveLayerNorm(d_model, eps, dtype)
+    return StageLayerNorm(d_model, eps=eps, dtype=dtype)
 
 
 class TransformerLayer(nn.Module):
@@ -77,22 +91,22 @@ class TransformerLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  norm_first: bool = True, adaptive_norm: bool = False,
                  cross_attention: bool = False, attn_impl: str = "xla",
-                 act_quant: bool = False, dropout: float = 0.0):
+                 act_quant: bool = False, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm_first = norm_first
         self.cross_attention = cross_attention
         self.dropout = dropout
-        self.self_attn = MultiheadAttention(d_model, nhead, attn_impl=attn_impl,
-                                            act_quant=act_quant, dropout=dropout)
-        self.linear1 = Dense(d_model, dim_feedforward, act_quant=act_quant)
-        self.linear2 = Dense(dim_feedforward, d_model, act_quant=act_quant)
-        self.norm1 = conditioned_norm(d_model, adaptive_norm)
-        self.norm2 = conditioned_norm(d_model, adaptive_norm)
+        attn = dict(attn_impl=attn_impl, act_quant=act_quant, dropout=dropout, dtype=dtype)
+        self.self_attn = MultiheadAttention(d_model, nhead, **attn)
+        self.linear1 = Dense(d_model, dim_feedforward, act_quant=act_quant, dtype=dtype)
+        self.linear2 = Dense(dim_feedforward, d_model, act_quant=act_quant, dtype=dtype)
+        self.norm1 = conditioned_norm(d_model, adaptive_norm, dtype=dtype)
+        self.norm2 = conditioned_norm(d_model, adaptive_norm, dtype=dtype)
         if cross_attention:
-            self.multihead_attn = MultiheadAttention(d_model, nhead, attn_impl=attn_impl,
-                                                     act_quant=act_quant, dropout=dropout,
-                                                     cross_attention=True)
-            self.norm3 = conditioned_norm(d_model, adaptive_norm)
+            self.multihead_attn = MultiheadAttention(d_model, nhead, cross_attention=True,
+                                                     **attn)
+            self.norm3 = conditioned_norm(d_model, adaptive_norm, dtype=dtype)
 
     def forward(self, x, *, stage_emb=None, attn_bias=None, memory=None,
                 memory_bias=None, kv_cache=None, cache_index=None,
@@ -137,15 +151,18 @@ class TransformerStack(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int,
                  norm_first: bool = True, adaptive_norm: bool = False,
                  cross_attention: bool = False, final_norm: bool = True,
-                 attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0):
+                 attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerLayer(d_model, nhead, dim_feedforward, norm_first=norm_first,
                              adaptive_norm=adaptive_norm, cross_attention=cross_attention,
-                             attn_impl=attn_impl, act_quant=act_quant, dropout=dropout)
+                             attn_impl=attn_impl, act_quant=act_quant, dropout=dropout,
+                             dtype=dtype)
             for _ in range(num_layers)
         )
-        self.norm = conditioned_norm(d_model, adaptive_norm) if final_norm and norm_first else None
+        self.norm = (conditioned_norm(d_model, adaptive_norm, dtype=dtype)
+                     if final_norm and norm_first else None)
 
     def forward(self, x, kv_cache=None, *, stage_emb=None, attn_bias=None, memory=None,
                 memory_bias=None, cache_index=None, kv_lengths=None, return_kv=False,

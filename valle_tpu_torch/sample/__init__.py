@@ -13,7 +13,8 @@ cache grows in 128-step segments.  JAX runs the loop as a ``lax.while_loop``;
 here it is a Python loop over steps (a CUDA graph of the step is later work),
 and a ``torch.Generator`` takes the place of the JAX key.  ``continual``
 keeps codebook 1 of given codes and regenerates the others with the NAR
-passes.
+passes; ``nar_refine`` runs the NAR passes over given codebook-1 tokens
+(the continuous-batching scheduler's drain, ``sample/continuous.py``).
 """
 
 from __future__ import annotations
@@ -229,6 +230,16 @@ def generate(
     codes = _nar_refine(model, nar_text, nar_text_lens, prompt_codes, prompt_lens,
                         tokens, gen_len)
     return {"codes": codes, "lengths": gen_len}
+
+
+@torch.inference_mode()
+def nar_refine(model, nar_text, nar_text_lens, prompt_codes, prompt_lens, tokens, gen_len):
+    """NAR refinement of the AR codebook-1 ``tokens`` (B, T_gen) with
+    ``gen_len`` (B,) valid tokens into (B, T_gen, Q) codes, on the model's
+    device (the JAX package's jitted ``nar_refine``)."""
+    dev = next(model.parameters()).device
+    return _nar_refine(model, *(torch.as_tensor(a, device=dev).long() for a in (
+        nar_text, nar_text_lens, prompt_codes, prompt_lens, tokens, gen_len)))
 
 
 def _nar_refine(model, nar_text, nar_text_lens, prompt_codes, prompt_lens, tokens, gen_len):

@@ -15,12 +15,16 @@ stacks the same way, its mel prenet ``decoder_prenet_fc1..3`` to
 
 Input is the JAX variables dict as ``model.init`` returns it, with numpy
 leaves (``jax.tree.map(np.asarray, variables)``); a bare params tree works
-too.  No JAX import: the leaves are numpy arrays.
+too.  No JAX import: the leaves are numpy arrays.  A tree quantized by JAX's
+``quantize_variables`` (int8 ``kernel`` leaves and the ``qscale``
+collection) maps to the port's quantized state: the int8 weight
+transposed, and its scales as ``<weight>_scale`` (the cross-attention's
+q_proj and kv_proj scales concatenated, as their weights are).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,9 +33,23 @@ from valle_tpu_torch.models.config import ModelConfig
 from valle_tpu_torch.utils import resolve_device
 
 
+def _scale(qtree: Mapping, dst: str, out: Dict[str, np.ndarray], *names, i=None) -> None:
+    """``out[dst]`` = the concatenated qscale kernels of ``names`` (layer i),
+    when they were quantized."""
+    found = [qtree[n]["kernel"] if i is None else qtree[n]["kernel"][i]
+             for n in names if n in qtree]
+    if len(found) not in (0, len(names)):
+        raise ValueError(f"{dst}: {names} are one packed weight in the port; "
+                         "quantize both or neither")
+    if found:
+        out[dst] = np.concatenate(found, axis=0)
+
+
 def _decoder(out: Dict[str, np.ndarray], tree: Mapping, prefix: str, n_layers: int,
-             adaptive: bool, cross: bool, norm_first: bool) -> None:
+             adaptive: bool, cross: bool, norm_first: bool,
+             qtree: Optional[Mapping] = None) -> None:
     layers = tree["layers"]
+    qlayers = (qtree or {}).get("layers", {})
 
     def norm(dst: str, sub: Mapping, i) -> None:
         if adaptive:
@@ -44,26 +62,31 @@ def _decoder(out: Dict[str, np.ndarray], tree: Mapping, prefix: str, n_layers: i
             out[f"{dst}.weight"] = sub["ln"]["scale"][i]
             out[f"{dst}.bias"] = sub["ln"]["bias"][i]
 
-    def linear(dst: str, sub: Mapping, i) -> None:
+    def linear(dst: str, sub: Mapping, i, qsub: Mapping) -> None:
         out[f"{dst}.weight"] = sub["kernel"][i].T
         out[f"{dst}.bias"] = sub["bias"][i]
+        if "kernel" in qsub:
+            out[f"{dst}.weight_scale"] = qsub["kernel"][i]
 
     for i in range(n_layers):
         p = f"{prefix}.layers.{i}"
-        sa = layers["self_attn"]
+        sa, qsa = layers["self_attn"], qlayers.get("self_attn", {})
         out[f"{p}.self_attn.in_proj_weight"] = sa["in_proj"]["kernel"][i].T
         out[f"{p}.self_attn.in_proj_bias"] = sa["in_proj"]["bias"][i]
-        linear(f"{p}.self_attn.out_proj", sa["out_proj"], i)
-        linear(f"{p}.linear1", layers["linear1"], i)
-        linear(f"{p}.linear2", layers["linear2"], i)
+        _scale(qsa, f"{p}.self_attn.in_proj_weight_scale", out, "in_proj", i=i)
+        linear(f"{p}.self_attn.out_proj", sa["out_proj"], i, qsa.get("out_proj", {}))
+        linear(f"{p}.linear1", layers["linear1"], i, qlayers.get("linear1", {}))
+        linear(f"{p}.linear2", layers["linear2"], i, qlayers.get("linear2", {}))
         norm(f"{p}.norm1", layers["norm1"], i)
         if cross:
-            ca = layers["cross_attn"]
+            ca, qca = layers["cross_attn"], qlayers.get("cross_attn", {})
             out[f"{p}.multihead_attn.in_proj_weight"] = np.concatenate(
                 [ca["q_proj"]["kernel"][i].T, ca["kv_proj"]["kernel"][i].T], axis=0)
             out[f"{p}.multihead_attn.in_proj_bias"] = np.concatenate(
                 [ca["q_proj"]["bias"][i], ca["kv_proj"]["bias"][i]], axis=0)
-            linear(f"{p}.multihead_attn.out_proj", ca["out_proj"], i)
+            _scale(qca, f"{p}.multihead_attn.in_proj_weight_scale", out, "q_proj", "kv_proj",
+                   i=i)
+            linear(f"{p}.multihead_attn.out_proj", ca["out_proj"], i, qca.get("out_proj", {}))
             # reference: norm2 gates cross-attention, norm3 the FFN
             norm(f"{p}.norm2", layers["norm_ca"], i)
             norm(f"{p}.norm3", layers["norm2"], i)
@@ -124,6 +147,7 @@ def numpy_state_dict_from_jax(variables: Mapping, cfg: ModelConfig,
         raise ValueError(f"unknown variant {variant!r}")
     params = variables["params"] if "params" in variables else variables
     stats = variables.get("batch_stats", {}) if "params" in variables else {}
+    qscale = variables.get("qscale", {}) if "params" in variables else {}
     if variant == "transformer":
         return {k: np.array(v) for k, v in _transformer_tts(params, cfg).items()}
     cross = variant == "vallf"
@@ -137,7 +161,8 @@ def numpy_state_dict_from_jax(variables: Mapping, cfg: ModelConfig,
         "ar_predict_layer.weight": params["ar_predict_layer"]["kernel"].T,
     }
     _decoder(out, params["ar_decoder"], "ar_decoder", cfg.num_layers, False, cross,
-             cfg.norm_first)
+             cfg.norm_first, qscale.get("ar_decoder", {}))
+    _scale(qscale, "ar_predict_layer.weight_scale", out, "ar_predict_layer")
     _prenets(out, params, stats, "ar")
     if q > 1:
         rest = params["nar_audio_embeddings_rest"]  # (Q-1, V, nd)
@@ -149,7 +174,7 @@ def numpy_state_dict_from_jax(variables: Mapping, cfg: ModelConfig,
         out["nar_text_position.alpha"] = np.ones((1,), np.float32)
         out["nar_audio_position.alpha"] = np.ones((1,), np.float32)
         _decoder(out, params["nar_decoder"], "nar_decoder", cfg.nar_num_layers, True,
-                 cross, cfg.norm_first)
+                 cross, cfg.norm_first, qscale.get("nar_decoder", {}))
         _prenets(out, params, stats, "nar")
         stage = params["nar_stage_embeddings"]  # (Q-1, nd)
         for j in range(q - 1):
