@@ -95,7 +95,27 @@ ends the run with a non-zero exit code):
      a bit-equal rerun; every kernel 2 shape likewise; lengths equal to
      generate's, codebook-1 codes equal up to the first near-tie (a top-two
      gap of at most 4 bf16 ulps in generate's logits);
- 15. a ``kernels`` summary line (each kernel's launches on every path), then
+ 15. train_cli: the port's training CLI (``valle_tpu_torch.bin.train.main``)
+     in process on a synthetic corpus it writes (64 utterances of 4-6 s of
+     random codes, 8 for dev, texts of 40-100 ``chars`` symbols): the
+     full-width VALL-E through stage 1 (1 epoch) and stage 2 (1 more epoch)
+     in one exp dir (``--attn-impl fused --dropout 0.1``, ScaledAdam, Eden,
+     averaging, validation, step checkpoints with keep-last-k 1, the OOM
+     scan, accumulation 2): the native loader path, 12 x A launches of
+     kernels 2 and 3 per step, kernel 2 only in validation, the scan's
+     launches apart, no non-finite step, the ``ar_*`` weights bit-equal
+     across the stage switch, the first kernel 2 and 3 launch of each shape
+     against the plain attention with bit-equal reruns, a step resumed from
+     stage 2's mid-epoch checkpoint bit-equal to the uninterrupted one, a
+     hand-fed step at that batch's shape, and the final ``epoch-2.pt``
+     through the infer CLI (``--use-averaged-model``) to a finite wav; the
+     loop's seconds per step beside the bare step's, the loader's and the
+     copy's host seconds, a profiled step's device idle share, the saves'
+     seconds and bytes, peak memory and the logged MFU;
+     tts_train_cli: the full-width TTS baseline through the same CLI for 2
+     steps on random mels with SpecAugment (24 / 24 / 12 / 12 launches of
+     kernels 2 / 3 / 4 / 4-backward per step);
+ 16. a ``kernels`` summary line (each kernel's launches on every path), then
      the last line ``{"ok": true, "device": {...}}``.
 
 Kernel 2 and 4 cases carry their time over SDPA's and, in f32, the bound
@@ -1382,7 +1402,7 @@ def train_path(dev, k2d, k3):
           "profiled_step": breakdown, "repeat_bit_equal": repeat_equal,
           "dropout0_max_grad_rel_err": [c["max_grad_rel_err"] for c in checks],
           "dropout0_flipped_gates": [c["flipped_gates"] for c in checks]})
-    return launches[0]
+    return launches[0], med
 
 
 # -------------------------------------------------------- phases 10 and 11
@@ -1585,19 +1605,24 @@ def _prompt_wav(path) -> None:
 
 def capture_first_calls(module, name: str, key_of):
     """Wrap ``module.<name>`` so that it keeps, per ``key_of(args, kwargs)``,
-    the first call's arguments and output (tensors cloned).  The wrapper
-    calls the real function once per call and leaves the launch counts
-    alone.  Returns (captured: key -> (args, kwargs, out), restore)."""
+    the first call's arguments and output (tensors cloned); a call whose key
+    is None is not kept.  The wrapper calls the real function once per call
+    and leaves the launch counts alone.  Returns (captured: key -> (args,
+    kwargs, out), restore)."""
     import torch
 
     fn = getattr(module, name)
     captured = {}
-    keep = lambda t: t.clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
+
+    def keep(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().clone()
+        return tuple(keep(x) for x in t) if isinstance(t, tuple) else t
 
     def wrapper(*args, **kwargs):
         out = fn(*args, **kwargs)
         key = key_of(args, kwargs)
-        if key not in captured:
+        if key is not None and key not in captured:
             captured[key] = ([keep(a) for a in args], {k: keep(v) for k, v in kwargs.items()},
                              keep(out))
         return out
@@ -1609,34 +1634,39 @@ def capture_first_calls(module, name: str, key_of):
     return captured, lambda: setattr(module, name, fn)
 
 
-def capture_kernel2():
-    """The first kernel 2 launch of each (mode, B, Tq, Tk) of a run."""
+def capture_kernel2(when=lambda: True):
+    """The first kernel 2 launch of each (mode, B, Tq, Tk) of a run, among
+    the launches made while ``when()`` holds."""
     from valle_tpu_torch.ops import attention_impl
 
     return capture_first_calls(
         attention_impl, "fused_prefix_attention",
-        lambda a, kw: (kw.get("prefix_s"), a[0].shape[0], a[0].shape[1], a[1].shape[1]))
+        lambda a, kw: (kw.get("prefix_s"), a[0].shape[0], a[0].shape[1], a[1].shape[1])
+        if when() else None)
 
 
 def check_kernel2_captures(captured, run: str) -> list:
     """Each captured kernel 2 launch against the plain attention on its
-    inputs, and a rerun of the kernel on them, which must be bit-equal."""
+    inputs (with the launch's dropout bits), and a rerun of the kernel on
+    them, which must be bit-equal."""
     import torch
 
     from valle_tpu_torch.ops.fused_attention import (
-        fused_prefix_attention, fused_prefix_attention_reference)
+        attention_forward_reference, fused_prefix_attention)
 
     cases = []
     for (prefix_s, b, tq, tk), (args, kw, out) in sorted(
             captured.items(), key=lambda kv: (kv[0][0] is None, kv[0][1:])):
         q = args[0]
         dtype = str(q.dtype).removeprefix("torch.")
-        want = fused_prefix_attention_reference(*args[:4], prefix_s)
+        with torch.no_grad():
+            want = attention_forward_reference(*args[:4], prefix_s, kw.get("dropout_rate", 0.0),
+                                               kw.get("dropout_seed"))[0]
+            rerun = torch.equal(fused_prefix_attention(*args, **kw), out)
         err = float((out.float() - want.float()).abs().max())
         mode = "dense" if prefix_s is None else f"prefix s={prefix_s}"
         assert torch.isfinite(out).all() and err <= TOL[dtype], \
             f"kernel 2 in the {run} run ({mode}, B={b}, Tq={tq}, Tk={tk}) is off: {err}"
-        rerun = torch.equal(fused_prefix_attention(*args, **kw), out)
         assert rerun, f"kernel 2 in the {run} run ({mode}, B={b}, Tq={tq}): rerun differs"
         cases.append({"mode": mode, "b": b, "tq": tq, "tk": tk, "dtype": dtype,
                       "max_abs_err": err, "tol": TOL[dtype], "rerun_bit_equal": rerun})
@@ -2246,6 +2276,539 @@ def continuous_path(dev, files):
     return launches, gen_launches
 
 
+# ---------------------------------------------------------------- phase 15
+# The training CLI: full-width VALL-E through the two-stage recipe on a
+# synthetic corpus (4-6 s utterances, 75 frames/s x 8 codebooks; texts of
+# 40-100 chars symbols), then the Transformer TTS baseline on random mels.
+
+CLI_UTTS, CLI_DEV_UTTS, CLI_DUR = 64, 8, (4.0, 6.0)
+CLI_FLAGS = ["--attn-impl", "fused", "--dropout", "0.1", "--optimizer-name", "ScaledAdam",
+             "--scheduler-name", "Eden", "--average-period", "2", "--valid-interval", "4",
+             "--save-every-n", "4", "--keep-last-k", "1", "--oom-check", "true",
+             "--max-duration", "20", "--num-buckets", "2", "--accumulate-grad-steps", "2",
+             "--batch-quant", "1", "--log-interval", "1", "--tensorboard", "false",
+             "--seed", str(SEED)]
+TTS_CLI_UTTS, TTS_CLI_DUR = 8, (8.0, 10.0)  # 750-938 mel frames at 93.75 frames/s
+HAND_FED_STEPS = 5
+
+
+class _StopRun(BaseException):
+    """Ends a CLI run from inside its step (not an Exception: the CLI's
+    crash handler lets it through)."""
+
+
+def write_cli_corpus(root, symbols, *, splits, dur, fmt, frame_rate, dim, seed) -> Path:
+    """Manifests and shards of random codes (``fmt`` "vsh") or random mels
+    ("vsf") for each (split, count), and the ``chars`` symbol table."""
+    import shutil
+
+    from valle_tpu_torch.data import CodeShardWriter, Manifest
+
+    rng = np.random.RandomState(seed)
+    chars = list(SYMBOLS) + ["_"]
+    for split, n in splits:
+        records = []
+        with CodeShardWriter(root, prefix=f"{split}_codes", fmt=fmt, num_quantizers=dim) as w:
+            for i in range(n):
+                d = float(rng.uniform(*dur))
+                t = int(round(d * frame_rate))
+                feats = (rng.randn(t, dim).astype(np.float32) if fmt == "vsf"
+                         else rng.randint(0, 1024, (t, dim)))
+                utt = f"{i % 4}_{100 + i % 4}_{i:06d}_000000"
+                shard, key = w.write(utt, feats)
+                tokens = [chars[j] for j in rng.randint(0, len(chars), rng.randint(40, 101))]
+                rec = {"id": utt, "text": "".join(tokens), "tokens": tokens, "duration": d,
+                       "shard": shard, "key": key}
+                if fmt == "vsf":
+                    rec["feature_dim"] = dim
+                records.append(rec)
+        Manifest.save(iter(records), root / f"manifest_{split}.jsonl.gz")
+    shutil.copy(symbols, root / "unique_text_tokens.k2symbols")
+    return root
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def capture_kernel3(when=lambda: True):
+    """The first kernel 3 launch of each (mode, B, Tq, Tk) of a run, among
+    the launches made while ``when()`` holds."""
+    from valle_tpu_torch.ops import fused_attention
+
+    return capture_first_calls(
+        fused_attention, "fused_prefix_attention_backward",
+        lambda a, kw: (kw.get("prefix_s"), a[0].shape[0], a[0].shape[1], a[1].shape[1])
+        if when() else None)
+
+
+def check_kernel3_captures(captured, run: str) -> list:
+    """Each captured kernel 3 launch against the plain backward on its inputs
+    (the launch's dropout bits), and a bit-equal rerun."""
+    import torch
+
+    from valle_tpu_torch.ops import fused_attention as fa
+
+    cases = []
+    for (prefix_s, b, tq, tk), (args, kw, out) in sorted(
+            captured.items(), key=lambda kv: (kv[0][0] is None, kv[0][1:])):
+        dtype = str(args[0].dtype).removeprefix("torch.")
+        want = fa.attention_backward_reference(*args[:7], prefix_s, kw.get("dropout_rate", 0.0),
+                                               kw.get("dropout_seed"))
+        err = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                  for g, w in zip(out, want))
+        rerun = all(torch.equal(g, a) for g, a in zip(fa.fused_prefix_attention_backward(
+            *args, **kw), out))
+        mode = "dense" if prefix_s is None else f"prefix s={prefix_s}"
+        assert all(torch.isfinite(g).all() for g in out) and err <= TOL[dtype], \
+            f"kernel 3 in the {run} run ({mode}, B={b}, Tq={tq}, Tk={tk}) is off: {err}"
+        assert rerun, f"kernel 3 in the {run} run ({mode}, B={b}, Tq={tq}): rerun differs"
+        cases.append({"mode": mode, "b": b, "tq": tq, "tk": tk, "dtype": dtype,
+                      "rate": kw.get("dropout_rate", 0.0), "max_rel_err": err,
+                      "tol": TOL[dtype], "rerun_bit_equal": rerun})
+    return cases
+
+
+def capture_kernel4(when=lambda: True):
+    """The first kernel 4 forward and backward launch of each (B, Tq, Tk,
+    bias shape) of a run, among the launches made while ``when()`` holds:
+    the forward through the autograd function's ``_forward`` (with the
+    LSE), the backward through ``flash_attention_biased_backward``.
+    Returns (forward captures, backward captures, restore)."""
+    from valle_tpu_torch.ops import flash_attention as fl
+
+    def key(a, kw):
+        return (a[0].shape[0], a[0].shape[1], a[1].shape[1], tuple(a[3].shape)) if when() else None
+
+    fwd, restore_fwd = capture_first_calls(fl, "_forward", key)
+    bwd, restore_bwd = capture_first_calls(fl, "flash_attention_biased_backward", key)
+
+    def restore():
+        restore_fwd()
+        restore_bwd()
+
+    return fwd, bwd, restore
+
+
+def check_kernel4_captures(fwd, bwd, run: str) -> list:
+    """Each captured kernel 4 forward (output and LSE) and backward (dq, dk,
+    dv and d(bias) where taken) against the plain version on its inputs, and
+    a bit-equal rerun of the kernel on them."""
+    import torch
+
+    from valle_tpu_torch.ops import flash_attention as fl
+
+    cases = []
+    for (b, tq, tk, bias_shape), (args, kw, (out, lse)) in sorted(fwd.items()):
+        dtype = str(args[0].dtype).removeprefix("torch.")
+        with torch.no_grad():
+            want, want_lse = fl.flash_attention_forward_reference(*args[:4])
+            again, again_lse = fl._forward(*args, **kw)
+        err = float((out.float() - want.float()).abs().max())
+        # a call under no_grad takes no LSE
+        lse_err = 0.0 if lse is None else float((lse - want_lse).abs().max())
+        rerun = torch.equal(again, out) and (lse is None or torch.equal(again_lse, lse))
+        where = f"kernel 4 forward in the {run} run (B={b}, Tq={tq}, Tk={tk}, bias {bias_shape})"
+        assert torch.isfinite(out).all() and err <= TOL[dtype] and lse_err <= TOL["float32"], \
+            f"{where} is off: {err}, LSE {lse_err}"
+        assert rerun, f"{where}: rerun differs"
+        cases.append({"pass": "forward", "b": b, "tq": tq, "tk": tk, "bias_shape": list(bias_shape),
+                      "dtype": dtype, "max_abs_err": err, "lse_max_abs_err": lse_err,
+                      "tol": TOL[dtype], "rerun_bit_equal": rerun})
+    for (b, tq, tk, bias_shape), (args, kw, out) in sorted(bwd.items()):
+        dtype = str(args[0].dtype).removeprefix("torch.")
+        bias_grad = kw.get("bias_grad", False)
+        want = fl.flash_attention_backward_reference(*args[:7], bias_grad)
+        again = fl.flash_attention_biased_backward(*args, **kw)
+        got, again, want = ([g for g in x if g is not None] for x in (out, again, want))
+        err = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                  for g, w in zip(got, want))
+        rerun = all(torch.equal(g, a) for g, a in zip(got, again))
+        where = f"kernel 4 backward in the {run} run (B={b}, Tq={tq}, Tk={tk}, bias {bias_shape})"
+        assert all(torch.isfinite(g).all() for g in got) and err <= TOL[dtype], \
+            f"{where} is off: {err}"
+        assert rerun, f"{where}: rerun differs"
+        cases.append({"pass": "backward", "b": b, "tq": tq, "tk": tk,
+                      "bias_shape": list(bias_shape), "bias_grad": bias_grad, "dtype": dtype,
+                      "max_rel_err": err, "tol": TOL[dtype], "rerun_bit_equal": rerun})
+    return cases
+
+
+def _cli_numbers(summary: dict) -> dict:
+    """Medians of a CLI run's steps: the loop's seconds per step (the wait
+    for the loader, the copy and the step), its parts, and the logged MFU."""
+    steps = summary["steps"]
+    med = lambda key: float(np.median([s[key] for s in steps]))  # noqa: E731
+    mfu = [s["mfu"] for s in steps if s.get("mfu") is not None]
+    return {"steps": len(steps), "shapes_ABST": sorted({tuple(s["shape"]) for s in steps}),
+            "losses": [s["loss"] / s["frames"] for s in steps],
+            "cli_step_s_median": float(np.median([s["data_s"] + s["copy_s"] + s["step_s"]
+                                                  for s in steps])),
+            "step_s_median": med("step_s"), "loader_wait_s_median": med("data_s"),
+            "copy_s_median": med("copy_s"), "loader_wait_s_max": max(s["data_s"] for s in steps),
+            "mfu_median": float(np.median(mfu)) if mfu else None,
+            "saves": summary["saves"], "validations": summary["validations"],
+            "oom_scan": summary["oom_scan"], "peak_mem_gib": summary["peak_mem_bytes"] / 2**30,
+            "loader_path": summary["loader_path"], "resumed_from": summary["resumed_from"]}
+
+
+def train_cli_path(dev, files, hand_fed_step_s):
+    """The port's training CLI (``valle_tpu_torch.bin.train.main``) in
+    process: the full-width VALL-E through stage 1 (1 epoch) and stage 2 (1
+    more epoch) in one exp dir, a step resumed from stage 2's mid-epoch
+    checkpoint, the final averaged weights through the infer CLI to a wav,
+    then the full-width TTS baseline with SpecAugment for 2 steps."""
+    import os
+    import shutil
+
+    import torch
+
+    from valle_tpu_torch.bin import infer as infer_cli
+    from valle_tpu_torch.bin import train as train_cli
+    from valle_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = files["dir"] / "train_cli"
+    corpus = write_cli_corpus(root / "data", files["tokens.k2symbols"],
+                              splits=(("train", CLI_UTTS), ("dev", CLI_DEV_UTTS)), dur=CLI_DUR,
+                              fmt="vsh", frame_rate=75.0, dim=8, seed=SEED + 11)
+    exp = root / "exp"
+    steps, validations, scans, saves_kept = [], [], [], {}
+    watch = {"keep_step": None, "snapshot": None, "profile": None, "stage": None}
+
+    make_step, run_validation = train_cli.make_train_step, train_cli.run_validation
+    scan = train_cli.scan_batch_shapes_for_oom
+
+    def counted_make_train_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng, epoch):
+            before = read_launches()
+            if watch["profile"] == state.step:  # one profiled step of stage 2
+                out = []
+                watch["breakdown"] = profile_breakdown(
+                    lambda: out.append(step(state, batch, rng, epoch)))
+                state, metrics = out[0]
+            else:
+                state, metrics = step(state, batch, rng, epoch)
+            steps.append({"stage": kw["train_stage"], "step": state.step,
+                          "micro_batches": batch["text_tokens"].shape[0],
+                          "launches": _delta(read_launches(), before)})
+            if watch["keep_step"] is not None and state.step == watch["keep_step"] + 1:
+                watch["snapshot"] = (float(metrics["loss"]), {
+                    k: v.detach().clone() for k, v in state.model.state_dict().items()})
+            return state, metrics
+
+        return run
+
+    def counted_validation(eval_fn, state, loader, dev_):
+        n = sum(1 for _ in loader)
+        before = read_launches()
+        out = run_validation(eval_fn, state, loader, dev_)
+        validations.append({"batches": n, "launches": _delta(read_launches(), before)})
+        return out
+
+    def counted_scan(*a, **kw):
+        before = read_launches()
+        out = scan(*a, **kw)
+        scans.append({"shapes": len(out), "launches": _delta(read_launches(), before)})
+        return out
+
+    class KeepingManager(CheckpointManager):
+        """Keeps a hard link of the checkpoint the resume check restores,
+        which keep-last-k would prune."""
+
+        def save_step(self, step, state, meta):
+            super().save_step(step, state, meta)
+            if step == watch["keep_step"]:
+                keep = root / "kept"
+                keep.mkdir()
+                os.link(self.path(f"checkpoint-{step}"), keep / f"checkpoint-{step}.pt")
+                shutil.copy(self.dir / f"checkpoint-{step}.meta.json", keep)
+                saves_kept["name"] = f"checkpoint-{step}"
+
+    train_cli.make_train_step = counted_make_train_step
+    train_cli.run_validation = counted_validation
+    train_cli.scan_batch_shapes_for_oom = counted_scan
+    train_cli.CheckpointManager = KeepingManager
+    captured2, restore2 = capture_kernel2()
+    captured3, restore3 = capture_kernel3()
+    kept: dict = {}
+    restore_copy = first_to_device_arrays(train_cli, kept)
+    argv = ["--manifest-dir", str(corpus), "--exp-dir", str(exp), *CLI_FLAGS]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        first = train_cli.main(argv + ["--train-stage", "1", "--num-epochs", "1"])
+        stage1_s = time.perf_counter() - t0
+        n1 = first["state"].step
+        stage1_ar = {k: v.detach().clone() for k, v in first["state"].model.state_dict().items()
+                     if k.startswith("ar_")}
+        first_numbers = _cli_numbers(first)
+        del first["state"]
+        torch.cuda.empty_cache()
+        switch_from = CheckpointManager(exp / "checkpoints").latest()
+        # the resume check restores stage 2's first step checkpoint
+        watch["keep_step"] = (n1 // 4 + 1) * 4
+        watch["profile"] = n1 + 1
+        t0 = time.perf_counter()
+        second = train_cli.main(argv + ["--train-stage", "2", "--num-epochs", "2"])
+        stage2_s = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        restore2()
+        restore3()
+        restore_copy()
+        train_cli.make_train_step, train_cli.run_validation = make_step, run_validation
+        train_cli.scan_batch_shapes_for_oom = scan
+        train_cli.CheckpointManager = CheckpointManager
+    n2 = second["state"].step
+    second_numbers = _cli_numbers(second)
+    per_step = [{k: r[k] for k in ("step", "epoch", "shape", "step_s", "data_s", "copy_s")}
+                for r in first["steps"] + second["steps"]]
+    # the profiled step carries the profiler's overhead: it is left out below
+    stage2_steps = [r for r in second["steps"] if r["step"] != watch["profile"] + 1]
+    assert first_numbers["loader_path"] == second_numbers["loader_path"] == "native", \
+        "the VALL-E run did not take the native loader path"
+    losses = first_numbers["losses"] + second_numbers["losses"]
+    assert all(np.isfinite(losses)), losses
+    for rec in steps:
+        want = 12 * rec["micro_batches"]
+        assert rec["launches"] == {"ragged_decode": 0, "prefix_attention": want,
+                                   "prefix_attention_bwd": want, "flash_attention": 0,
+                                   "flash_attention_bwd": 0}, rec
+    for rec in validations:
+        assert rec["launches"]["prefix_attention"] == 12 * rec["batches"], rec
+        assert sum(rec["launches"].values()) == rec["launches"]["prefix_attention"], rec
+    assert switch_from == "epoch-1" and second_numbers["resumed_from"] == "epoch-1"
+    final = second["state"].model.state_dict()
+    ar_equal = all(torch.equal(final[k], v) for k, v in stage1_ar.items())
+    assert ar_equal, "the stage switch changed an ar_* weight"
+    nar_trained = {id(p) for g in second["state"].optimizer.param_groups for p in g["params"]}
+    assert all(n.startswith("nar_") for n, p in second["state"].model.named_parameters()
+               if id(p) in nar_trained)
+    keep_step = watch["keep_step"]
+    assert saves_kept.get("name") == f"checkpoint-{keep_step}" and n2 > keep_step, \
+        (saves_kept, n2, keep_step)
+    want_loss, want_weights = watch["snapshot"]
+    del second, stage1_ar, final
+    torch.cuda.empty_cache()
+
+    k2_cases = check_kernel2_captures(captured2, "train CLI")
+    k3_cases = check_kernel3_captures(captured3, "train CLI")
+    del captured2, captured3
+    copies = copy_ms(kept["arrays"], dev)
+
+    # resume on the card: restore the kept mid-epoch checkpoint and take the
+    # next step, then time hand-fed steps on that batch
+    resume = {}
+    (root / "resume").mkdir()
+    shutil.move(str(root / "kept"), str(root / "resume" / "checkpoints"))
+
+    def resumed_make_train_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng, epoch):
+            state, metrics = step(state, batch, rng, epoch)
+            got = state.model.state_dict()
+            resume.update(step=state.step, loss=float(metrics["loss"]), want_loss=want_loss,
+                          weights_bit_equal=all(torch.equal(got[k], v)
+                                                for k, v in want_weights.items()))
+            times = []
+            for n in range(HAND_FED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, batch, torch.Generator().manual_seed(n), epoch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            resume["hand_fed_step_s"] = times
+            resume["shape_ABST"] = list(batch["text_tokens"].shape) + [
+                batch["audio_features"].shape[2]]
+            raise _StopRun
+
+        return run
+
+    train_cli.make_train_step = resumed_make_train_step
+    try:
+        train_cli.main(["--manifest-dir", str(corpus), "--exp-dir", str(root / "resume"),
+                        *CLI_FLAGS, "--train-stage", "2", "--num-epochs", "2",
+                        "--oom-check", "false"])
+    except _StopRun:
+        pass
+    finally:
+        train_cli.make_train_step = make_step
+    del want_weights
+    torch.cuda.empty_cache()
+    assert resume["step"] == keep_step + 1, resume
+    assert resume["loss"] == resume["want_loss"] and resume["weights_bit_equal"], \
+        f"the step resumed from checkpoint-{keep_step} differs: {resume}"
+
+    # train -> infer: the final averaged weights through the infer CLI,
+    # sampling (its default): a model fit to random codes rates EOS (one per
+    # utterance) above any one code, so greedy decoding may stop at once
+    out_dir = root / "infer"
+    before = read_launches()
+    t0 = time.perf_counter()
+    infer_cli.main(["--checkpoint", str(exp / "checkpoints" / "epoch-2.pt"),
+                    "--use-averaged-model", "true", "--codec-checkpoint", str(files["codec.npz"]),
+                    "--text-tokens", str(files["tokens.k2symbols"]), "--text-extractor",
+                    "chars", "--attn-impl", "flash", "--seed", str(SEED), "--max-new-tokens", "150",
+                    "--text-prompts", INFER_PROMPT_TEXT, "--audio-prompts",
+                    str(files["prompt.wav"]), "--text", INFER_TEXTS[0],
+                    "--output-dir", str(out_dir)])
+    infer_s = time.perf_counter() - t0
+    infer_launches = _delta(read_launches(), before)
+    from valle_tpu_torch.data import read_wav
+
+    wav, sr = read_wav(str(out_dir / "0.wav"))
+    assert wav.size > 0 and np.isfinite(wav).all(), "the trained model's wav is not finite"
+
+    shutil.rmtree(exp)
+    emit({"phase": "train_cli", "model": "VALL-E default ModelConfig (367.4 M parameters), "
+          "f32, through valle_tpu_torch.bin.train.main", "flags": CLI_FLAGS,
+          "corpus": {"train": CLI_UTTS, "dev": CLI_DEV_UTTS, "seconds": CLI_DUR,
+                     "text_symbols": [40, 100]},
+          "stage1": first_numbers, "stage2": second_numbers,
+          "stage_seconds": [stage1_s, stage2_s], "steps": [n1, n2 - n1],
+          "launches_per_step": steps, "validation_launches": validations,
+          "oom_scan_launches": scans, "profiled_stage2_step": watch.get("breakdown"),
+          "hand_fed_step_s_phase9": hand_fed_step_s,
+          "hand_fed_step_s_median": float(np.median(resume["hand_fed_step_s"])),
+          "hand_fed_shape_ABST": resume["shape_ABST"],
+          "cli_steps": per_step, "profiled_step": watch["profile"] + 1,
+          "cli_at_hand_fed_shape": {key: float(np.median(
+              [sum(r[k] for k in parts) for r in stage2_steps
+               if r["shape"] == resume["shape_ABST"]])) for key, parts in (
+              ("loop_s_median", ("data_s", "copy_s", "step_s")), ("step_s_median", ("step_s",)))},
+          "switch_from": switch_from, "ar_weights_bit_equal_across_switch": ar_equal,
+          "resume": {k: v for k, v in resume.items() if k != "hand_fed_step_s"},
+          "kernel2_captures": k2_cases, "kernel3_captures": k3_cases, "batch_copy_ms": copies,
+          "infer": {"seconds": infer_s, "launches": infer_launches, "wav_samples": int(wav.size),
+                    "sample_rate": sr}})
+    tts = tts_train_cli_path(dev, files, root)
+    shutil.rmtree(root)
+    return {"train_cli": counts, "tts_train_cli": tts}
+
+
+def copy_ms(arrays: dict, dev, n: int = 10) -> dict:
+    """Host ms to put one CLI batch on the card and have it there (the call,
+    then a sync), first call and median of the next ``n - 1``, three ways:
+    the CLI's ``to_device`` (page-locked buffers kept per shape), a fresh
+    ``pin_memory()`` per array and call, and a plain ``.to(dev)`` from
+    pageable memory."""
+    import torch
+
+    from valle_tpu_torch.bin import train as train_cli
+
+    ways = {
+        "staged_pinned": lambda: train_cli.to_device(arrays, dev),
+        "pin_per_call": lambda: {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+            dev, non_blocking=True) for k, v in arrays.items()},
+        "pageable": lambda: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                             for k, v in arrays.items()},
+    }
+    out = {"bytes": int(sum(np.asarray(v).nbytes for v in arrays.values()))}
+    for name, fn in ways.items():
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"first_ms": times[0], "median_ms": float(np.median(times[1:]))}
+    return out
+
+
+def first_to_device_arrays(train_cli, kept: dict):
+    """Wrap ``train_cli.to_device`` so that ``kept["arrays"]`` holds the
+    first batch it is given (numpy); returns the restore."""
+    fn = train_cli.to_device
+
+    def wrapper(arrays, dev):
+        kept.setdefault("arrays", {k: np.array(v) for k, v in arrays.items()})
+        return fn(arrays, dev)
+
+    train_cli.to_device = wrapper
+    return lambda: setattr(train_cli, "to_device", fn)
+
+
+def tts_train_cli_path(dev, files, root) -> dict:
+    """The full-width TTS baseline through the training CLI: 2 steps on a
+    float-mel manifest with SpecAugment, kernels 2, 3 and 4 forward and
+    backward on each step; the first launch of each kernel at each shape of
+    the training steps (past the OOM scan) is held against its plain version
+    with a bit-equal rerun."""
+    import torch
+
+    from valle_tpu_torch.bin import train as train_cli
+
+    corpus = write_cli_corpus(root / "mels", files["tokens.k2symbols"],
+                              splits=(("train", TTS_CLI_UTTS),), dur=TTS_CLI_DUR, fmt="vsf",
+                              frame_rate=24000 / 256, dim=100, seed=SEED + 12)
+    steps = []
+    training = {"on": False}  # past the OOM scan: the launches the captures keep
+    make_step = train_cli.make_train_step
+
+    def counted(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng, epoch):
+            before = read_launches()
+            training["on"] = True
+            state, metrics = step(state, batch, rng, epoch)
+            training["on"] = False
+            steps.append(_delta(read_launches(), before))
+            return state, metrics
+
+        return run
+
+    on = lambda: training["on"]  # noqa: E731
+    kept: dict = {}
+    train_cli.make_train_step = counted
+    captured2, restore2 = capture_kernel2(on)
+    captured3, restore3 = capture_kernel3(on)
+    fwd4, bwd4, restore4 = capture_kernel4(on)
+    restore_copy = first_to_device_arrays(train_cli, kept)
+    try:
+        reset_launches()
+        out = train_cli.main(["--manifest-dir", str(corpus), "--exp-dir", str(root / "tts_exp"),
+                              "--model-name", "Transformer", "--attn-impl", "flash",
+                              "--dropout", "0", "--enable-spec-aug", "true", "--num-epochs", "1",
+                              "--max-duration", "40", "--num-buckets", "1", "--batch-quant", "1",
+                              "--valid-interval", "1000", "--save-every-n", "0",
+                              "--log-interval", "1", "--tensorboard", "false",
+                              "--seed", str(SEED)])
+        counts = read_launches()
+    finally:
+        restore2()
+        restore3()
+        restore4()
+        restore_copy()
+        train_cli.make_train_step = make_step
+    numbers = _cli_numbers(out)
+    del out
+    torch.cuda.empty_cache()
+    assert numbers["steps"] == 2 and all(np.isfinite(numbers["losses"])), numbers
+    want = {"ragged_decode": 0, "prefix_attention": 24, "prefix_attention_bwd": 24,
+            "flash_attention": 12, "flash_attention_bwd": 12}
+    assert all(s == want for s in steps), f"launches per step {steps}, expected {want}"
+    k2_cases = check_kernel2_captures(captured2, "TTS train CLI")
+    k3_cases = check_kernel3_captures(captured3, "TTS train CLI")
+    k4_cases = check_kernel4_captures(fwd4, bwd4, "TTS train CLI")
+    assert k2_cases and k3_cases and {c["pass"] for c in k4_cases} == {"forward", "backward"}, \
+        "a kernel of the TTS train CLI's steps was not captured"
+    del captured2, captured3, fwd4, bwd4
+    torch.cuda.empty_cache()
+    copies = copy_ms(kept["arrays"], dev)
+    emit({"phase": "tts_train_cli", "model": "Transformer TTS default widths (353.7 M "
+          "parameters), f32, attn_impl flash, attention dropout 0, SpecAugment",
+          "corpus": {"train": TTS_CLI_UTTS, "seconds": TTS_CLI_DUR, "mel_bins": 100},
+          **numbers, "launches_per_step": steps, "kernel2_captures": k2_cases,
+          "kernel3_captures": k3_cases, "kernel4_captures": k4_cases,
+          "batch_copy_ms": copies})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2295,13 +2858,15 @@ def main() -> int:
     k3 = check_backward(dev, bwd)
     k4 = check_flash_bias(dev, fwd, bwd)
     check_head_dims(dev)
-    paths = {"generate": main_path(dev), "train_step": train_path(dev, k2d, k3),
-             "tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}
+    paths = {"generate": main_path(dev)}
+    paths["train_step"], hand_fed_step_s = train_path(dev, k2d, k3)
+    paths |= {"tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}
     with tempfile.TemporaryDirectory() as tmp:
         files = write_serving_files(Path(tmp))
         paths["infer"] = infer_path(dev, files)
         paths.update(serve_path(dev, files))
         paths["continuous"], paths["continuous_generate"] = continuous_path(dev, files)
+        paths.update(train_cli_path(dev, files, hand_fed_step_s))
 
     def entry(name, source, replaces, res, path):
         by_path = {p: counts[name] for p, counts in paths.items()}

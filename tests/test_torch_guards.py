@@ -168,3 +168,16 @@ def test_cuda_build_needs_no_nvcc_at_import():
     lib, log = cuda_build._lib_path("prefix_attention_bwd"), cuda_build.log_path(
         "prefix_attention_bwd")
     assert log.parent == lib.parent and log.stem == lib.stem and log.suffix == ".log"
+
+
+def test_package_scan_covers_the_training_modules():
+    """The import scan above walks the training CLI, its data pipeline and
+    the checkpoint, metrics, debug, optimizer and FLOPs modules too."""
+    found = _run("import pkgutil, valle_tpu_torch; print(' '.join(m.name for m in "
+                 "pkgutil.walk_packages(valle_tpu_torch.__path__, 'valle_tpu_torch.')))")
+    names = set(found.stdout.split())
+    assert {f"valle_tpu_torch.{m}" for m in (
+        "bin.train", "data.vshard", "data.shards", "data.native_loader", "data.bucketing",
+        "data.input_strategies", "data.transforms", "data.dataset", "optim.eve", "optim.adam",
+        "train.metrics", "train.checkpoint", "train.debug", "utils.flops")} <= names, \
+        sorted(names)

@@ -224,3 +224,52 @@ def test_dropout_only_in_train_mode_and_reproducible(variables):
     assert model.training and float(out["loss"]) > 0
     model.eval()
     assert float(out["loss"]) == loss(model, 0)
+
+
+def test_parameters_without_gradient_move_as_in_jax(variables):
+    """Two NAR-only steps that draw different NAR stages: the tables the
+    second step does not reach take a zero gradient, so ScaledAdam's
+    momentum still moves them and their moments decay, as JAX's update of
+    every trainable leaf does (the port's step skipped them before)."""
+    from valle_tpu.train.state import merge_params
+    from valle_tpu.train.state import partition_params as jax_partition
+
+    seeds = [s for s in range(20)
+             if int(torch.randint(1, Q, (), generator=torch.Generator().manual_seed(s))) == 1]
+    seeds = [seeds[0], next(s for s in range(20) if s not in seeds)]  # stages 1, then 2
+    batch = _jax_batch(a=1)
+    model = _port(variables, attn_impl="fused")
+    stages = []
+    forward_nar = model._forward_nar
+    model._forward_nar = lambda *a, **kw: (stages.append(a[6]), forward_nar(*a, **kw))[1]
+    state = init_train_state(model, functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0,
+                                                      betas=(0.9, 0.95)), train_stage=2)
+    step = make_train_step(lambda s, e: eden_lr(0.05, s, e), train_stage=2, deterministic=True)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for s in seeds:
+        state, _ = step(state, tbatch, torch.Generator().manual_seed(s), 0)
+    assert stages == [1, 2]
+
+    jmodel = JaxVALLE(JaxConfig(**KW))
+    tx = scaled_adam(learning_rate=0.05, clipping_scale=2.0, betas=(0.9, 0.95),
+                     show_dominant_parameters=False, batched_axis_fn=valle_batched_axis)
+    train_p, frozen = jax_partition(jax.tree.map(jnp.asarray, variables["params"]), 2)
+    opt_state = tx.init(train_p)
+    micro = [jnp.asarray(batch[k][0]) for k in ("text_tokens", "text_tokens_lens",
+                                                 "audio_features", "audio_features_lens")]
+    grad_fn = jax.jit(jax.grad(lambda tp, stage: jmodel.apply(
+        {"params": merge_params(tp, frozen)}, *micro, train_stage=2, deterministic=True,
+        nar_stage=stage)["loss"]))
+    update = jax.jit(lambda g, s, p, lr: tx.update(g, s, p, lr=lr))
+    for i, stage in enumerate(stages):
+        grads = grad_fn(train_p, jnp.asarray(stage))
+        upd, opt_state = update(grads, opt_state, train_p, jnp.float32(eden_lr(0.05, i, 0)))
+        train_p = jax.tree.map(jnp.add, train_p, upd)
+    want = numpy_state_dict_from_jax(jax.tree.map(np.asarray, merge_params(train_p, frozen)),
+                                     ModelConfig(**KW))
+    got = model.state_dict()
+    # the stage-1 table that step 2 does not reach moved in step 2 all the same
+    assert "nar_stage_embeddings.0.word_embeddings.weight" in want
+    for name in got:
+        np.testing.assert_allclose(got[name].numpy(), want[name], rtol=1e-4, atol=2e-5,
+                                   err_msg=name)

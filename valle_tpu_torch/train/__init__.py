@@ -1,3 +1,3 @@
-"""Training of the port: state and the train / eval steps (the twin of
-``valle_tpu/train``; checkpoints, metrics tracking and the debug helpers are
-not ported yet)."""
+"""Training of the port, the twin of ``valle_tpu/train``: the state, the
+train and eval steps, checkpoints (``checkpoint.py``), the metrics tracker
+(``metrics.py``) and the ``--inf-check`` helpers (``debug.py``)."""

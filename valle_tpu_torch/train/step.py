@@ -6,6 +6,8 @@
     before one optimizer step (``backward`` accumulates into ``.grad``);
   - stage-filtered parameters: only ``ar_*`` / ``nar_*`` parameters get
     gradients and optimizer state at stages 1 / 2;
+  - every trainable parameter takes a gradient, zero where it took no part
+    in the forward, as JAX's optimizer updates every trainable leaf;
   - a global grad-norm clip (1.0 for plain Adam / AdamW only);
   - the learning rate from ``lr_fn(step, epoch)``, and model averaging.
 
@@ -36,6 +38,29 @@ def _forward(model, micro: Dict[str, torch.Tensor], a: int, train_stage: int, rn
                  train_stage=train_stage, rng=rng, **kw)
 
 
+def accumulate_gradients(model, batch: Dict[str, torch.Tensor], train_stage: int,
+                         rng: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Forward and backward over the A micro-batches of ``batch``, the
+    gradients summed into ``.grad``; the summed metrics (detached)."""
+    metrics = None
+    names = model.metric_names(train_stage)
+    for a in range(batch["text_tokens"].shape[0]):
+        out = _forward(model, batch, a, train_stage, rng)
+        out["loss"].backward()
+        part = {k: out[k].detach() for k in names}
+        metrics = part if metrics is None else {k: metrics[k] + part[k] for k in names}
+    return metrics
+
+
+class NonFiniteLoss(FloatingPointError):
+    """The step's loss is not finite; raised before the update, so the
+    weights are those that gave it."""
+
+    def __init__(self, metrics: Dict[str, torch.Tensor]):
+        super().__init__(f"non-finite loss: { {k: float(v) for k, v in metrics.items()} }")
+        self.metrics = metrics
+
+
 def make_train_step(
     lr_fn: Callable[[int, int], float],
     *,
@@ -43,6 +68,7 @@ def make_train_step(
     clip_grad_norm: Optional[float] = None,
     average_period: int = 0,
     deterministic: bool = False,
+    inf_check: bool = False,
 ):
     """Returns ``step(state, batch, rng, epoch) -> (state, metrics)``; the
     state is updated in place and returned.
@@ -53,24 +79,29 @@ def make_train_step(
     (A,B), and optionally prompt_codes (A,B,P,Q) for prefix mode 4 and
     example_mask (A,B).  ``deterministic`` turns dropout
     off (the model runs in eval mode); the forward's draws still come from
-    ``rng``.
+    ``rng``.  ``inf_check`` reads the loss on the host before the update
+    and raises :class:`NonFiniteLoss` if it is not finite, leaving the
+    weights and the optimizer as they were (JAX checks after the update).
     """
 
     def step(state: TrainState, batch: dict, rng: torch.Generator, epoch: int = 0):
         model, opt = state.model, state.optimizer
         model.train(not deterministic)
         opt.zero_grad(set_to_none=True)
-        metrics = None
-        for a in range(batch["text_tokens"].shape[0]):
-            out = _forward(model, batch, a, train_stage, rng)
-            out["loss"].backward()
-            names = model.metric_names(train_stage)
-            part = {k: out[k].detach() for k in names}
-            metrics = part if metrics is None else {k: metrics[k] + part[k] for k in names}
+        metrics = accumulate_gradients(model, batch, train_stage, rng)
+        if inf_check and not bool(torch.isfinite(metrics["loss"])):
+            opt.zero_grad(set_to_none=True)
+            raise NonFiniteLoss(metrics)
 
+        # a trainable parameter that took no part in the forward (a NAR stage
+        # that was not drawn) gets a zero gradient: JAX's optimizer updates
+        # every trainable leaf, so its moments decay and its momentum moves it
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         if clip_grad_norm is not None:
-            grads = [p.grad for p in partition_params(model, train_stage)[0].values()
-                     if p.grad is not None]
+            grads = [p.grad for group in opt.param_groups for p in group["params"]]
             gnorm = torch.stack(torch._foreach_norm(grads)).pow(2).sum().sqrt()
             torch._foreach_mul_(grads, (clip_grad_norm / (gnorm + 1e-12)).clamp(max=1.0))
 
