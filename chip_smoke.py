@@ -115,7 +115,31 @@ ends the run with a non-zero exit code):
      tts_train_cli: the full-width TTS baseline through the same CLI for 2
      steps on random mels with SpecAugment (24 / 24 / 12 / 12 launches of
      kernels 2 / 3 / 4 / 4-backward per step);
- 16. a ``kernels`` summary line (each kernel's launches on every path), then
+ 16. tokenize_cli: the port's tokenize CLI
+     (``valle_tpu_torch.bin.tokenize_dataset.main``) on the card: 64 + 8
+     seeded wavs of 4-6 s (half at 16 kHz, resampled) through the
+     full-width random EnCodec in batches of 16, then 8 wavs of 8-10 s in
+     Fbank mode, and the stats CLI: audio-s/s; one batch's codes against a
+     CPU copy of the codec (at least 99.5% of the frames equal, and every
+     differing frame at a near-tie of its RVQ search, ``CODE_TIE_RTOL``);
+ 17. train_cli_bf16: the train CLI in bf16 with ``--remat dots_nobatch`` on
+     that corpus: the full-width VALL-E through stage 1 (with the OOM scan)
+     and stage 2: 24 x A / 12 x A launches of kernels 2 / 3 per step
+     (kernel 2 again in the recompute); every captured kernel 2 / 3 launch
+     (bf16, prefix and dense, dropout 0.1) against its plain version with a
+     bit-equal rerun; f32 parameters, optimizer state, average and
+     checkpoint; finite losses; one micro-batch's bf16 loss and gradients
+     against a bf16 CPU copy (the ReLU-gate method at ``BF16_CHECK``); the
+     averaged ``epoch-2.pt`` through the infer CLI in bf16 to a finite wav;
+     tts_train_cli_bf16: the TTS baseline on the Fbank corpus under
+     ``--remat full``, 2 steps, 48 / 24 / 24 / 12 launches of kernels 2 / 3
+     / 4 / 4-backward per step, each kernel captured and held;
+ 18. remat_ab: phase 9's step in f32, and in bf16 under remat none, full and
+     dots_nobatch: the bf16 loss, gradients and step generator bit-equal
+     across the policies, launches (kernel 2 doubled under remat, kernel 3
+     not), peak memory of the accumulation group (lower under remat) and of
+     the step, step seconds, and the ATen ops that dots_nobatch saved;
+ 19. a ``kernels`` summary line (each kernel's launches on every path), then
      the last line ``{"ok": true, "device": {...}}``.
 
 Kernel 2 and 4 cases carry their time over SDPA's and, in f32, the bound
@@ -1130,6 +1154,17 @@ FLIP_SHARE = 1e-6
 FLIP_ATOL = 1e-5
 GRAD_RTOL = 5e-5
 GRAD_NORM_RTOL = 2e-5
+F32_CHECK = {"loss_rtol": LOSS_RTOL, "flip_share": FLIP_SHARE, "flip_atol": FLIP_ATOL,
+             "grad_rtol": GRAD_RTOL, "grad_norm_rtol": GRAD_NORM_RTOL}
+# bf16 on the card against a bf16 CPU copy: both round the products' outputs
+# to bf16 at the same points, but cuBLAS and the kernels sum in other orders
+# than the CPU, and one bf16 ulp is 2^-8 of a value, so a gate flips where
+# |h| is within a few ulps of 0.  On an H100 (the bf16 train CLI's first
+# micro-batch, 2 rows, after its two stages) the readings were: loss 4.8e-5,
+# 5.6e-4 of 110 M gates flipped at |h| <= 4.9e-3, gradients 7.4e-3 (largest
+# element) / 2.3e-3 (2-norm); the bars are 4-20x those
+BF16_CHECK = {"loss_rtol": 1e-3, "flip_share": 2e-3, "flip_atol": 2e-2, "grad_rtol": 5e-2,
+              "grad_norm_rtol": 2e-2}
 
 
 def _train_batch(cfg, rng, dev):
@@ -1273,19 +1308,21 @@ def _grad_errors(grads_gpu: dict, grads_cpu: dict):
 
 
 def gradient_check(model, batch, weights: str, phase: str = "train_gradient_check",
-                   **forward_kw) -> dict:
+                   tols=None, **forward_kw) -> dict:
     """One micro-batch's loss and gradients at dropout 0 on the card against
-    a CPU copy of the model (plain versions) that follows the card's ReLU
-    gates; fails past LOSS_RTOL, FLIP_SHARE, FLIP_ATOL, GRAD_RTOL or
-    GRAD_NORM_RTOL.  The same comparison with the CPU copy on its own gates
-    is reported beside it, unchecked, to show what the flipped gates alone
-    move."""
+    a CPU copy of the model (plain versions; the training build, so f32
+    parameters under any compute dtype) that follows the card's ReLU gates;
+    fails past ``tols`` (``F32_CHECK``: LOSS_RTOL, FLIP_SHARE, FLIP_ATOL,
+    GRAD_RTOL and GRAD_NORM_RTOL).  The same comparison with the CPU copy on
+    its own gates is reported beside it, unchecked, to show what the
+    flipped gates alone move."""
     from valle_tpu_torch.models import get_model
 
+    tols = tols or F32_CHECK
     t0 = time.perf_counter()
     gates, flips = {}, {}
     loss_gpu, grads_gpu = _micro_grads(model, batch, gates, flips, forward_kw)
-    cpu_model = get_model(model.cfg, device="cpu")
+    cpu_model = get_model(model.cfg, device="cpu", training=True)
     cpu_model.load_state_dict(model.state_dict())
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     loss_cpu, grads_cpu = _micro_grads(cpu_model, cpu_batch, gates, flips, forward_kw)
@@ -1302,25 +1339,25 @@ def gradient_check(model, batch, weights: str, phase: str = "train_gradient_chec
     n_flips = sum(f["gates"] for f in flips.values())
     check = {"phase": phase, "weights": weights,
              "dropout0_loss_gpu": loss_gpu, "dropout0_loss_cpu": loss_cpu,
-             "dropout0_loss_rel_err": loss_err, "loss_rtol": LOSS_RTOL,
-             "relu_gates": n_gates, "flipped_gates": n_flips, "flip_share": FLIP_SHARE,
+             "dropout0_loss_rel_err": loss_err, "loss_rtol": tols["loss_rtol"],
+             "relu_gates": n_gates, "flipped_gates": n_flips, "flip_share": tols["flip_share"],
              "flipped_gates_by_layer": {n: f["gates"] for n, f in flips.items() if f["gates"]},
-             "flipped_max_abs_h": flip_h, "flip_atol": FLIP_ATOL,
+             "flipped_max_abs_h": flip_h, "flip_atol": tols["flip_atol"],
              "worst_grads": {n: grad_err[n] for n in worst},
              "max_grad_rel_err": grad_err[worst[0]],
              "max_grad_norm_rel_err": max(grad_norm_err.values()),
              "median_grad_rel_err": float(np.median(list(grad_err.values()))),
-             "grad_rtol": GRAD_RTOL, "grad_norm_rtol": GRAD_NORM_RTOL,
+             "grad_rtol": tols["grad_rtol"], "grad_norm_rtol": tols["grad_norm_rtol"],
              "own_gates_worst_grads": {n: own_err[n] for n in own_worst},
              "own_gates_max_grad_norm_rel_err": max(own_norm_err.values()),
              "own_gates_median_grad_rel_err": float(np.median(list(own_err.values()))),
              "n_grads": len(grad_err), "seconds": time.perf_counter() - t0}
     emit(check)
-    assert loss_err <= LOSS_RTOL, (loss_gpu, loss_cpu)
-    assert n_flips <= FLIP_SHARE * n_gates, f"{n_flips} of {n_gates} ReLU gates flipped"
-    assert flip_h <= FLIP_ATOL, f"a ReLU gate flipped at |h| = {flip_h}"
-    assert grad_err[worst[0]] <= GRAD_RTOL, (worst[0], grad_err[worst[0]])
-    assert max(grad_norm_err.values()) <= GRAD_NORM_RTOL, max(grad_norm_err.values())
+    assert loss_err <= tols["loss_rtol"], (loss_gpu, loss_cpu)
+    assert n_flips <= tols["flip_share"] * n_gates, f"{n_flips} of {n_gates} ReLU gates flipped"
+    assert flip_h <= tols["flip_atol"], f"a ReLU gate flipped at |h| = {flip_h}"
+    assert grad_err[worst[0]] <= tols["grad_rtol"], (worst[0], grad_err[worst[0]])
+    assert max(grad_norm_err.values()) <= tols["grad_norm_rtol"], max(grad_norm_err.values())
     return check
 
 
@@ -1669,7 +1706,8 @@ def check_kernel2_captures(captured, run: str) -> list:
             f"kernel 2 in the {run} run ({mode}, B={b}, Tq={tq}, Tk={tk}) is off: {err}"
         assert rerun, f"kernel 2 in the {run} run ({mode}, B={b}, Tq={tq}): rerun differs"
         cases.append({"mode": mode, "b": b, "tq": tq, "tk": tk, "dtype": dtype,
-                      "max_abs_err": err, "tol": TOL[dtype], "rerun_bit_equal": rerun})
+                      "rate": kw.get("dropout_rate", 0.0), "max_abs_err": err,
+                      "tol": TOL[dtype], "rerun_bit_equal": rerun})
     return cases
 
 
@@ -2809,6 +2847,491 @@ def tts_train_cli_path(dev, files, root) -> dict:
     return counts
 
 
+# --------------------------------------------------- phases 16, 17 and 18
+
+TOK_UTTS, TOK_DEV_UTTS, TOK_DUR, TOK_BATCH = 64, 8, (4.0, 6.0), 16
+TOK_FBANK_UTTS, TOK_FBANK_DUR = 8, (8.0, 10.0)
+# a code of the card's encode may differ from the CPU copy's only where the
+# CPU's RVQ search had its two smallest distances within this share of the
+# residual's squared norm (the distances are r^2 - 2 r.e + e^2 in f32, and
+# the latents of two convolution and LSTM stacks differ in their last bits)
+CODE_TIE_RTOL = 1e-3
+BF16_CLI_FLAGS = ["--dtype", "bfloat16", "--remat", "dots_nobatch", "--attn-impl", "fused",
+                  "--dropout", "0.1", "--optimizer-name", "ScaledAdam", "--scheduler-name",
+                  "Eden", "--average-period", "2", "--valid-interval", "1000",
+                  "--save-every-n", "0", "--max-duration", "20", "--num-buckets", "2",
+                  "--accumulate-grad-steps", "2", "--batch-quant", "1", "--log-interval", "1",
+                  "--tensorboard", "false", "--seed", str(SEED)]
+CHECK_ROWS = 2  # rows of the bf16 CLI's first micro-batch in its gradient check
+REMAT_STEPS = 5
+
+
+def _write_wav_tsv(root, name: str, n: int, dur, seed: int) -> Path:
+    """``n`` seeded wavs of ``dur`` seconds, half at 16 kHz (so that the CLI
+    resamples them) and half at 24 kHz: a vibrato tone with an envelope and
+    noise; and their TSV (utt_id, wav path, a text of the symbol table's
+    words).  Ids are LibriTTS-like (speaker_book_utt_seg)."""
+    from valle_tpu_torch.data import write_wav
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        sr = (16000, 24000)[i % 2]
+        t = np.arange(int(rng.uniform(*dur) * sr)) / sr
+        f0 = rng.uniform(90, 250)
+        phase = 2 * np.pi * f0 * t + 3.0 * np.sin(2 * np.pi * 5.0 * t)
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(1, 4) * t) ** 2
+        wav = 0.3 * env * (np.sin(phase) + 0.3 * np.sin(3 * phase)) + 0.02 * rng.randn(t.size)
+        path = root / f"{name}_{i:03d}.wav"
+        write_wav(str(path), wav.astype(np.float32), sr)
+        rows.append(f"{i % 4}_{100 + i % 4}_{i:06d}_000000\t{path}\t"
+                    f"{_text_of(rng, rng.randint(40, 101))}")
+    tsv = root / f"{name}.tsv"
+    tsv.write_text("\n".join(rows) + "\n")
+    return tsv
+
+
+def rvq_flips(codebooks, latents, codes):
+    """The CPU's RVQ search on its ``latents`` beside the card's ``codes``:
+    at the first quantizer where a frame's card code differs, the gap
+    between the CPU's two smallest distances there over |r|^2 of that
+    frame's residual.  Returns one record per differing frame."""
+    import torch
+
+    residual = latents.transpose(1, 2).double()
+    cb_all = codebooks.double()
+    done = torch.zeros(codes.shape[:2], dtype=torch.bool)
+    flips = []
+    for q in range(codes.shape[-1]):
+        cb = cb_all[q]
+        r2 = (residual**2).sum(-1, keepdim=True)
+        d2 = r2 - 2 * residual @ cb.t() + (cb**2).sum(-1)[None, None, :]
+        idx = torch.argmin(d2, dim=-1)
+        new = (codes[..., q] != idx) & ~done
+        if new.any():
+            top2 = d2.topk(2, dim=-1, largest=False).values
+            for b, t in new.nonzero().tolist():
+                flips.append({"b": b, "t": t, "q": q,
+                              "gap_rel": float((top2[b, t, 1] - top2[b, t, 0]) / r2[b, t, 0])})
+        done |= new
+        residual = residual - cb[codes[..., q].long()]  # follow the card's path
+    return flips
+
+
+def tokenize_cli_path(dev, files, root) -> dict:
+    """The port's tokenize CLI on the card: 64 + 8 seeded wavs of 4-6 s
+    (half at 16 kHz) through the full-width random EnCodec in batches of 16,
+    then 8 wavs of 8-10 s in Fbank mode, and the stats CLI; one batch's
+    codes against a CPU copy of the codec, with the RVQ top-two gap of every
+    frame whose code differs.  Returns the launch counts (no attention
+    kernel runs) and the two corpus directories."""
+    import contextlib
+    import io
+
+    import torch
+
+    from valle_tpu_torch.bin import stats as stats_cli
+    from valle_tpu_torch.bin import tokenize_dataset as tok_cli
+    from valle_tpu_torch.codec import load_codec
+    from valle_tpu_torch.codec.encodec_model import encode_latents, full_f32
+    from valle_tpu_torch.data import convert_audio, read_wav
+
+    wavs = root / "wavs"
+    wavs.mkdir(parents=True)
+    tsvs = {"train": _write_wav_tsv(wavs, "train", TOK_UTTS, TOK_DUR, SEED + 21),
+            "dev": _write_wav_tsv(wavs, "dev", TOK_DEV_UTTS, TOK_DUR, SEED + 22),
+            "fbank": _write_wav_tsv(wavs, "fbank", TOK_FBANK_UTTS, TOK_FBANK_DUR, SEED + 23)}
+    codes_dir, mels_dir = root / "codes", root / "mels"
+    reset_launches()
+    runs = {}
+    for split in ("train", "dev"):
+        t0 = time.perf_counter()
+        out = tok_cli.main(["--tsv", str(tsvs[split]), "--output-dir", str(codes_dir),
+                            "--split", split, "--codec-checkpoint", str(files["codec.npz"]),
+                            "--text-extractor", "chars", "--batch-frames", str(TOK_BATCH)])
+        runs[split] = out | {"cli_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    fbank = tok_cli.main(["--tsv", str(tsvs["fbank"]), "--output-dir", str(mels_dir),
+                          "--split", "train", "--audio-extractor", "Fbank",
+                          "--text-extractor", "chars"])
+    fbank["cli_s"] = time.perf_counter() - t0
+    counts = read_launches()
+    stats_out = {}
+    for name, d in (("codes", codes_dir), ("mels", mels_dir)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats_cli.main(["--manifest-dir", str(d)])
+        stats_out[name] = buf.getvalue()
+    assert "Cuts count: 64" in stats_out["codes"] and "Cuts count: 8" in stats_out["mels"]
+
+    # the first training batch again, on the card and on a CPU copy
+    rows = [line.split("\t") for line in tsvs["train"].read_text().splitlines()[:TOK_BATCH]]
+    batch_wavs = []
+    for _, path, _ in rows:
+        wav, sr = read_wav(path)
+        batch_wavs.append(convert_audio(wav, sr, 24000, 1)[0])
+    batch = np.zeros((len(rows), 1, max(w.shape[-1] for w in batch_wavs)), np.float32)
+    for k, w in enumerate(batch_wavs):
+        batch[k, 0, : w.shape[-1]] = w
+    card = load_codec(files["codec.npz"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes_card = card.encode(batch)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    with torch.inference_mode(), full_f32():
+        lat_card = encode_latents(card.params, torch.from_numpy(batch).to(dev), card.cfg).cpu()
+    codes_card = codes_card.cpu()
+    del card
+    torch.cuda.empty_cache()
+    cpu = load_codec(files["codec.npz"], device="cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lat_cpu = encode_latents(cpu.params, torch.from_numpy(batch), cpu.cfg)
+    cpu_s = time.perf_counter() - t0
+    codes_cpu = cpu.encode(batch)
+    # frames past each wav's end are cut by the CLI: compare the kept ones
+    keep = torch.zeros(codes_card.shape[:2], dtype=torch.bool)
+    for k, w in enumerate(batch_wavs):
+        keep[k, : int(np.ceil(w.shape[-1] / 320))] = True
+    equal = (codes_card == codes_cpu).all(-1)
+    share = float(equal[keep].float().mean())
+    flips = [f for f in rvq_flips(cpu.params["quantizer"], lat_cpu, codes_card)
+             if keep[f["b"], f["t"]]]
+    lat_err = float((lat_card - lat_cpu).abs().max() / lat_cpu.abs().max())
+    audio_s = runs["train"]["audio_seconds"]
+    emit({"phase": "tokenize_cli", "codec": "EnCodec 24 kHz default widths, seeded random "
+          "weights (.npz), f32 without TF32", "batch_frames": TOK_BATCH,
+          "wavs": {"train": TOK_UTTS, "dev": TOK_DEV_UTTS, "seconds": TOK_DUR,
+                   "sample_rates": [16000, 24000]},
+          "encodec": {split: r for split, r in runs.items()},
+          "audio_s_per_s_encode": audio_s / runs["train"]["encode_seconds"],
+          "audio_s_per_s_cli": audio_s / runs["train"]["cli_s"],
+          "fbank": fbank | {"wavs": TOK_FBANK_UTTS, "seconds": TOK_FBANK_DUR},
+          "batch_encode_s": batch_s, "batch_audio_s": float(sum(w.shape[-1] for w in batch_wavs)
+                                                             / 24000),
+          "cpu_encoder_s": cpu_s, "latents_max_rel_err": lat_err,
+          "batch_frames_equal_share": share, "code_match": CODE_MATCH,
+          "frames_differing": len(flips), "flips": flips[:20], "code_tie_rtol": CODE_TIE_RTOL,
+          "stats": stats_out, "launches": counts})
+    assert share >= CODE_MATCH, f"only {share} of one batch's frames equal the CPU copy's"
+    off = [f for f in flips if f["gap_rel"] > CODE_TIE_RTOL]
+    assert not off, f"codes differ from the CPU copy's without a near-tie: {off}"
+    return counts, codes_dir, mels_dir
+
+
+def _f32_state(state) -> dict:
+    """The dtypes of every parameter, optimizer state tensor and averaged
+    weight of a training state."""
+    import torch
+
+    opt = {v.dtype for s in state.optimizer.state.values() for v in s.values()
+           if isinstance(v, torch.Tensor) and v.is_floating_point()}
+    return {"params": sorted({str(p.dtype) for p in state.model.parameters()}),
+            "optimizer": sorted(str(d) for d in opt),
+            "model_avg": sorted({str(v.dtype) for v in (state.model_avg or {}).values()})}
+
+
+def train_cli_bf16_path(dev, files, codes_dir, mels_dir) -> dict:
+    """The port's training CLI in bf16 with remat on the tokenize CLI's
+    corpora: the full-width VALL-E through stage 1 (1 epoch, with the OOM
+    scan) and stage 2 (1 more epoch) under ``--dtype bfloat16 --remat
+    dots_nobatch``, then the final averaged weights through the infer CLI
+    in bf16 to a wav; the TTS baseline on the Fbank corpus under ``--remat
+    full`` for 2 steps.  Checks the launches per step, the captured kernel
+    launches against their plain versions, f32 parameters and optimizer
+    state, finite losses, and one micro-batch's bf16 loss and gradients
+    against a bf16 CPU copy."""
+    import torch
+
+    from valle_tpu_torch.bin import infer as infer_cli
+    from valle_tpu_torch.bin import train as train_cli
+    from valle_tpu_torch.data import read_wav
+    from valle_tpu_torch.train.state import partition_params
+
+    exp = codes_dir.parent / "exp_bf16"
+    steps = []
+    training = {"on": False}
+    make_step = train_cli.make_train_step
+
+    def counted(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng, epoch):
+            if "micro" not in kept:  # the first training batch's first micro-batch
+                kept["micro"] = {k: batch[k][:1, :CHECK_ROWS].clone() for k in (
+                    "text_tokens", "text_tokens_lens", "audio_features", "audio_features_lens")}
+            before = read_launches()
+            training["on"] = True
+            state, metrics = step(state, batch, rng, epoch)
+            training["on"] = False
+            steps.append({"stage": kw["train_stage"], "micro_batches":
+                          batch["text_tokens"].shape[0],
+                          "launches": _delta(read_launches(), before)})
+            return state, metrics
+
+        return run
+
+    on = lambda: training["on"]  # noqa: E731
+    kept: dict = {}
+    train_cli.make_train_step = counted
+    captured2, restore2 = capture_kernel2(on)
+    captured3, restore3 = capture_kernel3(on)
+    argv = ["--manifest-dir", str(codes_dir), "--exp-dir", str(exp), *BF16_CLI_FLAGS]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        first = train_cli.main(argv + ["--train-stage", "1", "--num-epochs", "1",
+                                       "--oom-check", "true"])
+        stage1_s = time.perf_counter() - t0
+        first_numbers, first_dtypes = _cli_numbers(first), _f32_state(first["state"])
+        del first
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        second = train_cli.main(argv + ["--train-stage", "2", "--num-epochs", "2",
+                                        "--oom-check", "false"])
+        stage2_s = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        restore2()
+        restore3()
+        train_cli.make_train_step = make_step
+    second_numbers, second_dtypes = _cli_numbers(second), _f32_state(second["state"])
+    losses = first_numbers["losses"] + second_numbers["losses"]
+    assert all(np.isfinite(losses)), losses
+    for d in (first_dtypes, second_dtypes):
+        assert d == {"params": ["torch.float32"], "optimizer": ["torch.float32"],
+                     "model_avg": ["torch.float32"]}, d
+    for rec in steps:  # remat: kernel 2 in the forward and again in the recompute
+        want = 12 * rec["micro_batches"]
+        assert rec["launches"] == {"ragged_decode": 0, "prefix_attention": 2 * want,
+                                   "prefix_attention_bwd": want, "flash_attention": 0,
+                                   "flash_attention_bwd": 0}, rec
+    saved = torch.load(exp / "checkpoints" / "epoch-2.pt", map_location="cpu",
+                       weights_only=False)
+    ckpt_dtypes = sorted({str(v.dtype) for part in ("model", "model_avg")
+                          for v in saved[part].values() if v.is_floating_point()})
+    assert ckpt_dtypes == ["torch.float32"], ckpt_dtypes
+    del saved
+    k2_cases = check_kernel2_captures(captured2, "bf16 train CLI")
+    k3_cases = check_kernel3_captures(captured3, "bf16 train CLI")
+    assert {c["dtype"] for c in k2_cases + k3_cases} == {"bfloat16"}
+    assert any(c["mode"].startswith("prefix") for c in k2_cases), "no prefix-mode launch"
+    del captured2, captured3
+
+    # the first training batch's first micro-batch (CHECK_ROWS rows) at
+    # dropout 0 in bf16 against a bf16 CPU copy, at the trained weights, with
+    # every parameter taking a gradient as in a fresh model
+    model = second["state"].model
+    for p in partition_params(model, 0)[0].values():
+        p.requires_grad_(True)
+    micro = kept["micro"]
+    del second
+    torch.cuda.empty_cache()
+    check = gradient_check(model, micro, "after the bf16 CLI's two stages",
+                           phase="train_bf16_gradient_check", tols=BF16_CHECK,
+                           nar_stage=model.cfg.num_quantizers // 2)
+    del model
+    torch.cuda.empty_cache()
+
+    out_dir = exp.parent / "infer_bf16"
+    t0 = time.perf_counter()
+    infer_cli.main(["--checkpoint", str(exp / "checkpoints" / "epoch-2.pt"),
+                    "--use-averaged-model", "true", "--dtype", "bfloat16",
+                    "--codec-checkpoint", str(files["codec.npz"]),
+                    "--text-tokens", str(codes_dir / "unique_text_tokens.k2symbols"),
+                    "--text-extractor", "chars", "--attn-impl", "flash", "--seed", str(SEED),
+                    "--max-new-tokens", "150", "--text-prompts", "the voice reads a line",
+                    "--audio-prompts", str(files["prompt.wav"]), "--text",
+                    "every request waits its turn", "--output-dir", str(out_dir)])
+    infer_s = time.perf_counter() - t0
+    wav, sr = read_wav(str(out_dir / "0.wav"))
+    assert wav.size > 0 and np.isfinite(wav).all(), "the bf16-trained model's wav is not finite"
+    emit({"phase": "train_cli_bf16", "model": "VALL-E default ModelConfig (367.4 M "
+          "parameters), bf16 compute over f32 parameters, remat dots_nobatch, through "
+          "valle_tpu_torch.bin.train.main on the tokenize CLI's corpus",
+          "flags": BF16_CLI_FLAGS, "stage1": first_numbers, "stage2": second_numbers,
+          "stage_seconds": [stage1_s, stage2_s], "launches_per_step": steps,
+          "state_dtypes": [first_dtypes, second_dtypes], "checkpoint_dtypes": ckpt_dtypes,
+          "kernel2_captures": k2_cases, "kernel3_captures": k3_cases,
+          "gradient_check_rows": CHECK_ROWS, "gradient_check": {
+              k: check[k] for k in ("dropout0_loss_rel_err", "flipped_gates",
+                                    "max_grad_rel_err", "max_grad_norm_rel_err",
+                                    "median_grad_rel_err", "seconds")},
+          "infer": {"seconds": infer_s, "wav_samples": int(wav.size), "sample_rate": sr}})
+    tts = tts_train_cli_bf16_path(dev, mels_dir)
+    return {"train_cli_bf16": counts, "tts_train_cli_bf16": tts}
+
+
+def tts_train_cli_bf16_path(dev, mels_dir) -> dict:
+    """The full-width TTS baseline through the training CLI on the tokenize
+    CLI's Fbank corpus, ``--dtype bfloat16 --remat full``, 2 steps; kernels
+    2, 3 and 4 (forward and backward) captured past the OOM scan and held
+    against their plain versions."""
+    import torch
+
+    from valle_tpu_torch.bin import train as train_cli
+
+    steps = []
+    training = {"on": False}
+    make_step = train_cli.make_train_step
+
+    def counted(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng, epoch):
+            before = read_launches()
+            training["on"] = True
+            state, metrics = step(state, batch, rng, epoch)
+            training["on"] = False
+            steps.append(_delta(read_launches(), before))
+            return state, metrics
+
+        return run
+
+    on = lambda: training["on"]  # noqa: E731
+    train_cli.make_train_step = counted
+    captured2, restore2 = capture_kernel2(on)
+    captured3, restore3 = capture_kernel3(on)
+    fwd4, bwd4, restore4 = capture_kernel4(on)
+    try:
+        reset_launches()
+        out = train_cli.main(["--manifest-dir", str(mels_dir), "--exp-dir",
+                              str(mels_dir.parent / "tts_exp_bf16"), "--model-name",
+                              "Transformer", "--dtype", "bfloat16", "--remat", "full",
+                              "--attn-impl", "flash", "--dropout", "0", "--num-epochs", "1",
+                              "--max-duration", "40", "--num-buckets", "1", "--batch-quant", "1",
+                              "--valid-interval", "1000", "--save-every-n", "0",
+                              "--log-interval", "1", "--tensorboard", "false",
+                              "--seed", str(SEED)])
+        counts = read_launches()
+    finally:
+        restore2()
+        restore3()
+        restore4()
+        train_cli.make_train_step = make_step
+    numbers, dtypes = _cli_numbers(out), _f32_state(out["state"])
+    del out
+    torch.cuda.empty_cache()
+    assert numbers["steps"] == 2 and all(np.isfinite(numbers["losses"])), numbers
+    assert dtypes["params"] == dtypes["optimizer"] == ["torch.float32"], dtypes
+    want = {"ragged_decode": 0, "prefix_attention": 48, "prefix_attention_bwd": 24,
+            "flash_attention": 24, "flash_attention_bwd": 12}
+    assert all(s == want for s in steps), f"launches per step {steps}, expected {want}"
+    k2_cases = check_kernel2_captures(captured2, "bf16 TTS train CLI")
+    k3_cases = check_kernel3_captures(captured3, "bf16 TTS train CLI")
+    k4_cases = check_kernel4_captures(fwd4, bwd4, "bf16 TTS train CLI")
+    assert k2_cases and k3_cases and {c["pass"] for c in k4_cases} == {"forward", "backward"}, \
+        "a kernel of the bf16 TTS train CLI's steps was not captured"
+    assert {c["dtype"] for c in k2_cases + k3_cases + k4_cases} == {"bfloat16"}
+    emit({"phase": "tts_train_cli_bf16", "model": "Transformer TTS default widths (353.7 M "
+          "parameters), bf16 over f32 parameters, remat full, attn_impl flash, attention "
+          "dropout 0, on the tokenize CLI's Fbank corpus",
+          "corpus": {"train": TOK_FBANK_UTTS, "seconds": TOK_FBANK_DUR}, **numbers,
+          "state_dtypes": dtypes, "launches_per_step": steps, "kernel2_captures": k2_cases,
+          "kernel3_captures": k3_cases, "kernel4_captures": k4_cases})
+    return counts
+
+
+def remat_ab_path(dev) -> dict:
+    """One full-width VALL-E training step at phase 9's shape and batch
+    (dropout 0.1, one fixed step generator) in f32 without remat and in bf16
+    under each remat policy: the accumulation group's loss, gradients and
+    generator state against bf16 without remat, the peak memory, kernel 2 / 3
+    launches, and the seconds of the whole step (median of REMAT_STEPS)."""
+    import functools
+
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.nn import layers
+    from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
+    from valle_tpu_torch.train.step import (accumulate_gradients, init_train_state,
+                                            make_train_step)
+
+    batch = _train_batch(ModelConfig(), np.random.RandomState(SEED + 5), dev)
+    make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
+    policy = layers.dots_nobatch_policy
+    runs, base = {}, None
+    for dtype, remat in (("float32", "none"), ("bfloat16", "none"), ("bfloat16", "full"),
+                         ("bfloat16", "dots_nobatch")):
+        cfg = ModelConfig(attn_impl="fused", dtype=dtype, remat=remat)
+        torch.manual_seed(SEED)
+        model = get_model(cfg, training=True)
+        state = init_train_state(model, make_opt, train_stage=0)
+        saved_ops: dict = {}
+
+        def observed(ctx, op, *args, **kwargs):
+            decision = policy(ctx, op, *args, **kwargs)
+            if not ctx.is_recompute and decision.name == "MUST_SAVE":
+                saved_ops[str(op)] = saved_ops.get(str(op), 0) + 1
+            return decision
+
+        layers.dots_nobatch_policy = observed
+        try:
+            gen = torch.Generator().manual_seed(SEED + 7)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            metrics = accumulate_gradients(model, batch, 0, gen)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            grad_peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            layers.dots_nobatch_policy = policy
+        run = {"dtype": dtype, "remat": remat, "loss": float(metrics["loss"]),
+               "launches": launches, "accumulation_peak_gib": grad_peak,
+               "policy_saved_ops": saved_ops}
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        if (dtype, remat) == ("bfloat16", "none"):
+            base = (metrics["loss"], grads, gen.get_state())
+        elif dtype == "bfloat16":
+            run["loss_max_abs_diff"] = float((metrics["loss"] - base[0]).abs())
+            run["grad_max_abs_diff"] = max(float((g - base[1][n]).abs().max())
+                                           for n, g in grads.items())
+            run["generator_state_equal"] = bool(torch.equal(gen.get_state(), base[2]))
+            del grads
+        state.optimizer.zero_grad(set_to_none=True)
+        step = make_train_step(get_lr_fn("eden", 0.05, warmup_steps=200), train_stage=0)
+        step(state, batch, torch.Generator().manual_seed(SEED), 0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for n in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch, torch.Generator().manual_seed(SEED + n), 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        run |= {"step_s": times, "step_s_median": float(np.median(times)),
+                "step_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        runs[f"{dtype} {remat}"] = run
+        del state, model, step
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    per_group = TRAIN_A * 24
+    for name, run in runs.items():
+        twice = run["remat"] != "none"
+        assert run["launches"]["prefix_attention"] == per_group * (2 if twice else 1), run
+        assert run["launches"]["prefix_attention_bwd"] == per_group, run
+        if twice:
+            assert run["loss_max_abs_diff"] == 0.0 and run["grad_max_abs_diff"] == 0.0, run
+            assert run["generator_state_equal"], run
+            assert (run["accumulation_peak_gib"]
+                    < runs["bfloat16 none"]["accumulation_peak_gib"]), run
+    assert runs["bfloat16 dots_nobatch"]["policy_saved_ops"], "the policy saved nothing"
+    f32, bf16 = runs["float32 none"]["step_s_median"], runs["bfloat16 none"]["step_s_median"]
+    emit({"phase": "remat_ab", "model": "VALL-E default ModelConfig, attn_impl fused, dropout "
+          "0.1, train_stage 0, phase 9's batch", "accumulation": TRAIN_A, "batch": TRAIN_B,
+          "text_tokens": TRAIN_S, "frames": TRAIN_T, "runs": runs,
+          "bf16_over_f32_step_speedup": f32 / bf16,
+          "frames_per_s": {k: TRAIN_A * TRAIN_B * TRAIN_T / r["step_s_median"]
+                           for k, r in runs.items()}})
+    return {f"remat_ab_{name.replace(' ', '_')}": run["launches"] for name, run in runs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2867,6 +3390,10 @@ def main() -> int:
         paths.update(serve_path(dev, files))
         paths["continuous"], paths["continuous_generate"] = continuous_path(dev, files)
         paths.update(train_cli_path(dev, files, hand_fed_step_s))
+        paths["tokenize_cli"], codes_dir, mels_dir = tokenize_cli_path(
+            dev, files, files["dir"] / "data_cli")
+        paths.update(train_cli_bf16_path(dev, files, codes_dir, mels_dir))
+    paths.update(remat_ab_path(dev))
 
     def entry(name, source, replaces, res, path):
         by_path = {p: counts[name] for p, counts in paths.items()}

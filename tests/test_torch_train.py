@@ -12,7 +12,8 @@ against the JAX package, with the JAX init bridged into the port:
     plain and with the grad-norm clip and model averaging on: per-step
     losses rtol 1e-4, final parameters and averaged model rtol 1e-4 /
     atol 2e-5;
-  - stage filtering, bf16 refusal, and dropout only in train mode.
+  - stage filtering, the refusal of bf16 parameters (the bf16 training
+    build holds f32 ones), and dropout only in train mode.
 """
 
 import functools
@@ -190,9 +191,14 @@ def test_stage_filtering_freezes_the_other_decoder(variables, train_stage, train
 
 
 def test_bf16_training_raises():
+    """bf16 parameters (the inference build) are refused; the training build
+    of a bf16 config holds f32 parameters and is taken."""
     model = get_model(ModelConfig(dtype="bfloat16", **KW), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(ValueError, match="bf16"):
         init_train_state(model, ScaledAdam)
+    model = get_model(ModelConfig(dtype="bfloat16", **KW), device="cpu", training=True)
+    state = init_train_state(model, ScaledAdam)
+    assert state.model.training and all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_dropout_only_in_train_mode_and_reproducible(variables):

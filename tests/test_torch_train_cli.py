@@ -27,8 +27,9 @@ synthetic corpus (``tests/torch_corpus.py``), on the CPU:
       repeats the uninterrupted run (SpecAugment's generator is saved);
       an unknown card trains with ``mfu=n/a``;
   (f) ``--oom-check true`` leaves the losses and weights bit-equal;
-  (g) the refusals: ``--device cuda`` without CUDA, ``--num-processes 2``,
-      ``--visualize true`` and ``--dtype bfloat16``.
+  (g) the refusals: ``--device cuda`` without CUDA, ``--num-processes 2``
+      and ``--visualize true`` (``--dtype bfloat16`` trains:
+      ``tests/test_torch_train_bf16.py``).
 """
 
 import functools
@@ -346,6 +347,9 @@ def test_refusals(corpus, tmp_path):
         train.main(_argv(corpus, exp, "--num-processes", "2"))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         train.main(_argv(corpus, exp, "--visualize", "true"))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        train.main(_argv(corpus, exp, *FAST, "--dtype", "bfloat16"))
-    assert "no effect" in train.get_parser().format_help()
+    # bf16 mixed precision and remat are ported (tests/test_torch_train_bf16.py,
+    # tests/test_torch_remat.py): only --rng-impl, a JAX PRNG's name, has no effect
+    remat = next(a for a in train.get_parser()._actions if a.dest == "remat")
+    assert "no effect" not in remat.help
+    assert "no effect" in next(a for a in train.get_parser()._actions
+                               if a.dest == "rng_impl").help

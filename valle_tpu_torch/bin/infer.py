@@ -17,7 +17,9 @@ An Orbax directory needs JAX's checkpoint stack and is refused.
 host, from the f32 checkpoint, then moves the int8 weights and their f32
 scales to the card (``nn/qdense.py``; ``w8a8`` also quantizes activations).
 ``--codec-checkpoint`` is the ``.npz`` that ``python -m
-valle_tpu.bin.convert_codec`` writes from the public EnCodec weights.
+valle_tpu_torch.bin.convert_codec`` writes from the public EnCodec weights.
+A ``.pt`` of f32 weights (the train CLI's, in f32 or bf16) is cast to
+``--dtype`` as it loads.
 
 Run: python -m valle_tpu_torch.bin.infer --text "..." --text-prompts "..."
      --audio-prompts p.wav --checkpoint model.pt --codec-checkpoint codec.npz

@@ -31,9 +31,14 @@ What differs from the JAX CLI, and why:
     the parameters and the module as they were when the loss went bad;
   - ``--rng-impl`` names a JAX PRNG and has no effect here;
   - ``--num-processes`` above 1 (data parallelism, ROADMAP queue 1 item 10)
-    and ``--visualize true`` (``models/visualizer.py``, item 9) raise;
-    ``--dtype bfloat16`` raises in ``init_train_state`` (item 4); ``--remat``
-    is accepted and has no effect.
+    and ``--visualize true`` (``models/visualizer.py``, item 9) raise.
+
+``--dtype bfloat16`` trains in mixed precision as the JAX CLI does: f32
+parameters, gradients, optimizer state, averaged model and checkpoints,
+bf16 compute (``models.get_model(cfg, training=True)``); the OOM scan and
+validation run in the same dtype, and MFU is logged against the card's
+bf16 peak.  ``--remat full | dots_nobatch`` recomputes each layer of the
+stacks in the backward pass (``nn/layers.py``).
 
 Run: python -m valle_tpu_torch.bin.train --manifest-dir data/ --exp-dir exp/ ...
 """
@@ -222,7 +227,7 @@ def run(args) -> dict:
     if cfg.model_name.lower() == "transformer" and args.train_stage != 0:
         raise ValueError("the Transformer baseline has no AR/NAR stages; use --train-stage 0")
     torch.manual_seed(args.seed)
-    model = get_model(cfg, device=dev)
+    model = get_model(cfg, device=dev, training=True)
     logging.info(f"model config: {cfg}")
 
     collater = get_text_token_collater(str(args.manifest_dir / args.text_tokens))

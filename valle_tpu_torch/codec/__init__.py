@@ -1,9 +1,10 @@
 """The EnCodec codec of the port and its weight files.
 
 Codec weights travel as the ``.npz`` that ``python -m
-valle_tpu.bin.convert_codec`` writes from the public EnCodec weights: the
-JAX params tree flattened to ``a/b/c`` keys, with the LSTM layer lists saved
-under digit keys.  ``load_codec`` reads it without JAX; ``save_codec_npz``
+valle_tpu_torch.bin.convert_codec`` (or the JAX package's converter) writes
+from the public EnCodec weights (``codec/convert.py``): the params tree
+flattened to ``a/b/c`` keys, with the LSTM layer lists saved under digit
+keys.  ``load_codec`` reads it without JAX; ``save_codec_npz``
 writes a tree in the same layout.
 """
 

@@ -282,7 +282,7 @@ def random_codec_params(cfg: EncodecConfig = EncodecConfig(), seed: int = 0) -> 
     """Seeded random codec weights in the JAX layout (numpy): every conv and
     LSTM weight and bias N(0, 1/fan-in), the codebooks N(0, 1) (all-zero
     codebooks would tie every distance).  For tests and smoke runs only; the
-    real weights come from ``python -m valle_tpu.bin.convert_codec``."""
+    real weights come from ``python -m valle_tpu_torch.bin.convert_codec``."""
     rng = np.random.RandomState(seed)
 
     def normal(shape, fan_in):

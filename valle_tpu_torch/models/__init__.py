@@ -3,14 +3,17 @@
 ``get_model`` builds VALL-E, VALL-F or the Transformer TTS baseline from a
 :class:`ModelConfig` on the card (or on ``device``) in eval mode, with weights
 from PyTorch's default initialisers under the caller's ``torch.manual_seed``,
-or from a ``state_dict``, optionally int8-quantized (``nn/qdense.py``).  It
-casts the model for the config's compute dtype, which serves inference: the
-VALL-E models as the JAX package computes (f32 embeddings and norms, the
-rest in the compute dtype), the TTS baseline wholly;
-training goes through ``valle_tpu_torch.train.step.init_train_state``, which
-puts the model in train mode and refuses bf16 (the JAX package keeps f32
-master weights under a bf16 compute dtype; that is not ported yet).  The
-``scaling_xformers`` variants need ``nn/scaling.py``, which is not ported yet.
+or from a ``state_dict``, optionally int8-quantized (``nn/qdense.py``).
+
+Every module computes in the config's compute dtype and casts its weights
+to it at the call, as flax's modules do over f32 parameters.  For inference
+``get_model`` makes that cast once (the embeddings, positional embeddings
+and norms stay f32, as they compute in f32); with ``training=True`` it
+keeps every parameter f32, the training build: bf16 mixed precision with
+f32 master weights, gradients and optimizer state, which
+``valle_tpu_torch.train.step.init_train_state`` takes.  ``cfg.remat`` sets
+the layer remat of training (``nn/layers.py``).  The ``scaling_xformers``
+variants need ``nn/scaling.py``, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ from valle_tpu_torch.nn.qdense import SCALE_SUFFIX, quantize_variables
 from valle_tpu_torch.utils import resolve_device
 
 # modules whose parameters stay f32 under a bf16 compute dtype: flax's nn.Embed
-# without a dtype returns its f32 table, and LayerNorm computes in f32
-_F32_MODULES = (TokenEmbedding, SinePositionalEmbedding, torch.nn.LayerNorm)
+# without a dtype returns its f32 table, and LayerNorm and BatchNorm compute in f32
+_F32_MODULES = (TokenEmbedding, SinePositionalEmbedding, torch.nn.LayerNorm,
+                torch.nn.BatchNorm1d)
 
 
 def str2bool(v) -> bool:
@@ -70,7 +74,8 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--kv-cache-dtype", type=str, default="model",
                         help="model | int8 (int8 halves decode KV reads)")
     parser.add_argument("--remat", type=_remat_policy, default="none",
-                        help="layer remat policy of the JAX trainer; no effect here")
+                        help="layer remat in training: none | full | dots_nobatch (keep the "
+                        "Dense projections' outputs, recompute attention); true = full")
 
 
 def config_from_args(args) -> ModelConfig:
@@ -96,11 +101,11 @@ def config_from_args(args) -> ModelConfig:
 
 
 def _cast_for_compute(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
-    """Cast the float parameters and buffers of a VALL-E model to ``dtype``,
-    in place, except those of the embeddings and norms (and weights tied to
-    an embedding) and int8 weights' scales: flax's f32 ``param_dtype`` under
-    a compute ``dtype``, where the cast that flax makes at every call is
-    made once."""
+    """Cast the float parameters and buffers of a model to ``dtype``, in
+    place, except those of the embeddings and norms (and weights tied to an
+    embedding) and int8 weights' scales: flax's f32 ``param_dtype`` under a
+    compute ``dtype``, where the cast that flax makes at every call is made
+    once."""
     keep = {id(t) for m in model.modules() if isinstance(m, _F32_MODULES)
             for t in (*m.parameters(), *m.buffers())}
     for m in model.modules():
@@ -110,16 +115,19 @@ def _cast_for_compute(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Mo
     return model
 
 
-def get_model(cfg: ModelConfig, device=None, state_dict=None, quantize: bool = False):
+def get_model(cfg: ModelConfig, device=None, state_dict=None, quantize: bool = False,
+              training: bool = False):
     """VALLE / VALLF / TransformerTTS for ``cfg`` on ``device`` (default: the
-    card; raises without CUDA), in eval mode and cast for the config's
-    compute dtype.
+    card; raises without CUDA), in eval mode.
 
     state_dict: weights to load (f32, or int8 with scales as
       ``utils/bridge.py`` gives a quantized JAX tree).
     quantize: quantize the ``DEFAULT_TARGETS`` weights to int8
       (``nn/qdense.py``) on the host, from the f32 weights, before the cast
-      and the move to ``device``; ``cfg.act_quant`` then selects W8A8."""
+      and the move to ``device``; ``cfg.act_quant`` then selects W8A8.
+    training: the training build: every parameter stays f32 and each module
+      casts to ``cfg.compute_dtype`` at its call (the default casts the
+      weights once, for inference)."""
     if cfg.scaling_xformers:
         raise NotImplementedError("scaling_xformers needs nn/scaling.py, not ported yet")
     name = cfg.model_name.lower()
@@ -137,10 +145,8 @@ def get_model(cfg: ModelConfig, device=None, state_dict=None, quantize: bool = F
         model.load_state_dict(state_dict)
     if quantize:
         quantize_variables(model)
-    if isinstance(model, VALLE):
+    if not training:
         _cast_for_compute(model, cfg.compute_dtype)
-    else:
-        model.to(dtype=cfg.compute_dtype)
     return model.to(device=dev).eval()
 
 

@@ -1,8 +1,6 @@
 """Model configuration: the twin of ``valle_tpu/models/config.py``.
 
 Same fields, defaults and validation; ``compute_dtype`` returns a torch dtype.
-``remat``, which only the JAX trainer reads, is kept so that one
-configuration describes both packages.
 """
 
 from __future__ import annotations
@@ -42,7 +40,7 @@ class ModelConfig:
     # Decode KV-cache storage: "model" keeps K/V in the compute dtype,
     # "int8" stores symmetric per-(token, head) int8 values + f32 scales.
     kv_cache_dtype: str = "model"  # model | int8
-    remat: str = "none"  # training-only in the JAX package; no effect here
+    remat: str = "none"  # layer remat in training: none | full | dots_nobatch
     # with int8-quantized weights (nn.qdense.quantize_variables), also
     # quantize activations per row at run time: W8A8 (no effect on float weights)
     act_quant: bool = False

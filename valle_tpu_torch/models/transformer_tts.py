@@ -13,7 +13,15 @@ Parameter names follow the JAX module's attribute names; the prenet is one
 ``nn.Sequential`` (``decoder_prenet.0``, ``.3``, ``.6``).  Dropout is active
 in train mode only and draws from the forward's CPU generator ``rng``: the
 attention and layer dropout at ``cfg.dropout``, both positional embeddings
-at 0.1, the prenet at 0.5.  The ``scaling_xformers`` variant needs
+at 0.1, the prenet at 0.5.  Both stacks take ``cfg.remat``.
+
+Mixed precision is the JAX module's: the parameters are f32, the text
+embedding and positional encodings compute in f32, the stacks get the
+compute dtype (their norms compute in f32, so the encoder's residual stream
+stays f32; the decoder's starts at the prenet's output in the compute
+dtype, as JAX's does), and the prenet, ``predict_layer`` and ``stop_layer``
+are ``Dense`` layers that cast to the compute dtype at their call, as
+flax's ``nn.Dense(dtype=...)`` does.  The ``scaling_xformers`` variant needs
 ``nn/scaling.py``, which is not ported yet.
 """
 
@@ -30,6 +38,7 @@ from valle_tpu_torch.models.valle import _Prenet
 from valle_tpu_torch.nn.dropout import Dropout
 from valle_tpu_torch.nn.embedding import SinePositionalEmbedding, TokenEmbedding
 from valle_tpu_torch.nn.layers import TransformerStack
+from valle_tpu_torch.nn.qdense import Dense
 from valle_tpu_torch.ops import masks as mask_ops
 
 
@@ -45,24 +54,26 @@ class TransformerTTS(nn.Module):
             raise NotImplementedError("scaling_xformers needs nn/scaling.py, not ported yet")
         self.cfg = cfg
         d = cfg.decoder_dim
+        dt = cfg.compute_dtype
         stack_kw = dict(num_layers=cfg.num_layers, d_model=d, nhead=cfg.nhead,
                         dim_feedforward=d * 4, norm_first=cfg.norm_first,
-                        final_norm=cfg.norm_first, attn_impl=cfg.attn_impl, dropout=cfg.dropout)
+                        final_norm=cfg.norm_first, attn_impl=cfg.attn_impl, dropout=cfg.dropout,
+                        dtype=dt, remat=cfg.remat)
         self.text_embedding = TokenEmbedding(d, cfg.num_text_tokens)
         self.text_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
                                                      max_len=cfg.max_len)
         self.encoder = TransformerStack(**stack_kw)
         # mel prenet with a 256-dim bottleneck
         self.decoder_prenet = _Prenet(
-            nn.Linear(cfg.num_mel_bins, 256), nn.ReLU(), Dropout(0.5),
-            nn.Linear(256, 256), nn.ReLU(), Dropout(0.5),
-            nn.Linear(256, d),
+            Dense(cfg.num_mel_bins, 256, dtype=dt), nn.ReLU(), Dropout(0.5),
+            Dense(256, 256, dtype=dt), nn.ReLU(), Dropout(0.5),
+            Dense(256, d, dtype=dt),
         )
         self.decoder_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
                                                         max_len=cfg.max_len)
         self.decoder = TransformerStack(cross_attention=True, **stack_kw)
-        self.predict_layer = nn.Linear(d, cfg.num_mel_bins)
-        self.stop_layer = nn.Linear(d, 1)
+        self.predict_layer = Dense(d, cfg.num_mel_bins, dtype=dt)
+        self.stop_layer = Dense(d, 1, dtype=dt)
 
     def _prenet(self, mel: torch.Tensor, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.decoder_prenet(mel, rng)
@@ -106,7 +117,7 @@ class TransformerTTS(nn.Module):
         mem_bias = mask_ops.mask_to_bias(x_mask[:, None, None, :])
         dec = self.decoder(h, attn_bias=bias, memory=enc, memory_bias=mem_bias, rng=rng)[0]
         mel_pred = self.predict_layer(dec)
-        stop_logit = self.stop_layer(dec)[..., 0].float()
+        stop_logit = self.stop_layer(dec)[..., 0]
 
         valid = (~y_mask).float()
         mel_loss = (((mel_pred.float() - y.float()) ** 2) * valid[..., None]).sum() / (
@@ -114,9 +125,10 @@ class TransformerTTS(nn.Module):
         # stop target: 1 at the last valid frame and beyond
         pos = torch.arange(t, device=y.device)[None, :]
         stop_tgt = (pos >= (y_lens - 1)[:, None]).float()
-        # BCE with positive weight 100
-        bce = -(100.0 * stop_tgt * F.logsigmoid(stop_logit)
-                + (1 - stop_tgt) * F.logsigmoid(-stop_logit))
+        # BCE with positive weight 100; the log-sigmoids in the compute
+        # dtype, the sum in f32, as the JAX module promotes them
+        bce = -(100.0 * stop_tgt * F.logsigmoid(stop_logit).float()
+                + (1 - stop_tgt) * F.logsigmoid(-stop_logit).float())
         loss_mask = pos < y_lens.clamp(min=1)[:, None]
         if example_mask is not None:
             loss_mask = loss_mask & example_mask[:, None]

@@ -12,9 +12,10 @@ reference ``state_dict`` as it is and a JAX parameter tree through
 (``nar_audio_embeddings.{j}``), and with ``share_embedding`` the prediction
 layer j shares its weight with table j+2, as in the reference.  As in the
 JAX model, the compute dtype (``cfg.compute_dtype``) is that of the
-projections, attention and logits; the embeddings, positional embeddings
-and norms keep f32 parameters, so in bf16 the residual stream stays f32
-(``models.get_model`` casts the rest).
+projections, attention and logits, each module casting at its call; the
+embeddings, positional embeddings and norms compute in f32, so in bf16 the
+residual stream stays f32.  ``models.get_model`` keeps every parameter f32
+for training and casts the rest once for inference.
 
 Dropout is at the JAX model's rates (attention and layer dropout at
 ``cfg.dropout``, the AR positions and the NAR audio position at 0.1, the NAR
@@ -60,13 +61,42 @@ class _Transpose(nn.Module):
 
 
 class _Prenet(nn.Sequential):
-    """``nn.Sequential`` whose dropout modules draw from the forward's rng."""
+    """``nn.Sequential`` whose dropout modules draw from the forward's rng.
+    Its layers cast to the compute dtype at their call."""
 
     def forward(self, x, rng=None):
-        x = x.to(next(self.parameters()).dtype)  # the compute dtype, as flax casts
         for mod in self:
             x = mod(x, rng) if isinstance(mod, Dropout) else mod(x)
         return x
+
+
+class _Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` that casts its input, weight and bias to ``dtype`` at
+    the call, as flax's ``nn.Conv(dtype=...)`` does (None: no cast)."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class _BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` that normalises in f32 and returns ``dtype``, as
+    flax's ``nn.BatchNorm(dtype=...)`` does (None: no cast)."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.compute_dtype)
 
 
 class ConvPrenet(_Prenet):
@@ -74,12 +104,12 @@ class ConvPrenet(_Prenet):
     reference's ``nn.Sequential`` (so its keys are ``1``, ``2``, ``5``, ``6``,
     ``9``, ``10`` and ``14``)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dtype: Optional[torch.dtype] = None):
         mods = [_Transpose()]
         for _ in range(3):
-            mods += [nn.Conv1d(d_model, d_model, kernel_size=5, padding=2),
-                     nn.BatchNorm1d(d_model), nn.ReLU(), Dropout(0.5)]
-        mods += [_Transpose(), nn.Linear(d_model, d_model)]
+            mods += [_Conv1d(d_model, d_model, kernel_size=5, padding=2, dtype=dtype),
+                     _BatchNorm1d(d_model, dtype=dtype), nn.ReLU(), Dropout(0.5)]
+        mods += [_Transpose(), Dense(d_model, d_model, dtype=dtype)]
         super().__init__(*mods)
 
 
@@ -87,11 +117,11 @@ class MLPPrenet(_Prenet):
     """Audio prenet: d->256->256->d with ReLU + dropout 0.25 (keys ``0``,
     ``3``, ``6``)."""
 
-    def __init__(self, d_model: int, hidden: int = 256):
+    def __init__(self, d_model: int, hidden: int = 256, dtype: Optional[torch.dtype] = None):
         super().__init__(
-            nn.Linear(d_model, hidden), nn.ReLU(), Dropout(0.25),
-            nn.Linear(hidden, hidden), nn.ReLU(), Dropout(0.25),
-            nn.Linear(hidden, d_model),
+            Dense(d_model, hidden, dtype=dtype), nn.ReLU(), Dropout(0.25),
+            Dense(hidden, hidden, dtype=dtype), nn.ReLU(), Dropout(0.25),
+            Dense(hidden, d_model, dtype=dtype),
         )
 
 
@@ -122,8 +152,8 @@ class VALLE(nn.Module):
         self.ar_text_embedding = TokenEmbedding(d, cfg.num_text_tokens)
         self.ar_audio_embedding = TokenEmbedding(d, v + 1 + int(cfg.prepend_bos))
         if cfg.add_prenet:
-            self.ar_text_prenet = ConvPrenet(d)
-            self.ar_audio_prenet = MLPPrenet(d)
+            self.ar_text_prenet = ConvPrenet(d, dtype=dt)
+            self.ar_audio_prenet = MLPPrenet(d, dtype=dt)
         self.ar_text_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
                                                         max_len=cfg.max_len)
         self.ar_audio_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
@@ -132,6 +162,7 @@ class VALLE(nn.Module):
             cfg.num_layers, d, cfg.nhead, d * 4, norm_first=cfg.norm_first,
             adaptive_norm=False, cross_attention=cross, final_norm=cfg.norm_first,
             attn_impl=cfg.attn_impl, act_quant=cfg.act_quant, dropout=cfg.dropout, dtype=dt,
+            remat=cfg.remat,
         )
         self.ar_predict_layer = Dense(d, v + 1, use_bias=False, act_quant=cfg.act_quant,
                                       dtype=dt)
@@ -143,8 +174,8 @@ class VALLE(nn.Module):
                 [TokenEmbedding(nd, v + 1)] + [TokenEmbedding(nd, v) for _ in range(q - 1)]
             )
             if cfg.add_prenet:
-                self.nar_text_prenet = ConvPrenet(nd)
-                self.nar_audio_prenet = MLPPrenet(nd)
+                self.nar_text_prenet = ConvPrenet(nd, dtype=dt)
+                self.nar_audio_prenet = MLPPrenet(nd, dtype=dt)
             self.nar_text_position = SinePositionalEmbedding(nd, dropout=0.0, max_len=cfg.max_len)
             self.nar_audio_position = SinePositionalEmbedding(nd, dropout=0.1,
                                                               max_len=cfg.max_len)
@@ -152,7 +183,7 @@ class VALLE(nn.Module):
                 cfg.nar_num_layers, nd, cfg.nar_nhead, nd * 4, norm_first=cfg.norm_first,
                 adaptive_norm=True, cross_attention=cross, final_norm=cfg.norm_first,
                 attn_impl=cfg.attn_impl, act_quant=cfg.act_quant, dropout=cfg.dropout,
-                dtype=dt,
+                dtype=dt, remat=cfg.remat,
             )
             self.nar_predict_layers = nn.ModuleList(
                 Dense(nd, v, use_bias=False, dtype=dt) for _ in range(q - 1)

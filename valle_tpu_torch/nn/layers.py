@@ -21,15 +21,30 @@ Dropout sits where the JAX layer puts it: on the attention probabilities,
 after each attention block (``sa_drop``, ``ca_drop``), after the feed-forward
 activation (``ff_drop``) and after its output (``ff_out_drop``), all at the
 layer's rate, in train mode only, drawn from the ``rng`` of ``forward``.
+
+Layer remat (``remat``, the JAX stack's ``nn.remat`` of each layer) runs each
+layer through ``torch.utils.checkpoint`` in train mode while autograd
+records: "full" keeps only the layer's inputs and recomputes the layer in
+the backward pass; "dots_nobatch" also keeps the outputs of the products
+without a batch dimension (the Dense projections, ``aten.mm`` /
+``aten.addmm`` after ``F.linear``'s reshape) and recomputes the rest,
+attention included, as ``dots_with_no_batch_dims_saveable`` does.  The
+recompute replays the layer's dropout draws: the layer runs on a private
+generator set from the step generator's state before it, and the step
+generator is then moved to where the layer left the private one, so remat
+changes neither the bits nor the draws that follow.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from valle_tpu_torch.nn.attention import MultiheadAttention
 from valle_tpu_torch.nn.dropout import dropout as _dropout
@@ -46,7 +61,7 @@ class StageLayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor, stage_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.compute_dtype is None or x.dtype == self.weight.dtype == self.compute_dtype:
+        if self.compute_dtype is None:
             return super().forward(x)
         return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                             self.bias.float(), self.eps).to(self.compute_dtype)
@@ -145,15 +160,62 @@ class TransformerLayer(nn.Module):
         return x, new_cache, kv
 
 
+# the products without a batch dimension: F.linear's, after its reshape of a
+# (B, T, D) input to (B*T, D), with and without a bias
+_PROJECTIONS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_nobatch_policy(ctx, op, *args, **kwargs):
+    """The "dots_nobatch" remat policy: save the outputs of the Dense
+    projections, recompute everything else (JAX's
+    ``dots_with_no_batch_dims_saveable``)."""
+    return CheckpointPolicy.MUST_SAVE if op in _PROJECTIONS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_nobatch_contexts():
+    # the policy is looked up at the call, so that it can be observed
+    return create_selective_checkpoint_contexts(dots_nobatch_policy)
+
+
+def remat_call(layer: nn.Module, x: torch.Tensor, remat: str,
+               rng: Optional[torch.Generator], **kw):
+    """``layer(x, rng=rng, **kw)`` through ``torch.utils.checkpoint`` under
+    the policy ``remat`` ("full" or "dots_nobatch").  With a generator, the
+    layer draws from a private copy of ``rng``'s state, in the forward and
+    again in the recompute, and ``rng`` is then moved to the copy's end
+    state: the recompute makes the forward's draws, and ``rng`` ends where a
+    call without remat leaves it (torch's checkpoint restores its global
+    generators, not one passed as an argument)."""
+    context_fn = _dots_nobatch_contexts if remat == "dots_nobatch" else None
+    extra = {} if context_fn is None else {"context_fn": context_fn}
+    if rng is None:
+        return checkpoint(functools.partial(layer, rng=None, **kw), x, use_reentrant=False,
+                          **extra)
+    start = rng.get_state()
+    end = {}
+
+    def run(h):
+        gen = torch.Generator().set_state(start)
+        out = layer(h, rng=gen, **kw)
+        end["state"] = gen.get_state()
+        return out
+
+    out = checkpoint(run, x, use_reentrant=False, **extra)
+    rng.set_state(end["state"])
+    return out
+
+
 class TransformerStack(nn.Module):
-    """N TransformerLayers plus the optional final (adaptive) norm."""
+    """N TransformerLayers plus the optional final (adaptive) norm;
+    ``remat`` is the layer remat policy of training (module docstring)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int,
                  norm_first: bool = True, adaptive_norm: bool = False,
                  cross_attention: bool = False, final_norm: bool = True,
                  attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: str = "none"):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerLayer(d_model, nhead, dim_feedforward, norm_first=norm_first,
                              adaptive_norm=adaptive_norm, cross_attention=cross_attention,
@@ -171,15 +233,20 @@ class TransformerStack(nn.Module):
         a leading layer axis, updated in place.
 
         Returns (x, new_cache_or_None, kv) where kv is the stacked
-        (k, v) of shape (L, B, T, H, Dh) when ``return_kv``, else None."""
+        (k, v) of shape (L, B, T, H, Dh) when ``return_kv``, else None.
+        Layer remat applies in train mode while autograd records, without
+        a cache."""
+        remat = (self.remat != "none" and self.training and torch.is_grad_enabled()
+                 and kv_cache is None and not return_kv)
         ks, vs = [], []
         for i, layer in enumerate(self.layers):
-            x, _, kv = layer(
-                x, stage_emb=stage_emb, attn_bias=attn_bias, memory=memory,
-                memory_bias=memory_bias,
-                kv_cache=None if kv_cache is None else (*kv_cache, i),
-                cache_index=cache_index, kv_lengths=kv_lengths, return_kv=return_kv, rng=rng,
-            )
+            kw = dict(stage_emb=stage_emb, attn_bias=attn_bias, memory=memory,
+                      memory_bias=memory_bias, cache_index=cache_index, kv_lengths=kv_lengths)
+            if remat:
+                x = remat_call(layer, x, self.remat, rng, **kw)[0]
+                continue
+            x, _, kv = layer(x, kv_cache=None if kv_cache is None else (*kv_cache, i),
+                             return_kv=return_kv, rng=rng, **kw)
             if return_kv:
                 ks.append(kv[0])
                 vs.append(kv[1])

@@ -14,8 +14,12 @@
 The step takes a CPU ``torch.Generator`` as its random source: dropout seeds
 and the forward's draws (NAR stage, prefix length) come from it, so drawing
 them never syncs the card, and the same generator state repeats a step.
-Training runs in float32; mixed precision (f32 master weights, bf16
-compute) is not ported yet, and ``init_train_state`` refuses bf16.
+
+Mixed precision follows the JAX package: under ``dtype="bfloat16"`` the
+parameters, gradients, optimizer state and averaged model are f32, the
+modules compute in bf16 and cast the weights at each call (the training
+build, ``models.get_model(cfg, training=True)``), and the losses sum in
+f32.  ``init_train_state`` refuses a model whose parameters are not f32.
 """
 
 from __future__ import annotations
@@ -146,12 +150,17 @@ def init_train_state(
     """The state of a fresh run: ``model`` in train mode, the optimizer built
     by ``make_optimizer(params)`` over the stage's trainable parameters
     only (the frozen ones get no gradient and no optimizer state), and an f32
-    copy of every parameter when ``with_model_avg``."""
-    if model.cfg.dtype != "float32" or any(
-            p.dtype != torch.float32 for p in model.parameters() if p.is_floating_point()):
-        raise NotImplementedError(
-            "training runs in float32; bf16 mixed precision (f32 master weights) is not "
-            "ported yet")
+    copy of every parameter when ``with_model_avg``.  ``model`` holds f32
+    parameters whatever its compute dtype: the training build of
+    ``models.get_model(cfg, training=True)``."""
+    low = sorted({str(p.dtype) for p in model.parameters()
+                  if p.is_floating_point() and p.dtype != torch.float32})
+    if low:
+        raise ValueError(
+            f"training needs f32 parameters, found {', '.join(low)} (bf16 parameters come "
+            "from the inference build): mixed precision keeps f32 master weights, "
+            "gradients and optimizer state and computes in cfg.dtype; build the model with "
+            "get_model(cfg, training=True)")
     model.train()
     trainable, frozen = partition_params(model, train_stage)
     for p in trainable.values():
