@@ -57,6 +57,17 @@ ends the run with a non-zero exit code):
  11. tts_inference: the same model's greedy mel loop on 8 requests for 200
      steps, with launch counts and the first steps' mels held against a CPU
      copy;
+ 11n. tts_scaling_train (path n): the same baseline with ``scaling_xformers``
+     (balanced DoubleSwish, identity / balanced basic norms) in train mode,
+     its balancers active: one micro-batch's train-mode loss and gradients
+     (every dropout at 0 on both copies) against a CPU copy, f32 steps (24 /
+     24 / 12 / 12 launches of kernels 2 / 3 / 4 / 4-backward) with a
+     bit-equal repeated step, bf16 steps under ``remat full`` (48 / 24 / 24 /
+     12), step seconds beside phase 10's;
+ 11o. tts_scaling_inference (path o): its greedy mel loop, as phase 11;
+ 11q. visualize (path q): ``VALLE.visualize_forward`` of the full-width
+     VALL-E under "flash" on one batch (kernel 4, 12 launches) against a CPU
+     copy;
  12. infer: the port's infer CLI (``valle_tpu_torch.bin.infer.main``) from
      files it writes first (the full-width VALL-E as a ``.pt``, the random
      codec as the converter's ``.npz``, a ``chars`` symbol table and a 3 s
@@ -69,6 +80,9 @@ ends the run with a non-zero exit code):
      codes against the CPU copy's NAR passes; the prompt's codes from the
      card's codec against a CPU copy's; and the two wavs, with the CLI's wall
      time and the codec's encode time;
+ 12r. infer_reference_pt (path r): the same infer CLI run from a
+     reference-layout ``.pt`` (extra keys, tied NAR heads overwritten), its
+     codes equal to phase 12's;
  13. serve: the port's serve CLI (``valle_tpu_torch.bin.serve.main``) on 24
      requests (16 with the prompt wav and its text, 8 promptless; texts of
      20-160 characters in buckets 256 / 512) from the same files, in the
@@ -114,7 +128,10 @@ ends the run with a non-zero exit code):
      seconds and bytes, peak memory and the logged MFU;
      tts_train_cli: the full-width TTS baseline through the same CLI for 2
      steps on random mels with SpecAugment (24 / 24 / 12 / 12 launches of
-     kernels 2 / 3 / 4 / 4-backward per step);
+     kernels 2 / 3 / 4 / 4-backward per step); stage 2 runs with
+     ``--visualize true`` where matplotlib is installed (``"matplotlib"`` on
+     the line says which) and must write min(4, B) PNGs of the first dev
+     batch per validation, else none;
  16. tokenize_cli: the port's tokenize CLI
      (``valle_tpu_torch.bin.tokenize_dataset.main``) on the card: 64 + 8
      seeded wavs of 4-6 s (half at 16 kHz, resampled) through the
@@ -134,6 +151,9 @@ ends the run with a non-zero exit code):
      tts_train_cli_bf16: the TTS baseline on the Fbank corpus under
      ``--remat full``, 2 steps, 48 / 24 / 24 / 12 launches of kernels 2 / 3
      / 4 / 4-backward per step, each kernel captured and held;
+     tts_scaling_train_cli (path p): ``--model-name Transformer
+     --scaling-xformers true`` through the train CLI on that corpus, f32, 2
+     steps at 24 / 24 / 12 / 12 launches;
  18. remat_ab: phase 9's step in f32, and in bf16 under remat none, full and
      dots_nobatch: the bf16 loss, gradients and step generator bit-equal
      across the policies, launches (kernel 2 doubled under remat, kernel 3
@@ -154,6 +174,7 @@ one card, no network.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import re
 import subprocess
@@ -173,6 +194,8 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
                   "tf32x3": 495e12 / 3}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOGIT_ATOL = 1e-3
+# the eval visualizer's PNGs need matplotlib, which the card's machine may lack
+HAVE_MATPLOTLIB = importlib.util.find_spec("matplotlib") is not None
 
 
 _START = time.perf_counter()
@@ -1225,12 +1248,14 @@ def profile_breakdown(fn, extra_families=()) -> dict:
 
 def _relu_pairs(model):
     """(name, producer, consumer) of every ReLU of ``model`` in eval mode:
-    the feed-forward block of each layer (linear1 -> linear2) and the two
-    ReLUs of the Transformer TTS mel prenet (dropout is off in eval mode)."""
+    the feed-forward block of each ReLU layer (linear1 -> linear2) and the
+    two ReLUs of the Transformer TTS mel prenet (dropout is off in eval
+    mode).  The scaling_xformers layout has none: its DoubleSwish is
+    smooth."""
     from valle_tpu_torch.nn.layers import TransformerLayer
 
     for name, mod in model.named_modules():
-        if isinstance(mod, TransformerLayer):
+        if isinstance(mod, TransformerLayer) and mod.activation == "relu":
             yield name, mod.linear1, mod.linear2
     prenet = getattr(model, "decoder_prenet", None)
     if prenet is not None:
@@ -1276,12 +1301,61 @@ def _relu_gate_hooks(model, gates: dict, flips: dict) -> list:
     return handles
 
 
-def _micro_grads(model, batch, gates: dict, flips: dict, forward_kw: dict):
+def _eps_term_hooks(model, terms: dict) -> list:
+    """Hooks on every ``BasicNorm`` of ``model`` (the scaling layout's
+    balanced basic norms) that add, per norm, the sum over the elements of
+    its output of |dloss/dout * dout/deps| into ``terms[<name>.eps]``: the
+    magnitude of the terms whose sum is that epsilon's gradient.  Returns
+    the hook handles."""
+    from valle_tpu_torch.nn.layers import BasicNorm
+
+    handles = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, BasicNorm):
+            continue
+
+        def after(m, args, out, key=f"{name}.eps"):
+            x = args[0].detach().float()
+            e = m.eps.detach().float().exp()
+            coef = 0.5 * e * ((x * x).mean(-1, keepdim=True) + e) ** -1.5
+
+            def on_grad(g):
+                terms[key] = terms.get(key, 0.0) + float((g.float() * x * coef).abs().sum())
+
+            out.register_hook(on_grad)
+
+        handles.append(mod.register_forward_hook(after))
+    return handles
+
+
+def set_dropout_rates(model, rates=None) -> dict:
+    """Set every dropout rate of ``model`` (attention, layer, embedding and
+    prenet dropout) to 0, or back to ``rates``; returns the rates it found,
+    by module."""
+    from valle_tpu_torch.nn.dropout import Dropout
+
+    found = {}
+    for mod in model.modules():
+        attr = "rate" if isinstance(mod, Dropout) else "dropout"
+        if isinstance(getattr(mod, attr, None), float):
+            found[mod] = getattr(mod, attr)
+            setattr(mod, attr, 0.0 if rates is None else rates[mod])
+    return found
+
+
+def _micro_grads(model, batch, gates: dict, flips: dict, forward_kw: dict,
+                 train_mode: bool = False, eps_terms=None):
     """Loss and per-parameter gradients of micro-batch 0 at dropout 0, with
-    the ReLU gates recorded into or taken from ``gates``."""
-    model.eval()
+    the ReLU gates recorded into or taken from ``gates``: in eval mode, or
+    in train mode with every dropout rate set to 0 for the call (the
+    scaling layout's balancers then act in the backward).  ``eps_terms``:
+    a dict that ``_eps_term_hooks`` fills."""
+    model.train(train_mode)
+    rates = set_dropout_rates(model) if train_mode else None
     model.zero_grad(set_to_none=True)
     handles = _relu_gate_hooks(model, gates, flips)
+    if eps_terms is not None:
+        handles += _eps_term_hooks(model, eps_terms)
     try:
         out = model(*(batch[k][0] for k in ("text_tokens", "text_tokens_lens", "audio_features",
                                             "audio_features_lens")),
@@ -1290,6 +1364,8 @@ def _micro_grads(model, batch, gates: dict, flips: dict, forward_kw: dict):
     finally:
         for handle in handles:
             handle.remove()
+        if rates is not None:
+            set_dropout_rates(model, rates)
     grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
              if p.grad is not None}
     model.zero_grad(set_to_none=True)
@@ -1308,36 +1384,53 @@ def _grad_errors(grads_gpu: dict, grads_cpu: dict):
 
 
 def gradient_check(model, batch, weights: str, phase: str = "train_gradient_check",
-                   tols=None, **forward_kw) -> dict:
+                   tols=None, train_mode: bool = False, **forward_kw) -> dict:
     """One micro-batch's loss and gradients at dropout 0 on the card against
     a CPU copy of the model (plain versions; the training build, so f32
     parameters under any compute dtype) that follows the card's ReLU gates;
     fails past ``tols`` (``F32_CHECK``: LOSS_RTOL, FLIP_SHARE, FLIP_ATOL,
     GRAD_RTOL and GRAD_NORM_RTOL).  The same comparison with the CPU copy on
     its own gates is reported beside it, unchecked, to show what the
-    flipped gates alone move."""
+    flipped gates alone move (a model without ReLU gates skips it).
+    ``train_mode``: both copies in train mode with every dropout rate at 0
+    (``_micro_grads``).  The learnable epsilon of a balanced basic norm is a
+    scalar whose gradient sums the contributions of every element of the
+    norm's output, which cancel (the line reports how far:
+    ``eps_conditioning_min_max``), so its error is taken over that sum of
+    magnitudes (``_eps_term_hooks``, on the CPU copy), the
+    bound of a sum's rounding error; its error over |g| is reported
+    beside, unchecked."""
     from valle_tpu_torch.models import get_model
 
     tols = tols or F32_CHECK
     t0 = time.perf_counter()
     gates, flips = {}, {}
-    loss_gpu, grads_gpu = _micro_grads(model, batch, gates, flips, forward_kw)
+    loss_gpu, grads_gpu = _micro_grads(model, batch, gates, flips, forward_kw, train_mode)
     cpu_model = get_model(model.cfg, device="cpu", training=True)
     cpu_model.load_state_dict(model.state_dict())
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
-    loss_cpu, grads_cpu = _micro_grads(cpu_model, cpu_batch, gates, flips, forward_kw)
-    _, grads_own = _micro_grads(cpu_model, cpu_batch, {}, {}, forward_kw)
+    eps_terms = {}
+    loss_cpu, grads_cpu = _micro_grads(cpu_model, cpu_batch, gates, flips, forward_kw,
+                                       train_mode, eps_terms)
+    grads_own = (_micro_grads(cpu_model, cpu_batch, {}, {}, forward_kw, train_mode)[1]
+                 if gates else grads_cpu)
     del cpu_model
     grad_err, grad_norm_err = _grad_errors(grads_gpu, grads_cpu)
     own_err, own_norm_err = _grad_errors(grads_gpu, grads_own)
+    eps_raw = {n: grad_err[n] for n in eps_terms}
+    eps_conditioning = {n: eps_terms[n] / max(float(grads_cpu[n].abs()), 1e-30)
+                        for n in eps_terms}
+    for n, scale in eps_terms.items():
+        grad_err[n] = grad_norm_err[n] = float((grads_gpu[n] - grads_cpu[n]).abs()) / max(
+            scale, 1e-30)
     del grads_gpu, grads_cpu, grads_own
     worst = sorted(grad_err, key=grad_err.get, reverse=True)[:5]
     own_worst = sorted(own_err, key=own_err.get, reverse=True)[:5]
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    flip_h = max(f["max_abs_h"] for f in flips.values())
+    flip_h = max((f["max_abs_h"] for f in flips.values()), default=0.0)
     n_gates = sum(g.numel() for g in gates.values())
     n_flips = sum(f["gates"] for f in flips.values())
-    check = {"phase": phase, "weights": weights,
+    check = {"phase": phase, "weights": weights, "mode": "train" if train_mode else "eval",
              "dropout0_loss_gpu": loss_gpu, "dropout0_loss_cpu": loss_cpu,
              "dropout0_loss_rel_err": loss_err, "loss_rtol": tols["loss_rtol"],
              "relu_gates": n_gates, "flipped_gates": n_flips, "flip_share": tols["flip_share"],
@@ -1352,6 +1445,11 @@ def gradient_check(model, batch, weights: str, phase: str = "train_gradient_chec
              "own_gates_max_grad_norm_rel_err": max(own_norm_err.values()),
              "own_gates_median_grad_rel_err": float(np.median(list(own_err.values()))),
              "n_grads": len(grad_err), "seconds": time.perf_counter() - t0}
+    if eps_terms:
+        check |= {"eps_err_over_term_sum_max": max(grad_err[n] for n in eps_terms),
+                  "eps_err_over_abs_grad_max": max(eps_raw.values()),
+                  "eps_conditioning_min_max": [min(eps_conditioning.values()),
+                                               max(eps_conditioning.values())]}
     emit(check)
     assert loss_err <= tols["loss_rtol"], (loss_gpu, loss_cpu)
     assert n_flips <= tols["flip_share"] * n_gates, f"{n_flips} of {n_gates} ReLU gates flipped"
@@ -1518,20 +1616,7 @@ def tts_train_path(dev):
     n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator().manual_seed(SEED)
 
-    state, metrics = step(state, batch, gen, 0)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_s, launches = [], [], []
-    for _ in range(TTS_STEPS):
-        reset_launches()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, gen, 0)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        launches.append(read_launches())
-        losses.append(float(metrics["loss"]))
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    assert all(np.isfinite(losses)), losses
+    step_s, launches, losses, peak_gib = _timed_steps(step, state, batch, gen, TTS_STEPS)
     n = cfg.num_layers
     want = {"ragged_decode": 0, "prefix_attention": 2 * n, "prefix_attention_bwd": 2 * n,
             "flash_attention": n, "flash_attention_bwd": n}
@@ -1562,18 +1647,124 @@ def tts_train_path(dev):
           "profiled_step": breakdown, "repeat_bit_equal": repeat_equal,
           "eval_max_grad_rel_err": check["max_grad_rel_err"],
           "eval_flipped_gates": check["flipped_gates"]})
-    return launches[0]
+    return launches[0], med
 
 
-def tts_inference_path(dev):
+SCALING_BF16_STEPS = 3
+
+
+def _timed_steps(step, state, batch, gen, n: int):
+    """A warm-up step, then ``n`` timed steps: (seconds, launches, losses)
+    per step and the peak GiB of the timed steps."""
+    import torch
+
+    step(state, batch, gen, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, launches, losses = [], [], []
+    for _ in range(n):
+        reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen, 0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(losses)), losses
+    return step_s, launches, losses, torch.cuda.max_memory_allocated() / 2**30
+
+
+def tts_scaling_train_path(dev, plain_step_s: float):
+    """The Transformer TTS baseline's scaling_xformers variant at full width
+    (balanced DoubleSwish, identity / balanced basic norms), train mode with
+    its balancers active: f32 steps with launch counts and a bit-equal
+    repeated step, one micro-batch's train-mode loss and gradients (every
+    dropout at 0 on both copies) against a CPU copy, then bf16 steps under
+    ``remat full``; step seconds beside path c's in this call."""
+    import copy
+    import functools
+
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
+    from valle_tpu_torch.train.step import init_train_state, make_train_step
+
+    # attention dropout 0 keeps the decoder self-attention on kernel 4 (the
+    # plain math takes attention with dropout under "flash"); the positional
+    # dropouts (0.1) stay on
+    cfg = ModelConfig(model_name="Transformer", attn_impl="flash", dropout=0.0,
+                      scaling_xformers=True)
+    torch.manual_seed(SEED)
+    model = get_model(cfg, training=True)
+    batch = _tts_batch(cfg, np.random.RandomState(SEED + 7), dev)
+    check = gradient_check(model, batch, "initial", phase="tts_scaling_gradient_check",
+                           train_mode=True)
+
+    make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
+    step = make_train_step(get_lr_fn("eden", 0.05, warmup_steps=200), train_stage=0)
+    state = init_train_state(model, make_opt, train_stage=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(SEED)
+    step_s, launches, losses, peak_gib = _timed_steps(step, state, batch, gen, TTS_STEPS)
+    n = cfg.num_layers
+    want = {"ragged_decode": 0, "prefix_attention": 2 * n, "prefix_attention_bwd": 2 * n,
+            "flash_attention": n, "flash_attention_bwd": n}
+    assert all(c == want for c in launches), f"launch counts {launches}, expected {want} per step"
+    breakdown = profile_breakdown(lambda: step(state, batch, gen, 0))
+
+    twin = copy.deepcopy(state)
+    _, m1 = step(state, batch, torch.Generator().manual_seed(SEED + 1), 0)
+    _, m2 = step(twin, batch, torch.Generator().manual_seed(SEED + 1), 0)
+    repeat_equal = float(m1["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(state.model.parameters(), twin.model.parameters()))
+    assert repeat_equal, (float(m1["loss"]), float(m2["loss"]))
+    del twin, state, model
+    torch.cuda.empty_cache()
+
+    cfg16 = cfg.replace(dtype="bfloat16", remat="full")
+    torch.manual_seed(SEED)
+    state16 = init_train_state(get_model(cfg16, training=True), make_opt, train_stage=0)
+    step16_s, launches16, losses16, peak16 = _timed_steps(
+        step, state16, batch, torch.Generator().manual_seed(SEED), SCALING_BF16_STEPS)
+    want16 = dict(want, prefix_attention=4 * n, flash_attention=2 * n)  # remat: forward twice
+    assert all(c == want16 for c in launches16), \
+        f"bf16 remat launch counts {launches16}, expected {want16} per step"
+    del state16
+    torch.cuda.empty_cache()
+
+    med, med16 = float(np.median(step_s)), float(np.median(step16_s))
+    frames = TTS_B * TTS_T
+    emit({"phase": "tts_scaling_train", "model": "Transformer TTS default ModelConfig with "
+          "scaling_xformers (balanced DoubleSwish, identity / balanced basic norms, out "
+          "projections at 0.01, one-layer prenet), attn_impl=flash, attention dropout 0, "
+          "positional dropout 0.1, train mode (balancers active)",
+          "params": n_params, "batch": TTS_B, "text_tokens": TTS_S, "frames": TTS_T,
+          "optimizer": "ScaledAdam lr 0.05 clip 2.0 betas (0.9, 0.95), Eden warmup 200",
+          "f32": {"losses": losses, "step_s": step_s, "step_s_median": med,
+                  "frames_per_s": frames / med, "peak_mem_gib": peak_gib,
+                  "launches_per_step": launches[0], "profiled_step": breakdown,
+                  "repeat_bit_equal": repeat_equal},
+          "bf16_remat_full": {"losses": losses16, "step_s": step16_s, "step_s_median": med16,
+                              "frames_per_s": frames / med16, "peak_mem_gib": peak16,
+                              "launches_per_step": launches16[0]},
+          "path_c_step_s_median": plain_step_s, "f32_over_path_c": med / plain_step_s,
+          "train_mode_loss_rel_err": check["dropout0_loss_rel_err"],
+          "train_mode_max_grad_rel_err": check["max_grad_rel_err"],
+          "train_mode_max_grad_norm_rel_err": check["max_grad_norm_rel_err"]})
+    return {"tts_scaling_train_step": launches[0], "tts_scaling_train_bf16": launches16[0]}
+
+
+def tts_inference_path(dev, scaling: bool = False):
     """The Transformer TTS baseline's greedy mel loop at full width on 8
     requests for INF_STEPS steps, with launch counts and the first
-    CHECK_STEPS mels held against a CPU copy."""
+    CHECK_STEPS mels held against a CPU copy; ``scaling``: its
+    scaling_xformers variant."""
     import torch
 
     from valle_tpu_torch.models import ModelConfig, get_model
 
-    cfg = ModelConfig(model_name="Transformer", attn_impl="flash")
+    cfg = ModelConfig(model_name="Transformer", attn_impl="flash", scaling_xformers=scaling)
     torch.manual_seed(SEED)
     model = get_model(cfg)
     rng = np.random.RandomState(SEED + 8)
@@ -1610,8 +1801,10 @@ def tts_inference_path(dev):
     assert mel_err <= LOGIT_ATOL, f"GPU mels differ from the CPU copy by {mel_err}"
     assert lengths.cpu().clamp(max=CHECK_STEPS).tolist() == cpu["lengths"].tolist(), (
         lengths.tolist(), cpu["lengths"].tolist())
-    emit({"phase": "tts_inference", "model": "Transformer TTS default ModelConfig, "
-          "attn_impl=flash, f32, greedy, full recompute per step", "batch": INF_B,
+    emit({"phase": "tts_scaling_inference" if scaling else "tts_inference",
+          "model": "Transformer TTS default ModelConfig" + (" with scaling_xformers" if scaling
+                                                            else "")
+          + ", attn_impl=flash, f32, greedy, full recompute per step", "batch": INF_B,
           "text_lens": x_lens.tolist(), "max_steps": INF_STEPS, "launches": launches,
           "lengths": lengths.tolist(), "call_s": total_s, "ms_per_step": total_s * 1e3 / INF_STEPS,
           "frames_per_s": INF_B * INF_STEPS / total_s, "peak_mem_gib": peak_gib,
@@ -2538,11 +2731,13 @@ def train_cli_path(dev, files, hand_fed_step_s):
 
         return run
 
-    def counted_validation(eval_fn, state, loader, dev_):
+    def counted_validation(eval_fn, state, loader, dev_, *args, **kw):
         n = sum(1 for _ in loader)
+        first_rows = len(next(iter(loader))["utt_id"][0])
         before = read_launches()
-        out = run_validation(eval_fn, state, loader, dev_)
-        validations.append({"batches": n, "launches": _delta(read_launches(), before)})
+        out = run_validation(eval_fn, state, loader, dev_, *args, **kw)
+        validations.append({"batches": n, "first_batch_rows": first_rows,
+                            "launches": _delta(read_launches(), before)})
         return out
 
     def counted_scan(*a, **kw):
@@ -2589,7 +2784,8 @@ def train_cli_path(dev, files, hand_fed_step_s):
         watch["keep_step"] = (n1 // 4 + 1) * 4
         watch["profile"] = n1 + 1
         t0 = time.perf_counter()
-        second = train_cli.main(argv + ["--train-stage", "2", "--num-epochs", "2"])
+        second = train_cli.main(argv + ["--train-stage", "2", "--num-epochs", "2",
+                                        "--visualize", str(HAVE_MATPLOTLIB).lower()])
         stage2_s = time.perf_counter() - t0
         counts = read_launches()
     finally:
@@ -2630,6 +2826,14 @@ def train_cli_path(dev, files, hand_fed_step_s):
     want_loss, want_weights = watch["snapshot"]
     del second, stage1_ar, final
     torch.cuda.empty_cache()
+    # --visualize on stage 2: min(4, B) PNGs of the first dev batch per validation
+    eval_dirs = sorted(os.listdir(exp / "eval")) if (exp / "eval").exists() else []
+    pngs = {d: len(os.listdir(exp / "eval" / d)) for d in eval_dirs}
+    if HAVE_MATPLOTLIB:
+        want_png = min(4, validations[-1]["first_batch_rows"])
+        assert "epoch-2" in pngs and set(pngs.values()) == {want_png}, (pngs, want_png)
+    else:
+        assert not pngs, pngs
 
     k2_cases = check_kernel2_captures(captured2, "train CLI")
     k3_cases = check_kernel3_captures(captured3, "train CLI")
@@ -2718,6 +2922,7 @@ def train_cli_path(dev, files, hand_fed_step_s):
                if r["shape"] == resume["shape_ABST"]])) for key, parts in (
               ("loop_s_median", ("data_s", "copy_s", "step_s")), ("step_s_median", ("step_s",)))},
           "switch_from": switch_from, "ar_weights_bit_equal_across_switch": ar_equal,
+          "visualize": {"matplotlib": HAVE_MATPLOTLIB, "pngs_by_tag": pngs},
           "resume": {k: v for k, v in resume.items() if k != "hand_fed_step_s"},
           "kernel2_captures": k2_cases, "kernel3_captures": k3_cases, "batch_copy_ms": copies,
           "infer": {"seconds": infer_s, "launches": infer_launches, "wav_samples": int(wav.size),
@@ -3332,6 +3537,167 @@ def remat_ab_path(dev) -> dict:
     return {f"remat_ab_{name.replace(' ', '_')}": run["launches"] for name, run in runs.items()}
 
 
+# ------------------------------------------- phases 19-21 (paths p, q and r)
+
+
+def tts_scaling_cli_path(dev, mels_dir) -> dict:
+    """``--model-name Transformer --scaling-xformers true`` through the
+    training CLI on the tokenize CLI's Fbank corpus, f32, 2 steps: the flag's
+    route from the command line, with kernels 2, 3 and 4 forward and
+    backward on each step."""
+    import torch
+
+    from valle_tpu_torch.bin import train as train_cli
+
+    steps = []
+    make_step = train_cli.make_train_step
+
+    def counted(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng, epoch):
+            before = read_launches()
+            state, metrics = step(state, batch, rng, epoch)
+            steps.append(_delta(read_launches(), before))
+            return state, metrics
+
+        return run
+
+    train_cli.make_train_step = counted
+    try:
+        reset_launches()
+        out = train_cli.main(["--manifest-dir", str(mels_dir), "--exp-dir",
+                              str(mels_dir.parent / "tts_exp_scaling"), "--model-name",
+                              "Transformer", "--scaling-xformers", "true", "--attn-impl", "flash",
+                              "--dropout", "0", "--num-epochs", "1", "--max-duration", "40",
+                              "--num-buckets", "1", "--batch-quant", "1", "--valid-interval",
+                              "1000", "--save-every-n", "0", "--log-interval", "1",
+                              "--tensorboard", "false", "--seed", str(SEED)])
+        counts = read_launches()
+    finally:
+        train_cli.make_train_step = make_step
+    model = out["state"].model
+    assert model.cfg.scaling_xformers and hasattr(model, "decoder_prenet_fc")
+    assert model.encoder.layers[0].activation == "balanced_double_swish"
+    numbers = _cli_numbers(out)
+    del out, model
+    torch.cuda.empty_cache()
+    assert numbers["steps"] == 2 and all(np.isfinite(numbers["losses"])), numbers
+    want = {"ragged_decode": 0, "prefix_attention": 24, "prefix_attention_bwd": 24,
+            "flash_attention": 12, "flash_attention_bwd": 12}
+    assert all(s == want for s in steps), f"launches per step {steps}, expected {want}"
+    emit({"phase": "tts_scaling_train_cli", "flags": "--model-name Transformer "
+          "--scaling-xformers true --attn-impl flash --dropout 0", "model": "Transformer TTS "
+          "default widths, scaling_xformers, f32, on the tokenize CLI's Fbank corpus",
+          **numbers, "launches_per_step": steps})
+    return counts
+
+
+VIS_ATOL = 1e-3  # hidden states of order 1 (the final balanced basic / layer norm)
+
+
+def visualize_path(dev):
+    """``VALLE.visualize_forward`` of the full-width VALL-E under "flash" on
+    one batch on the card (its merged dense bias through kernel 4), held
+    against a CPU copy."""
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+
+    cfg = ModelConfig(attn_impl="flash")
+    torch.manual_seed(SEED)
+    model = get_model(cfg)
+    batch = _train_batch(cfg, np.random.RandomState(SEED + 13), dev)
+    args = [batch[k][0] for k in ("text_tokens", "text_tokens_lens", "audio_features",
+                                  "audio_features_lens")]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    enc, dec = model.visualize_forward(*args)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"ragged_decode": 0, "prefix_attention": 0, "prefix_attention_bwd": 0,
+            "flash_attention": cfg.num_layers, "flash_attention_bwd": 0}
+    assert launches == want, f"launch counts {launches}, expected {want}"
+    cpu_model = get_model(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    del model
+    enc_cpu, dec_cpu = cpu_model.visualize_forward(*(a.cpu() for a in args))
+    del cpu_model
+    b, s = args[0].shape
+    assert tuple(enc.shape) == (b, s, cfg.decoder_dim), tuple(enc.shape)
+    assert tuple(dec.shape) == (b, args[2].shape[1], cfg.decoder_dim), tuple(dec.shape)
+    assert torch.isfinite(dec).all()
+    enc_err = float((enc.cpu() - enc_cpu).abs().max())
+    dec_err = float((dec.cpu() - dec_cpu).abs().max())
+    assert enc_err <= VIS_ATOL and dec_err <= VIS_ATOL, (enc_err, dec_err)
+    emit({"phase": "visualize", "model": "VALL-E default ModelConfig, attn_impl=flash, f32",
+          "batch": [b, s, int(args[2].shape[1])], "launches": launches, "call_s": call_s,
+          "enc_max_abs_err_vs_cpu": enc_err, "dec_max_abs_err_vs_cpu": dec_err,
+          "atol": VIS_ATOL, "dec_max_abs": float(dec_cpu.abs().max()),
+          "matplotlib": HAVE_MATPLOTLIB})
+    return launches
+
+
+# keys of a reference checkpoint that the JAX conversion skips
+REFERENCE_EXTRA = ("ar_decoder.layers.0.self_attn.extra_buffer", "criterion.weight")
+
+
+def reference_pt_path(dev, files):
+    """Path e's infer CLI once more, from a reference-layout ``.pt``: the
+    port's state dict plus keys that JAX's ``convert_state_dict`` skips
+    (extra keys, and tied NAR heads overwritten with other values); its codes
+    must equal the plain ``.pt``'s run."""
+    import torch
+
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.models import ModelConfig
+
+    cfg = ModelConfig()
+    tmp = files["dir"]
+    sd = dict(torch.load(tmp / "model.pt", map_location="cpu")["model"])
+    gen = torch.Generator().manual_seed(SEED)
+    for key in REFERENCE_EXTRA:
+        sd[key] = torch.randn(7, generator=gen)
+    tied = [f"nar_predict_layers.{j}.weight" for j in range(cfg.num_quantizers - 2)]
+    for key in tied:
+        sd[key] = torch.randn(sd[key].shape, generator=gen)
+    torch.save({"model": sd, "epoch": 1}, tmp / "reference.pt")
+    del sd
+    flags = ["--text-extractor", "chars", "--text-prompts", INFER_PROMPT_TEXT,
+             "--text", "|".join(INFER_TEXTS), "--attn-impl", "flash", "--kv-cache-dtype",
+             "int8", "--top-k", "1", "--max-new-tokens", str(INFER_MAX_NEW), "--seed",
+             str(SEED)]
+    argv = ["--checkpoint", str(tmp / "reference.pt"), "--codec-checkpoint",
+            str(tmp / "codec.npz"), "--text-tokens", str(tmp / "tokens.k2symbols"),
+            "--audio-prompts", str(tmp / "prompt.wav"), "--output-dir",
+            str(tmp / "out_reference")] + flags
+    tf32 = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in tf32]
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:  # path e's flags
+        reset_launches()
+        t0 = time.perf_counter()
+        infer.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        for f, allow in zip(tf32, saved):
+            f.allow_tf32 = allow
+    equal = []
+    for n in range(len(INFER_TEXTS)):
+        got = np.load(tmp / "out_reference" / f"{n}_codes.npy")
+        want = np.load(tmp / "out" / f"{n}_codes.npy")
+        equal.append(got.shape == want.shape and bool((got == want).all()))
+    assert all(equal), f"the reference .pt's codes differ from the plain .pt's: {equal}"
+    emit({"phase": "infer_reference_pt", "extra_keys": list(REFERENCE_EXTRA),
+          "overwritten_tied_heads": tied, "codes_equal_plain_pt": equal, "cli_wall_s": wall_s,
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3383,16 +3749,22 @@ def main() -> int:
     check_head_dims(dev)
     paths = {"generate": main_path(dev)}
     paths["train_step"], hand_fed_step_s = train_path(dev, k2d, k3)
-    paths |= {"tts_train_step": tts_train_path(dev), "tts_inference": tts_inference_path(dev)}
+    paths["tts_train_step"], tts_step_s = tts_train_path(dev)
+    paths["tts_inference"] = tts_inference_path(dev)
+    paths.update(tts_scaling_train_path(dev, tts_step_s))
+    paths["tts_scaling_inference"] = tts_inference_path(dev, scaling=True)
+    paths["visualize"] = visualize_path(dev)
     with tempfile.TemporaryDirectory() as tmp:
         files = write_serving_files(Path(tmp))
         paths["infer"] = infer_path(dev, files)
+        paths["infer_reference_pt"] = reference_pt_path(dev, files)
         paths.update(serve_path(dev, files))
         paths["continuous"], paths["continuous_generate"] = continuous_path(dev, files)
         paths.update(train_cli_path(dev, files, hand_fed_step_s))
         paths["tokenize_cli"], codes_dir, mels_dir = tokenize_cli_path(
             dev, files, files["dir"] / "data_cli")
         paths.update(train_cli_bf16_path(dev, files, codes_dir, mels_dir))
+        paths["tts_scaling_train_cli"] = tts_scaling_cli_path(dev, mels_dir)
     paths.update(remat_ab_path(dev))
 
     def entry(name, source, replaces, res, path):

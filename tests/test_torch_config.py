@@ -80,10 +80,20 @@ def test_get_model_variants_and_unported_options():
     tts = get_model(ModelConfig(model_name="Transformer", decoder_dim=32, nhead=2,
                                 num_layers=1), device="cpu")
     assert type(tts).__name__ == "TransformerTTS" and not tts.training
-    with pytest.raises(NotImplementedError):
-        get_model(ModelConfig(model_name="Transformer", scaling_xformers=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        get_model(ModelConfig(scaling_xformers=True), device="cpu")
+    # scaling_xformers builds the Transformer's scaling variant, and VALL-E
+    # ignores it, as the JAX models do
+    sx = get_model(ModelConfig(model_name="Transformer", decoder_dim=32, nhead=2, num_layers=1,
+                               scaling_xformers=True), device="cpu")
+    assert hasattr(sx, "decoder_prenet_fc") and sx.encoder.layers[0].activation == \
+        "balanced_double_swish"
+    small = dict(decoder_dim=32, nhead=2, num_layers=1, num_quantizers=2)
+    torch.manual_seed(0)
+    with_flag = get_model(ModelConfig(scaling_xformers=True, **small), device="cpu")
+    torch.manual_seed(0)
+    without = get_model(ModelConfig(**small), device="cpu")
+    assert with_flag.variant == "valle"
+    want = without.state_dict()
+    assert all(torch.equal(t, want[k]) for k, t in with_flag.state_dict().items())
     # act_quant (W8A8) is ported: on float weights it builds and changes nothing
     w8a8 = get_model(ModelConfig(act_quant=True, decoder_dim=32, nhead=2, num_layers=1),
                      device="cpu")

@@ -18,7 +18,8 @@ from valle_tpu_torch.nn.attention import (
     _decode_attention_quantized,
     quantize_kv,
 )
-from valle_tpu_torch.nn.layers import TransformerStack, conditioned_norm
+from valle_tpu_torch.nn.layers import (BalancedBasicNorm, IdentityNorm, TransformerStack,
+                                       conditioned_norm)
 from valle_tpu_torch.ops import masks as tm
 from valle_tpu_torch.utils import bridge
 
@@ -188,5 +189,72 @@ def test_transformer_stack_matches(norm_first, adaptive, cross):
 
 
 def test_unported_norms_raise():
-    with pytest.raises(NotImplementedError):
-        conditioned_norm(D, norm_type="balanced_basic")
+    # the scaling_xformers norms are ported; an unknown norm type raises
+    assert isinstance(conditioned_norm(D, norm_type="identity"), IdentityNorm)
+    norm = conditioned_norm(D, adaptive=True, norm_type="balanced_basic")
+    assert isinstance(norm, BalancedBasicNorm)  # ignores adaptive, as JAX's does
+    assert list(norm.state_dict()) == ["norm.eps"]
+    with pytest.raises(ValueError, match="norm_type"):
+        conditioned_norm(D, norm_type="rms")
+    with pytest.raises(ValueError, match="activation"):
+        TransformerStack(1, D, H, 4 * D, activation="swish")
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_scaling_stack_train_mode_matches(cross):
+    """The scaling_xformers stack (identity / balanced basic norms,
+    balanced DoubleSwish, out-projections at 0.01) in train mode at dropout
+    0 against JAX's with ``deterministic=False``: the balancers' backward
+    runs on both sides.  Output and every gradient within 1e-5 x the
+    tensor's largest |value| (f32, summation order)."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, 8, D).astype(np.float32)
+    x[..., :4] *= 8.0  # channels past the norm balancer's max_abs of 6
+    mem = rng.randn(2, 5, D).astype(np.float32) if cross else None
+    cot = rng.randn(2, 8, D).astype(np.float32)
+    bias = np.where(np.arange(8)[None] >= np.array([8, 6])[:, None], -1e9, 0.0)
+    bias = np.broadcast_to(bias.astype(np.float32)[:, None, None, :], (2, 1, 8, 8))
+    bias = bias + np.triu(np.full((8, 8), -1e9, np.float32), 1)  # causal + padding, dense
+    mem_bias = np.where(np.arange(5)[None] >= np.array([5, 3])[:, None], -1e9, 0.0)
+    mem_bias = mem_bias.astype(np.float32)[:, None, None, :] if cross else None
+    layout = dict(activation="balanced_double_swish", norm_type="identity", out_init_scale=0.01)
+    jstack = JaxStack(num_layers=2, d_model=D, nhead=H, dim_feedforward=4 * D, dropout=0.0,
+                      cross_attention=cross, **layout)
+    jkw = dict(attn_bias=jnp.asarray(bias), memory=None if mem is None else jnp.asarray(mem),
+               memory_bias=None if mem_bias is None else jnp.asarray(mem_bias))
+    params = _np(jstack.init(jax.random.PRNGKey(4), jnp.asarray(x), **jkw)["params"])
+
+    def loss(p, xx):
+        out = jstack.apply({"params": p}, xx, deterministic=False, **jkw)[0]
+        return jnp.sum(out * cot), out
+
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+        params, jnp.asarray(x))
+
+    def port_sd(tree):
+        sd = {}
+        bridge._decoder(sd, _np(tree), "stack", 2, False, cross, True, norm_type="identity")
+        return {k[len("stack."):]: _t(v) for k, v in sd.items()}
+
+    port = TransformerStack(2, D, H, 4 * D, cross_attention=cross, attn_impl="flash",
+                            **layout).train()
+    port.load_state_dict(port_sd(params))
+    xt = _t(x).requires_grad_(True)
+    got = port(xt, attn_bias=_t(bias), memory=None if mem is None else _t(mem),
+               memory_bias=None if mem_bias is None else _t(mem_bias))[0]
+    (got * _t(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+    grads = dict(port_sd(gp), x=_t(gx))
+    named = dict(port.named_parameters(), x=xt)
+    assert set(grads) == set(named)
+    for name, g in grads.items():
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(), rtol=0,
+                                   atol=1e-5 * max(float(g.abs().max()), 1e-30), err_msg=name)
+    # the balancers moved the gradients: eval mode (no balancers) differs
+    port.eval()
+    port.zero_grad()
+    xe = _t(x).requires_grad_(True)
+    (port(xe, attn_bias=_t(bias), memory=None if mem is None else _t(mem),
+          memory_bias=None if mem_bias is None else _t(mem_bias))[0] * _t(cot)).sum().backward()
+    assert not torch.equal(xe.grad, xt.grad)

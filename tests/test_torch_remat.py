@@ -133,6 +133,22 @@ def test_remat_is_bit_equal_to_none_with_dropout(variant, monkeypatch):
             (remat, run["calls"])
 
 
+def test_remat_is_bit_equal_to_none_in_the_scaling_layout(monkeypatch):
+    """The scaling_xformers TTS (balancers and DoubleSwish as autograd
+    Functions, train mode, dropout 0.1): remat replays them and the step
+    generator bit-equal to no remat."""
+    kw = dict(TTS_KW, scaling_xformers=True)
+    runs = {r: _step(kw, _tts_batch(), r, monkeypatch) for r in POLICIES}
+    base = runs["none"]
+    assert base["grads"] and torch.isfinite(base["loss"])
+    for remat in ("full", "dots_nobatch"):
+        run = runs[remat]
+        assert torch.equal(run["loss"], base["loss"]), remat
+        for name, g in base["grads"].items():
+            assert torch.equal(run["grads"][name], g), (remat, name)
+        assert torch.equal(run["rng"], base["rng"]), remat
+
+
 def _no_dropout(model):
     """Train mode (so remat applies) with every dropout at 0, the JAX
     model's ``deterministic=True``."""

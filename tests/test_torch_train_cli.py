@@ -27,9 +27,9 @@ synthetic corpus (``tests/torch_corpus.py``), on the CPU:
       repeats the uninterrupted run (SpecAugment's generator is saved);
       an unknown card trains with ``mfu=n/a``;
   (f) ``--oom-check true`` leaves the losses and weights bit-equal;
-  (g) the refusals: ``--device cuda`` without CUDA, ``--num-processes 2``
-      and ``--visualize true`` (``--dtype bfloat16`` trains:
-      ``tests/test_torch_train_bf16.py``).
+  (g) the refusals: ``--device cuda`` without CUDA and ``--num-processes 2``
+      (``--dtype bfloat16`` trains: ``tests/test_torch_train_bf16.py``;
+      ``--visualize true`` draws: ``tests/test_torch_visualizer.py``).
 """
 
 import functools
@@ -345,8 +345,6 @@ def test_refusals(corpus, tmp_path):
         ["--manifest-dir", "m", "--exp-dir", "e"]).device == "cuda"
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         train.main(_argv(corpus, exp, "--num-processes", "2"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train.main(_argv(corpus, exp, "--visualize", "true"))
     # bf16 mixed precision and remat are ported (tests/test_torch_train_bf16.py,
     # tests/test_torch_remat.py): only --rng-impl, a JAX PRNG's name, has no effect
     remat = next(a for a in train.get_parser()._actions if a.dest == "remat")

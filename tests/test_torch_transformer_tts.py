@@ -15,8 +15,13 @@ layers, B=2, S=8, T=20, with the JAX init bridged into the port
     version is held against JAX's library kernel call by call in
     ``tests/test_torch_flash_bias.py``;
   - a train-mode forward (prenet, positional and attention dropout) is
-    finite, ``scaling_xformers`` raises, and the training step takes float
-    mels at stage 0 only.
+    finite, and the training step takes float mels at stage 0 only;
+  - the ``scaling_xformers`` variant against JAX's on ``"xla"`` (no
+    interpret mode): the bridge fills every parameter, loss rtol 1e-5 and
+    gradients atol 2e-5 x max |g| in eval mode at the port's ``"xla"`` and
+    ``"flash"``, greedy mels within 1e-5 with lengths equal, and the default
+    init scales the self-attention output projections and ``linear2`` by
+    0.01.  Its train-mode balancers are held in ``tests/test_torch_layers.py``.
 
 The JAX outputs are computed once, in a module fixture, and only JAX's
 ``"flash"`` loss and gradients run in interpret mode.  The file has a time
@@ -185,6 +190,86 @@ def test_train_step_takes_float_mels_at_stage_0_only(jax_ref):
     assert not torch.equal(before, state.model.stop_layer.weight)
 
 
-def test_scaling_xformers_raises():
-    with pytest.raises(NotImplementedError, match="scaling"):
-        get_model(ModelConfig(scaling_xformers=True, **KW), device="cpu")
+SX = dict(KW, scaling_xformers=True)
+
+
+@pytest.fixture(scope="module")
+def jax_scaling_ref():
+    """The scaling variant's JAX variables, eval-mode loss and gradients
+    (one jitted call) and greedy inference, all on ``"xla"``."""
+    data = tuple(jnp.asarray(a) for a in _data())
+    model = JaxTTS(JaxConfig(**SX))
+    variables = jax.tree.map(np.array, model.init({"params": jax.random.PRNGKey(1)}, *data,
+                                                  deterministic=True))
+    # move the learnable epsilons off their shared init, so the bridge's
+    # mapping of each one shows
+    norms = [(variables["params"][s]["layers"]["norm2"], "eps_log") for s in ("encoder",
+                                                                             "decoder")]
+    norms += [(variables["params"][s]["final_norm"], "eps_log") for s in ("encoder", "decoder")]
+    rng = np.random.RandomState(2)
+    for tree, key in norms:
+        tree[key] = (tree[key] + rng.uniform(-0.5, 0.5, np.shape(tree[key]))).astype(np.float32)
+
+    def loss(params):
+        return model.apply({"params": params}, *data, deterministic=True)["loss"]
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(variables["params"])
+    inf = jax.jit(functools.partial(model.apply, max_steps=STEPS, method="inference"))(
+        variables, data[0], data[1])
+    return {"variables": variables, "loss": float(value),
+            "grads": jax.tree.map(np.asarray, grads),
+            "inference": {k: np.asarray(v) for k, v in inf.items()}}
+
+
+def test_scaling_xformers_raises(jax_scaling_ref):
+    """No longer raises: the scaling variant builds, the bridge fills every
+    parameter, and the default init scales the out-projections by 0.01."""
+    cfg = ModelConfig(**SX)
+    sd = numpy_state_dict_from_jax(jax_scaling_ref["variables"], cfg, "transformer")
+    model = get_model(cfg, device="cpu")
+    assert set(sd) == set(model.state_dict())
+    assert "decoder_prenet_fc.weight" in sd and "decoder.layers.1.norm3.norm.eps" in sd
+    assert not any(k.startswith("decoder_prenet.") for k in sd)
+    params = jax_scaling_ref["variables"]["params"]
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    assert float(model.decoder.layers[1].norm3.norm.eps) == float(
+        params["decoder"]["layers"]["norm2"]["eps_log"][1])
+    assert float(model.encoder.norm.norm.eps) == float(params["encoder"]["final_norm"]["eps_log"])
+
+    torch.manual_seed(0)
+    plain = get_model(ModelConfig(**KW), device="cpu")
+    torch.manual_seed(0)
+    scaled = get_model(cfg, device="cpu")  # the encoder draws its weights in the same order
+    for i in range(KW["num_layers"]):
+        a, b = plain.encoder.layers[i], scaled.encoder.layers[i]
+        for name in ("self_attn.out_proj.weight", "linear2.weight"):
+            want = a.get_parameter(name) * 0.01
+            assert torch.equal(b.get_parameter(name), want), name
+        for name in ("self_attn.in_proj_weight", "linear1.weight", "linear2.bias"):
+            assert torch.equal(b.get_parameter(name), a.get_parameter(name)), name
+    assert float(scaled.encoder.layers[0].norm2.norm.eps) == pytest.approx(np.log(0.25))
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_scaling_loss_and_gradients_match_jax(jax_scaling_ref, impl):
+    want = numpy_state_dict_from_jax(jax_scaling_ref["grads"], ModelConfig(**SX), "transformer")
+    model = _port(jax_scaling_ref["variables"], attn_impl=impl, scaling_xformers=True)
+    out = model(*(torch.from_numpy(a) for a in _data()))
+    out["loss"].backward()
+    np.testing.assert_allclose(float(out["loss"].detach()), jax_scaling_ref["loss"], rtol=1e-5)
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        w = want[name]
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=2e-5 * max(float(np.abs(w).max()), 1e-6), err_msg=name)
+
+
+def test_scaling_greedy_inference_matches_jax(jax_scaling_ref):
+    x, x_lens, _, _ = _data()
+    model = _port(jax_scaling_ref["variables"], attn_impl="flash", scaling_xformers=True)
+    got = model.inference(torch.from_numpy(x), torch.from_numpy(x_lens), max_steps=STEPS)
+    want = jax_scaling_ref["inference"]
+    assert got["mel"].shape == (B, STEPS, 100)
+    np.testing.assert_allclose(got["mel"].numpy(), want["mel"], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got["lengths"].numpy(), want["lengths"])

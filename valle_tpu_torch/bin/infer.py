@@ -10,7 +10,9 @@ with a codec, ``{n}.wav`` to ``--output-dir`` (``continual_codes.npy`` /
 Checkpoints (``--checkpoint``):
   - a reference ``.pt`` (``{"model": state_dict}``, and ``"model_avg"``
     under ``--use-averaged-model``): the port's parameter names are the
-    reference's, so it loads as it is;
+    reference's, and ``utils/convert_reference.py`` selects the keys the
+    model takes, as the JAX conversion does (extra keys and the tied NAR
+    heads of the file are skipped);
   - an ``.npz`` of flattened flax params, through ``utils/bridge.py``.
 An Orbax directory needs JAX's checkpoint stack and is refused.
 ``--quantize-weights w8|w8a8`` quantizes the decoder weights to int8 on the
@@ -42,6 +44,7 @@ from valle_tpu_torch.models import add_model_arguments, config_from_args, get_mo
 from valle_tpu_torch.sample import continual, generate
 from valle_tpu_torch.utils import resolve_device, unflatten_tree
 from valle_tpu_torch.utils.bridge import numpy_state_dict_from_jax
+from valle_tpu_torch.utils.convert_reference import select_state_dict
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -80,7 +83,9 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def load_model_params(path: str, cfg, variant: str, use_averaged: bool = False) -> dict:
-    """The model weights of ``path`` as the port's state dict (CPU tensors)."""
+    """The model weights of ``path`` as the port's state dict (CPU tensors);
+    a ``.pt`` through the reference key selection
+    (``utils/convert_reference.py``)."""
     p = Path(path)
     if p.suffix == ".npz":
         if use_averaged:
@@ -97,7 +102,8 @@ def load_model_params(path: str, cfg, variant: str, use_averaged: bool = False) 
                 raise ValueError(f"{path} has no model_avg (trained without averaging)")
         elif "model" in sd:
             sd = sd["model"]
-        return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+        return select_state_dict({k: v for k, v in sd.items() if isinstance(v, torch.Tensor)},
+                                 cfg, variant)
     raise ValueError(
         f"{path}: not an .npz or .pt checkpoint. An Orbax checkpoint directory needs JAX's "
         "checkpoint stack, which the port does not import; export its params as an .npz of "

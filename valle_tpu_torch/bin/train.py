@@ -31,7 +31,13 @@ What differs from the JAX CLI, and why:
     the parameters and the module as they were when the loss went bad;
   - ``--rng-impl`` names a JAX PRNG and has no effect here;
   - ``--num-processes`` above 1 (data parallelism, ROADMAP queue 1 item 10)
-    and ``--visualize true`` (``models/visualizer.py``, item 9) raise.
+    raises.
+
+``--visualize true`` draws PNGs of the first validation batch at each
+validation, as the JAX CLI does (``models/visualizer.py``, through
+``VALLE.visualize_forward`` on the raw weights; skipped for the Transformer
+baseline), into ``<exp-dir>/eval/step-<n>`` or ``eval/epoch-<n>``; it needs
+matplotlib.
 
 ``--dtype bfloat16`` trains in mixed precision as the JAX CLI does: f32
 parameters, gradients, optimizer state, averaged model and checkpoints,
@@ -109,7 +115,8 @@ def get_parser():
     parser.add_argument("--oom-check", type=str2bool, default=True)
     parser.add_argument("--tensorboard", type=str2bool, default=True)
     parser.add_argument("--visualize", type=str2bool, default=False,
-                        help="dump eval PNGs at validation; true raises (not ported yet)")
+                        help="dump eval PNGs of the first validation batch under "
+                        "<exp-dir>/eval (needs matplotlib; not for the Transformer)")
     parser.add_argument("--enable-spec-aug", type=str2bool, default=False,
                         help="SpecAugment on log-mel features (Transformer baseline)")
     parser.add_argument("--spec-aug-time-warp-factor", type=int, default=80)
@@ -214,9 +221,6 @@ def run(args) -> dict:
         raise NotImplementedError(
             "--num-processes > 1: data parallelism (torch.distributed) is not ported yet "
             "(ROADMAP queue 1 item 10)")
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize true: models/visualizer.py is not ported yet (ROADMAP queue 1 item 9)")
     dev = resolve_device(None if args.device == "cuda" else args.device)
     args.exp_dir.mkdir(parents=True, exist_ok=True)
     logging.basicConfig(
@@ -415,7 +419,8 @@ def run(args) -> dict:
                                     "sampler_state": loader.state_dict(skip + consumed)})
 
             if dev_loader is not None and step % args.valid_interval == 0:
-                valid_loss = run_validation(eval_fn, state, dev_loader, dev)
+                valid_loss = run_validation(eval_fn, state, dev_loader, dev, args,
+                                            tag=f"step-{step}")
                 summary["validations"].append({"step": step, "loss": valid_loss})
                 logging.info(f"validation at step {step}: loss={valid_loss:.4f}")
                 if writer:
@@ -424,7 +429,7 @@ def run(args) -> dict:
         if prof is not None:  # training ended before the requested end step
             _stop_profile(prof, args.exp_dir)
             prof, profile_range = None, None
-        valid_loss = (run_validation(eval_fn, state, dev_loader, dev)
+        valid_loss = (run_validation(eval_fn, state, dev_loader, dev, args, tag=f"epoch-{epoch}")
                       if dev_loader is not None else None)
         save("epoch", epoch, {"train_stage": args.train_stage, "step": state.step,
                               "train_loss": tracker.normalized().get("loss"),
@@ -507,17 +512,40 @@ def scan_batch_shapes_for_oom(args, cfg, loader, state, dev) -> list:
     return out
 
 
-def run_validation(eval_fn, state, loader, dev) -> float:
+def run_validation(eval_fn, state, loader, dev, args=None, tag: str = "latest") -> float:
     """Loss per frame over the dev loader; every batch draws the NAR stage
-    from a generator seeded 0, as the JAX CLI passes one key to every batch."""
+    from a generator seeded 0, as the JAX CLI passes one key to every batch.
+    Under ``args.visualize`` (not for the Transformer baseline) the first
+    batch's PNGs go to ``<exp-dir>/eval/<tag>``."""
     tot, frames = 0.0, 0.0
+    first = None
     for batch in loader:
         micro = to_device({k: v[0] for k, v in batch.items()
                            if k not in ("utt_id", "text", "prompt_codes_lens")}, dev)
         out = eval_fn(state.model, micro, torch.Generator().manual_seed(0))
         tot += float(out["loss"])
         frames += float(out["frames"])
+        if first is None:
+            first = batch
+    if (args is not None and args.visualize and first is not None
+            and args.model_name.lower() != "transformer"):
+        visualize_batch(state.model, first, dev, args.exp_dir / "eval" / tag)
     return tot / max(frames, 1.0)
+
+
+VISUALIZE_KEYS = ("text_tokens", "text_tokens_lens", "audio_features", "audio_features_lens")
+
+
+def visualize_batch(model, batch: dict, dev, out_dir: Path) -> None:
+    """The PNGs of micro-batch 0 of a loader ``batch``: the model's
+    ``visualize_forward`` on ``dev``, then ``models/visualizer.py``."""
+    from valle_tpu_torch.models.visualizer import visualize
+
+    arrays = {k: batch[k][0] for k in VISUALIZE_KEYS}
+    tensors = to_device(arrays, dev)
+    enc, dec = model.visualize_forward(*(tensors[k] for k in VISUALIZE_KEYS))
+    visualize((enc.float().cpu().numpy(), dec.float().cpu().numpy()),
+              dict(arrays, utt_id=batch["utt_id"][0], text=batch["text"][0]), str(out_dir))
 
 
 def main(argv=None) -> dict:

@@ -12,8 +12,9 @@ and norms stay f32, as they compute in f32); with ``training=True`` it
 keeps every parameter f32, the training build: bf16 mixed precision with
 f32 master weights, gradients and optimizer state, which
 ``valle_tpu_torch.train.step.init_train_state`` takes.  ``cfg.remat`` sets
-the layer remat of training (``nn/layers.py``).  The ``scaling_xformers``
-variants need ``nn/scaling.py``, which is not ported yet.
+the layer remat of training (``nn/layers.py``).  ``cfg.scaling_xformers``
+builds the Transformer TTS baseline's scaling variant; VALL-E and VALL-F
+ignore it, as the JAX models do.
 """
 
 from __future__ import annotations
@@ -26,13 +27,15 @@ from valle_tpu_torch.models.config import ModelConfig
 from valle_tpu_torch.models.transformer_tts import TransformerTTS
 from valle_tpu_torch.models.valle import VALLE, VALLF
 from valle_tpu_torch.nn.embedding import SinePositionalEmbedding, TokenEmbedding
+from valle_tpu_torch.nn.layers import BasicNorm
 from valle_tpu_torch.nn.qdense import SCALE_SUFFIX, quantize_variables
 from valle_tpu_torch.utils import resolve_device
 
 # modules whose parameters stay f32 under a bf16 compute dtype: flax's nn.Embed
-# without a dtype returns its f32 table, and LayerNorm and BatchNorm compute in f32
+# without a dtype returns its f32 table, LayerNorm and BatchNorm compute in f32,
+# and BasicNorm's epsilon is an f32 parameter that the norm promotes to
 _F32_MODULES = (TokenEmbedding, SinePositionalEmbedding, torch.nn.LayerNorm,
-                torch.nn.BatchNorm1d)
+                torch.nn.BatchNorm1d, BasicNorm)
 
 
 def str2bool(v) -> bool:
@@ -128,8 +131,6 @@ def get_model(cfg: ModelConfig, device=None, state_dict=None, quantize: bool = F
     training: the training build: every parameter stays f32 and each module
       casts to ``cfg.compute_dtype`` at its call (the default casts the
       weights once, for inference)."""
-    if cfg.scaling_xformers:
-        raise NotImplementedError("scaling_xformers needs nn/scaling.py, not ported yet")
     name = cfg.model_name.lower()
     if name in ("vall-e", "valle"):
         cls = VALLE

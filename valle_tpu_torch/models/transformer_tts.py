@@ -1,5 +1,5 @@
 """Encoder-decoder Transformer TTS baseline (text -> mel): the twin of
-``valle_tpu/models/transformer_tts.py`` for ``scaling_xformers=False``.
+``valle_tpu/models/transformer_tts.py``.
 
 A phoneme encoder, a mel decoder with causal self-attention and
 cross-attention to the encoder, mel MSE plus stop-token BCE with positive
@@ -8,6 +8,14 @@ decoder at every step.  Under ``attn_impl="flash"`` the encoder
 self-attention and the cross-attention (key padding only) run on kernels 2
 and 3, and the decoder self-attention, whose causal-plus-padding bias is a
 dense (B, 1, T, T) tensor, on kernel 4 (``ops/flash_attention.py``).
+
+The ``scaling_xformers`` variant builds both stacks in the scaling
+layout (``nn/layers.py``): ``balanced_double_swish`` feed-forward blocks,
+identity norms before attention, balanced basic norms before the
+feed-forward blocks and as the final norms, and the initial weights of the
+self-attention output projections and ``linear2`` scaled by 0.01; its mel
+prenet is one ``decoder_prenet_fc`` ``Dense(num_mel_bins, d)`` without
+dropout.  Its balancers act in train mode only.
 
 Parameter names follow the JAX module's attribute names; the prenet is one
 ``nn.Sequential`` (``decoder_prenet.0``, ``.3``, ``.6``).  Dropout is active
@@ -21,8 +29,9 @@ compute dtype (their norms compute in f32, so the encoder's residual stream
 stays f32; the decoder's starts at the prenet's output in the compute
 dtype, as JAX's does), and the prenet, ``predict_layer`` and ``stop_layer``
 are ``Dense`` layers that cast to the compute dtype at their call, as
-flax's ``nn.Dense(dtype=...)`` does.  The ``scaling_xformers`` variant needs
-``nn/scaling.py``, which is not ported yet.
+flax's ``nn.Dense(dtype=...)`` does.  The scaling variant's balanced basic
+norms return f32 (JAX's promotion with their f32 epsilon), so its stacks'
+feed-forward blocks and heads see f32 inputs and cast them.
 """
 
 from __future__ import annotations
@@ -50,25 +59,31 @@ class TransformerTTS(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.scaling_xformers:
-            raise NotImplementedError("scaling_xformers needs nn/scaling.py, not ported yet")
         self.cfg = cfg
         d = cfg.decoder_dim
         dt = cfg.compute_dtype
+        sx = cfg.scaling_xformers
         stack_kw = dict(num_layers=cfg.num_layers, d_model=d, nhead=cfg.nhead,
                         dim_feedforward=d * 4, norm_first=cfg.norm_first,
                         final_norm=cfg.norm_first, attn_impl=cfg.attn_impl, dropout=cfg.dropout,
-                        dtype=dt, remat=cfg.remat)
+                        dtype=dt, remat=cfg.remat,
+                        activation="balanced_double_swish" if sx else "relu",
+                        norm_type="identity" if sx else "layer",
+                        out_init_scale=0.01 if sx else 1.0)
         self.text_embedding = TokenEmbedding(d, cfg.num_text_tokens)
         self.text_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
                                                      max_len=cfg.max_len)
         self.encoder = TransformerStack(**stack_kw)
-        # mel prenet with a 256-dim bottleneck
-        self.decoder_prenet = _Prenet(
-            Dense(cfg.num_mel_bins, 256, dtype=dt), nn.ReLU(), Dropout(0.5),
-            Dense(256, 256, dtype=dt), nn.ReLU(), Dropout(0.5),
-            Dense(256, d, dtype=dt),
-        )
+        if sx:
+            # one mel projection, no dropout
+            self.decoder_prenet_fc = Dense(cfg.num_mel_bins, d, dtype=dt)
+        else:
+            # mel prenet with a 256-dim bottleneck
+            self.decoder_prenet = _Prenet(
+                Dense(cfg.num_mel_bins, 256, dtype=dt), nn.ReLU(), Dropout(0.5),
+                Dense(256, 256, dtype=dt), nn.ReLU(), Dropout(0.5),
+                Dense(256, d, dtype=dt),
+            )
         self.decoder_position = SinePositionalEmbedding(d, dropout=0.1, alpha=True,
                                                         max_len=cfg.max_len)
         self.decoder = TransformerStack(cross_attention=True, **stack_kw)
@@ -76,6 +91,8 @@ class TransformerTTS(nn.Module):
         self.stop_layer = Dense(d, 1, dtype=dt)
 
     def _prenet(self, mel: torch.Tensor, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.cfg.scaling_xformers:
+            return self.decoder_prenet_fc(mel)
         return self.decoder_prenet(mel, rng)
 
     def encode(self, x, x_mask, rng: Optional[torch.Generator] = None) -> torch.Tensor:

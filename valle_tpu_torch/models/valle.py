@@ -457,6 +457,45 @@ class VALLE(nn.Module):
         acc = hits.sum() / valid.sum().clamp(min=1)
         return loss, {"NarTop10Accuracy": acc.float() * total_length}
 
+    @torch.no_grad()
+    def visualize_forward(self, x, x_lens, y, y_lens):
+        """Deterministic hidden states for the eval visualizer
+        (``models/visualizer.py``), in eval mode whatever the module's mode:
+        the text embedding (B, S, D) and the AR decoder's output over the
+        audio region (B, Ty, D), under the prefix-LM bias (VALL-E) or the
+        causal bias with cross-attention to the text (VALL-F).  The bias is
+        a merged dense (B, 1, T, T) tensor, which ``attn_impl="flash"``
+        sends to kernel 4."""
+        was_training = self.training
+        self.eval()
+        try:
+            b, s = x.shape
+            x_mask = mask_ops.make_pad_mask(x_lens, s)
+            y_mask = mask_ops.make_pad_mask(y_lens, y.shape[1])
+            y_mask_int = y_mask.long()
+            codes = y.long() * (1 - y_mask_int[..., None])
+            ar_in, _, _ = self._pad_y_eos(codes[..., 0], y_mask_int)
+            x_emb = self._ar_text(x)
+            y_emb = self._ar_audio(ar_in)
+            ty = ar_in.shape[1]
+            ar_y_mask = (torch.cat([torch.zeros_like(y_mask[:, :1]), y_mask], 1)
+                         if self.cfg.prepend_bos else y_mask)
+            if self.variant == "valle":
+                struct = mask_ops.prefix_lm_attn_mask(s, ty, device=x.device)
+                key_pad = torch.cat([x_mask, ar_y_mask], 1)
+                bias = mask_ops.mask_to_bias(mask_ops.merge_padding(struct, key_pad))
+                dec = self.ar_decoder(torch.cat([x_emb, y_emb], 1), attn_bias=bias)[0]
+                dec_y = dec[:, s:]
+            else:
+                struct = mask_ops.causal_mask(ty, device=x.device)
+                bias = mask_ops.mask_to_bias(mask_ops.merge_padding(struct, ar_y_mask))
+                mem_bias = mask_ops.mask_to_bias(x_mask[:, None, None, :])
+                dec_y = self.ar_decoder(y_emb, attn_bias=bias, memory=x_emb,
+                                        memory_bias=mem_bias)[0]
+        finally:
+            self.train(was_training)
+        return x_emb, dec_y
+
     # ---------------------------------------------------------------- decode
     # The parameter-touching pieces of the sampling loop; the loop itself,
     # its stop conditions and the cache layout live in valle_tpu_torch.sample.

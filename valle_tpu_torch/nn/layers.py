@@ -11,6 +11,21 @@ Parameter names follow the reference PyTorch model: ``norm1``, ``norm2``
 VALL-F layer), ``self_attn``, ``multihead_attn``, ``linear1``, ``linear2``,
 and ``layers.{i}`` / ``norm`` in the stack.
 
+The scaling_xformers layout (``norm_type="identity"``, the JAX layer's)
+puts an identity norm before each attention block and a balanced basic
+norm before the feed-forward block and as the stack's final norm.  The
+balanced basic norm is the reference's ``BalancedBasicNorm``: an
+activation balancer (train mode only) and a ``BasicNorm`` submodule
+``norm`` whose parameter ``eps`` holds the log of its epsilon (JAX's
+``eps_log``), so its key is ``norm2.norm.eps`` (``norm3.norm.eps`` in a
+cross-attention layer) and ``norm.norm.eps`` for the final norm.  The
+identity norm has no parameters.  The feed-forward activation is ``relu``,
+``gelu`` (tanh approximation, flax's default) or ``balanced_double_swish``
+(``nn/scaling.py``), and ``out_init_scale`` scales the initial weights of
+the self-attention output projection and ``linear2`` (ScaledLinear's
+initial scale; the cross-attention's output projection keeps its init, as
+in JAX).
+
 ``dtype`` is the compute dtype of the JAX modules (flax's ``dtype``, with
 f32 ``param_dtype``): the norms compute in f32 and return that dtype, and
 the projections cast their inputs to it, so that in bf16 the residual
@@ -49,6 +64,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from valle_tpu_torch.nn.attention import MultiheadAttention
 from valle_tpu_torch.nn.dropout import dropout as _dropout
 from valle_tpu_torch.nn.qdense import Dense
+from valle_tpu_torch.nn.scaling import activation_balancer, balanced_double_swish, basic_norm
 
 
 class StageLayerNorm(nn.LayerNorm):
@@ -82,46 +98,112 @@ class AdaptiveLayerNorm(nn.Module):
         return weight * self.norm(x) + bias
 
 
+class IdentityNorm(nn.Module):
+    """The scaling_xformers layout's norm before attention: returns x."""
+
+    def forward(self, x: torch.Tensor, stage_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return x
+
+
+class BasicNorm(nn.Module):
+    """``basic_norm`` with a learnable log-epsilon ``eps``, initialised to
+    log 0.25 (JAX's ``eps_log``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.eps = nn.Parameter(torch.tensor(0.25).log())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return basic_norm(x, self.eps)
+
+
+class BalancedBasicNorm(nn.Module):
+    """An activation balancer (sign share 0.45-0.55, |x| at most 6; train
+    mode only) and then ``BasicNorm``.  Returns f32 whatever x's dtype, as
+    JAX's promotion with the f32 ``eps_log`` does; the next ``Dense``
+    casts."""
+
+    def __init__(self):
+        super().__init__()
+        self.norm = BasicNorm()
+
+    def forward(self, x: torch.Tensor, stage_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = activation_balancer(x, channel_dim=-1, min_positive=0.45, max_positive=0.55,
+                                max_abs=6.0, apply=self.training)
+        return self.norm(x)
+
+
 def conditioned_norm(d_model: int, adaptive: bool = False, eps: float = 1e-5,
                      norm_type: str = "layer", dtype: Optional[torch.dtype] = None) -> nn.Module:
-    """The norm that the JAX ``ConditionedNorm`` computes: a layer norm, or
-    an adaptive one for NAR stage conditioning.  A factory rather than a
-    wrapper module, so the parameter names stay the reference's
-    (``norm1.weight``, ``norm1.project_layer.weight``).  The ``identity`` and
-    ``balanced_basic`` norms of the scaling_xformers layout need
-    ``nn/scaling.py``, which is not ported yet."""
+    """The norm that the JAX ``ConditionedNorm`` computes: a layer norm, an
+    adaptive one for NAR stage conditioning, or the scaling_xformers
+    layout's ``identity`` / ``balanced_basic`` norm (which ignore
+    ``adaptive``, as JAX's do).  A factory rather than a wrapper module, so
+    the parameter names stay the reference's (``norm1.weight``,
+    ``norm1.project_layer.weight``, ``norm2.norm.eps``)."""
+    if norm_type == "identity":
+        return IdentityNorm()
+    if norm_type == "balanced_basic":
+        return BalancedBasicNorm()
     if norm_type != "layer":
-        raise NotImplementedError(f"norm_type {norm_type!r} needs nn/scaling.py, not ported yet")
+        raise ValueError(f"unknown norm_type {norm_type!r}")
     if adaptive:
         return AdaptiveLayerNorm(d_model, eps, dtype)
     return StageLayerNorm(d_model, eps=eps, dtype=dtype)
 
 
+ACTIVATIONS = ("relu", "gelu", "balanced_double_swish")
+
+
+def ffn_norm_type(norm_type: str) -> str:
+    """The norm before the feed-forward block and the stack's final norm:
+    the scaling_xformers layout (``identity``) puts a balanced basic norm
+    there."""
+    return "balanced_basic" if norm_type == "identity" else norm_type
+
+
 class TransformerLayer(nn.Module):
-    """One decoder block with a ReLU feed-forward block.  ``cross_attention``
-    adds an encoder-memory attention sub-block between self-attention and the
-    FFN (VALL-F).  The other activations and norms of the JAX layer serve the
-    scaling_xformers layout, which is not ported yet."""
+    """One decoder block.  ``cross_attention`` adds an encoder-memory
+    attention sub-block between self-attention and the FFN (VALL-F);
+    ``activation``, ``norm_type`` and ``out_init_scale`` select the
+    scaling_xformers layout (module docstring)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  norm_first: bool = True, adaptive_norm: bool = False,
                  cross_attention: bool = False, attn_impl: str = "xla",
                  act_quant: bool = False, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, activation: str = "relu",
+                 norm_type: str = "layer", out_init_scale: float = 1.0):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation must be one of {ACTIVATIONS}, got {activation!r}")
         self.norm_first = norm_first
         self.cross_attention = cross_attention
         self.dropout = dropout
+        self.activation = activation
         attn = dict(attn_impl=attn_impl, act_quant=act_quant, dropout=dropout, dtype=dtype)
         self.self_attn = MultiheadAttention(d_model, nhead, **attn)
         self.linear1 = Dense(d_model, dim_feedforward, act_quant=act_quant, dtype=dtype)
         self.linear2 = Dense(dim_feedforward, d_model, act_quant=act_quant, dtype=dtype)
-        self.norm1 = conditioned_norm(d_model, adaptive_norm, dtype=dtype)
-        self.norm2 = conditioned_norm(d_model, adaptive_norm, dtype=dtype)
+        if out_init_scale != 1.0:
+            with torch.no_grad():
+                self.self_attn.out_proj.weight.mul_(out_init_scale)
+                self.linear2.weight.mul_(out_init_scale)
+        norm = functools.partial(conditioned_norm, d_model, adaptive_norm, dtype=dtype)
+        # the feed-forward norm is norm3 in a cross-attention layer, else norm2
+        self.norm1 = norm(norm_type=norm_type)
+        self.norm2 = norm(norm_type=norm_type if cross_attention else ffn_norm_type(norm_type))
         if cross_attention:
             self.multihead_attn = MultiheadAttention(d_model, nhead, cross_attention=True,
                                                      **attn)
-            self.norm3 = conditioned_norm(d_model, adaptive_norm, dtype=dtype)
+            self.norm3 = norm(norm_type=ffn_norm_type(norm_type))
+
+    def _act(self, h: torch.Tensor) -> torch.Tensor:
+        if self.activation == "relu":
+            return F.relu(h)
+        if self.activation == "gelu":
+            return F.gelu(h, approximate="tanh")
+        return balanced_double_swish(h, apply=self.training)
 
     def forward(self, x, *, stage_emb=None, attn_bias=None, memory=None,
                 memory_bias=None, kv_cache=None, cache_index=None,
@@ -134,7 +216,7 @@ class TransformerLayer(nn.Module):
             return _dropout(h, rate, rng)
 
         def ff_block(h):
-            return drop(self.linear2(drop(F.relu(self.linear1(h)))))
+            return drop(self.linear2(drop(self._act(self.linear1(h)))))
 
         def sa_block(h):
             out, new_cache, kv = self.self_attn(
@@ -206,24 +288,29 @@ def remat_call(layer: nn.Module, x: torch.Tensor, remat: str,
 
 
 class TransformerStack(nn.Module):
-    """N TransformerLayers plus the optional final (adaptive) norm;
-    ``remat`` is the layer remat policy of training (module docstring)."""
+    """N TransformerLayers plus the optional final (adaptive or balanced
+    basic) norm; ``remat`` is the layer remat policy of training (module
+    docstring)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int,
                  norm_first: bool = True, adaptive_norm: bool = False,
                  cross_attention: bool = False, final_norm: bool = True,
                  attn_impl: str = "xla", act_quant: bool = False, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None, remat: str = "none"):
+                 dtype: Optional[torch.dtype] = None, remat: str = "none",
+                 activation: str = "relu", norm_type: str = "layer",
+                 out_init_scale: float = 1.0):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
             TransformerLayer(d_model, nhead, dim_feedforward, norm_first=norm_first,
                              adaptive_norm=adaptive_norm, cross_attention=cross_attention,
                              attn_impl=attn_impl, act_quant=act_quant, dropout=dropout,
-                             dtype=dtype)
+                             dtype=dtype, activation=activation, norm_type=norm_type,
+                             out_init_scale=out_init_scale)
             for _ in range(num_layers)
         )
-        self.norm = (conditioned_norm(d_model, adaptive_norm, dtype=dtype)
+        self.norm = (conditioned_norm(d_model, adaptive_norm, dtype=dtype,
+                                      norm_type=ffn_norm_type(norm_type))
                      if final_norm and norm_first else None)
 
     def forward(self, x, kv_cache=None, *, stage_emb=None, attn_bias=None, memory=None,

@@ -11,7 +11,14 @@ the reference ties them) and maps the optional prenets (flax Conv / BatchNorm
 / Dense to the reference's ``nn.Sequential`` indices).  The Transformer TTS
 baseline (``variant="transformer"``) maps its encoder and decoder
 stacks the same way, its mel prenet ``decoder_prenet_fc1..3`` to
-``decoder_prenet.0 / .3 / .6`` and its other leaves by name.
+``decoder_prenet.0 / .3 / .6`` and its other leaves by name.  Its
+``scaling_xformers`` variant maps the ``eps_log`` of each balanced basic
+norm (the layers' ``norm2``, which is the port's ``norm3`` in a
+cross-attention layer, and the final norms) to ``<norm>.norm.eps`` and its
+one-layer prenet ``decoder_prenet_fc`` by name; its identity norms have no
+parameters.  ``sr_state_dict_from_jax`` carries an ``SRLinear`` /
+``SRConv1d`` variable tree (params and ``spectral.u``) into the port's
+module.
 
 Input is the JAX variables dict as ``model.init`` returns it, with numpy
 leaves (``jax.tree.map(np.asarray, variables)``); a bare params tree works
@@ -47,12 +54,18 @@ def _scale(qtree: Mapping, dst: str, out: Dict[str, np.ndarray], *names, i=None)
 
 def _decoder(out: Dict[str, np.ndarray], tree: Mapping, prefix: str, n_layers: int,
              adaptive: bool, cross: bool, norm_first: bool,
-             qtree: Optional[Mapping] = None) -> None:
+             qtree: Optional[Mapping] = None, norm_type: str = "layer") -> None:
     layers = tree["layers"]
     qlayers = (qtree or {}).get("layers", {})
 
-    def norm(dst: str, sub: Mapping, i) -> None:
-        if adaptive:
+    def norm(dst: str, name: str, i, ffn: bool = False) -> None:
+        ntype = "balanced_basic" if ffn and norm_type == "identity" else norm_type
+        if ntype == "identity":
+            return
+        sub = tree["final_norm"] if name == "final_norm" else layers[name]
+        if ntype == "balanced_basic":
+            out[f"{dst}.norm.eps"] = sub["eps_log"][i]
+        elif adaptive:
             ada = sub["ada"]
             out[f"{dst}.project_layer.weight"] = ada["project_layer"]["kernel"][i].T
             out[f"{dst}.project_layer.bias"] = ada["project_layer"]["bias"][i]
@@ -77,7 +90,7 @@ def _decoder(out: Dict[str, np.ndarray], tree: Mapping, prefix: str, n_layers: i
         linear(f"{p}.self_attn.out_proj", sa["out_proj"], i, qsa.get("out_proj", {}))
         linear(f"{p}.linear1", layers["linear1"], i, qlayers.get("linear1", {}))
         linear(f"{p}.linear2", layers["linear2"], i, qlayers.get("linear2", {}))
-        norm(f"{p}.norm1", layers["norm1"], i)
+        norm(f"{p}.norm1", "norm1", i)
         if cross:
             ca, qca = layers["cross_attn"], qlayers.get("cross_attn", {})
             out[f"{p}.multihead_attn.in_proj_weight"] = np.concatenate(
@@ -88,12 +101,12 @@ def _decoder(out: Dict[str, np.ndarray], tree: Mapping, prefix: str, n_layers: i
                    i=i)
             linear(f"{p}.multihead_attn.out_proj", ca["out_proj"], i, qca.get("out_proj", {}))
             # reference: norm2 gates cross-attention, norm3 the FFN
-            norm(f"{p}.norm2", layers["norm_ca"], i)
-            norm(f"{p}.norm3", layers["norm2"], i)
+            norm(f"{p}.norm2", "norm_ca", i)
+            norm(f"{p}.norm3", "norm2", i, ffn=True)
         else:
-            norm(f"{p}.norm2", layers["norm2"], i)
+            norm(f"{p}.norm2", "norm2", i, ffn=True)
     if norm_first:
-        norm(f"{prefix}.norm", tree["final_norm"], slice(None))
+        norm(f"{prefix}.norm", "final_norm", ..., ffn=True)
 
 
 def _prenets(out: Dict[str, np.ndarray], params: Mapping, stats: Mapping, side: str) -> None:
@@ -127,10 +140,15 @@ def _transformer_tts(params: Mapping, cfg: ModelConfig) -> Dict[str, np.ndarray]
         "text_position.alpha": params["text_position"]["alpha"],
         "decoder_position.alpha": params["decoder_position"]["alpha"],
     }
-    _decoder(out, params["encoder"], "encoder", cfg.num_layers, False, False, cfg.norm_first)
-    _decoder(out, params["decoder"], "decoder", cfg.num_layers, False, True, cfg.norm_first)
-    dense = {f"decoder_prenet.{i}": params[f"decoder_prenet_fc{j}"]
-             for i, j in ((0, 1), (3, 2), (6, 3))}
+    norm_type = "identity" if cfg.scaling_xformers else "layer"
+    for name, cross in (("encoder", False), ("decoder", True)):
+        _decoder(out, params[name], name, cfg.num_layers, False, cross, cfg.norm_first,
+                 norm_type=norm_type)
+    if cfg.scaling_xformers:
+        dense = {"decoder_prenet_fc": params["decoder_prenet_fc"]}
+    else:
+        dense = {f"decoder_prenet.{i}": params[f"decoder_prenet_fc{j}"]
+                 for i, j in ((0, 1), (3, 2), (6, 3))}
     dense.update(predict_layer=params["predict_layer"], stop_layer=params["stop_layer"])
     for name, leaf in dense.items():
         out[f"{name}.weight"] = leaf["kernel"].T
@@ -186,6 +204,16 @@ def numpy_state_dict_from_jax(variables: Mapping, cfg: ModelConfig,
                 w = params["nar_predict_layers"][j].T
             out[f"nar_predict_layers.{j}.weight"] = w
     return {k: np.array(v) for k, v in out.items()}  # copies: jax leaves are read-only
+
+
+def sr_state_dict_from_jax(variables: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """The variables of JAX's ``SRLinear`` / ``SRConv1d`` (``params``:
+    ``weight`` in the torch layout, ``sigma``, ``bias``; ``spectral``:
+    ``u``) -> the ``state_dict`` of the port's module on ``device``
+    (default: the card; raises without CUDA)."""
+    dev = resolve_device(device)
+    sd = dict(variables["params"], u=variables["spectral"]["u"])
+    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in sd.items()}
 
 
 def state_dict_from_jax(variables: Mapping, cfg: ModelConfig, variant: str = "valle",
