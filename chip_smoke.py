@@ -154,6 +154,34 @@ ends the run with a non-zero exit code):
      tts_scaling_train_cli (path p): ``--model-name Transformer
      --scaling-xformers true`` through the train CLI on that corpus, f32, 2
      steps at 24 / 24 / 12 / 12 launches;
+ 17s. ddp_train (path s): phase 9's step through the parallel layer in a
+     group of one over NCCL, bit-equal to the same step without a group
+     (loss, gradients, weights, step generator), with the gradient
+     reduction's bytes and ms; then the deterministic step at B=8 on one
+     process, and two ranks sharing the card over gloo, each with 4 of its
+     rows: the summed gradients within 1e-5 of it (2-norm over all; each
+     tensor within 5e-5), the loss and the updated weights' checksum within
+     1e-5, equal on both ranks; 48 / 48 launches of kernels 2 / 3 per rank
+     and step; then a step with dropout 0.1 whose first kernel 2 and 3
+     launch per shape on rank 1 is held against the plain version with a
+     bit-equal rerun; rank 1's dropout keep rate within 4 sigma of 0.9 and
+     its bits other than rank 0's; the reductions' ms and peak GiB per rank;
+ 17t. ddp_train_cli (path t): the train CLI as two processes
+     (``--num-processes 2 --dist-backend gloo``) on path i's corpus and
+     flags, stage 0, 1 epoch: one log (rank 0's), one set of ``.pt`` files,
+     the OOM scan per rank, equal finite losses on both ranks, 48 / 48
+     launches per step, the averaged ``epoch-1.pt`` through the infer CLI
+     to a finite wav;
+ 17u. tp_serve (path u): the serve CLI on 8 prompted requests in one
+     bucket, bf16, int8 KV, greedy, on one rank and then at
+     ``--tensor-parallel 2 --quantize-weights w8a8`` and at
+     ``--data-parallel 2`` (ranks sharing the card over gloo): manifests and
+     codes equal up to the first near-tie of the one-rank run's logits; two
+     ranks at T=2 (8 heads each): the W8A8 prefill logits of the CLI's batch
+     bit-equal to the one-rank CLI's, and bf16 ``generate(...,
+     ragged_decode=True)`` on 8 requests with the first kernel 1 and kernel
+     2 launch per shape held against the plain versions, codes equal to one
+     rank's up to the first near-tie; launches per rank;
  18. remat_ab: phase 9's step in f32, and in bf16 under remat none, full and
      dots_nobatch: the bf16 loss, gradients and step generator bit-equal
      across the policies, launches (kernel 2 doubled under remat, kernel 3
@@ -169,7 +197,9 @@ median of 5 windows of back-to-back calls (CUDA events), with the fastest
 and slowest window as the spread, and beside them the device time per call
 from ``torch.profiler``, which leaves out the host's launch overhead.  Exits
 non-zero without CUDA, and where the port's package is not beside it.  Needs
-one card, no network.
+one card, no network.  Paths s-u start rank processes of this script
+(``run_rank_processes``) and the serve CLI's own; every one is waited for,
+and a failed one fails the phase.
 """
 
 from __future__ import annotations
@@ -181,6 +211,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -337,7 +368,7 @@ def kernel_resources(lib_path, log_path, label=kernel_label, opcodes=(("hmma", "
             name = label(m.group(1))
         elif name is not None:
             for key, op in opcodes:
-                if re.search(rf"\b{op}", line):
+                if op in line and re.search(rf"\b{op}", line):
                     res[name][key] += 1
     return res
 
@@ -1389,17 +1420,14 @@ def gradient_check(model, batch, weights: str, phase: str = "train_gradient_chec
     a CPU copy of the model (plain versions; the training build, so f32
     parameters under any compute dtype) that follows the card's ReLU gates;
     fails past ``tols`` (``F32_CHECK``: LOSS_RTOL, FLIP_SHARE, FLIP_ATOL,
-    GRAD_RTOL and GRAD_NORM_RTOL).  The same comparison with the CPU copy on
-    its own gates is reported beside it, unchecked, to show what the
-    flipped gates alone move (a model without ReLU gates skips it).
-    ``train_mode``: both copies in train mode with every dropout rate at 0
-    (``_micro_grads``).  The learnable epsilon of a balanced basic norm is a
-    scalar whose gradient sums the contributions of every element of the
-    norm's output, which cancel (the line reports how far:
-    ``eps_conditioning_min_max``), so its error is taken over that sum of
-    magnitudes (``_eps_term_hooks``, on the CPU copy), the
-    bound of a sum's rounding error; its error over |g| is reported
-    beside, unchecked."""
+    GRAD_RTOL and GRAD_NORM_RTOL).  ``train_mode``: both copies in train
+    mode with every dropout rate at 0 (``_micro_grads``).  The learnable
+    epsilon of a balanced basic norm is a scalar whose gradient sums the
+    contributions of every element of the norm's output, which cancel (the
+    line reports how far: ``eps_conditioning_min_max``), so its error is
+    taken over that sum of magnitudes (``_eps_term_hooks``, on the CPU
+    copy), the bound of a sum's rounding error; its error over |g| is
+    reported beside, unchecked."""
     from valle_tpu_torch.models import get_model
 
     tols = tols or F32_CHECK
@@ -1412,20 +1440,16 @@ def gradient_check(model, batch, weights: str, phase: str = "train_gradient_chec
     eps_terms = {}
     loss_cpu, grads_cpu = _micro_grads(cpu_model, cpu_batch, gates, flips, forward_kw,
                                        train_mode, eps_terms)
-    grads_own = (_micro_grads(cpu_model, cpu_batch, {}, {}, forward_kw, train_mode)[1]
-                 if gates else grads_cpu)
     del cpu_model
     grad_err, grad_norm_err = _grad_errors(grads_gpu, grads_cpu)
-    own_err, own_norm_err = _grad_errors(grads_gpu, grads_own)
     eps_raw = {n: grad_err[n] for n in eps_terms}
     eps_conditioning = {n: eps_terms[n] / max(float(grads_cpu[n].abs()), 1e-30)
                         for n in eps_terms}
     for n, scale in eps_terms.items():
         grad_err[n] = grad_norm_err[n] = float((grads_gpu[n] - grads_cpu[n]).abs()) / max(
             scale, 1e-30)
-    del grads_gpu, grads_cpu, grads_own
+    del grads_gpu, grads_cpu
     worst = sorted(grad_err, key=grad_err.get, reverse=True)[:5]
-    own_worst = sorted(own_err, key=own_err.get, reverse=True)[:5]
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     flip_h = max((f["max_abs_h"] for f in flips.values()), default=0.0)
     n_gates = sum(g.numel() for g in gates.values())
@@ -1441,9 +1465,6 @@ def gradient_check(model, batch, weights: str, phase: str = "train_gradient_chec
              "max_grad_norm_rel_err": max(grad_norm_err.values()),
              "median_grad_rel_err": float(np.median(list(grad_err.values()))),
              "grad_rtol": tols["grad_rtol"], "grad_norm_rtol": tols["grad_norm_rtol"],
-             "own_gates_worst_grads": {n: own_err[n] for n in own_worst},
-             "own_gates_max_grad_norm_rel_err": max(own_norm_err.values()),
-             "own_gates_median_grad_rel_err": float(np.median(list(own_err.values()))),
              "n_grads": len(grad_err), "seconds": time.perf_counter() - t0}
     if eps_terms:
         check |= {"eps_err_over_term_sum_max": max(grad_err[n] for n in eps_terms),
@@ -3698,6 +3719,780 @@ def reference_pt_path(dev, files):
     return launches
 
 
+# --------------------------------------------------------- paths s, t and u
+# The parallel layer (valle_tpu_torch/parallel) on the card.  The machine
+# has one card, and NCCL refuses two ranks on one device, so: a group of one
+# over NCCL, and two (or more) ranks sharing the card over gloo, which
+# stages CUDA tensors through the host: those runs check correctness, and
+# their times are not the speed of a multi-card run.
+
+RANK_TIMEOUT_S = 600
+DDP_B = 8  # the reference step's batch; each of the two ranks takes half
+DDP_GRAD_RTOL = 1e-5  # 2-norm of all the gradients' error over theirs
+DDP_LOSS_RTOL = DDP_CHECKSUM_RTOL = 1e-5
+TP_REQUESTS, TP_MAX_NEW = 8, 32  # the serve CLI's runs take one bucket of TP_MAX_NEW
+
+
+def _smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+_RUNS = []  # every start_rank_processes run, stopped when the script ends
+
+
+def start_rank_processes(job: str, world: int, args=(), *, backend="gloo",
+                         group=True) -> dict:
+    """Start ``job(*args)`` (a function of this script) in ``world``
+    processes, as the ranks of a group over ``backend`` on the card
+    (``group=False``: the job makes its own, from the address it is given),
+    each in a session of its own, so that stopping it stops what it spawned.
+    ``wait_rank_processes`` takes the handle this returns."""
+    import os
+
+    from valle_tpu_torch.parallel import dist
+
+    out = Path(tempfile.mkdtemp(prefix="ranks-", dir=Path(__file__).resolve().parent / "build"))
+    address = f"127.0.0.1:{dist.free_port()}"
+    procs, logs = [], []
+    for rank in range(world):
+        log = open(out / f"rank{rank}.log", "w+")
+        logs.append(log)
+        argv = [sys.executable, "-c", "import chip_smoke; chip_smoke._rank_main()", job,
+                str(rank), str(world), address, backend, str(int(group)), str(out),
+                *map(str, args)]
+        procs.append(subprocess.Popen(argv, cwd=Path(__file__).resolve().parent,
+                                      env=dict(os.environ), stdout=log,
+                                      stderr=subprocess.STDOUT, start_new_session=True))
+    run = {"job": job, "out": out, "procs": procs, "logs": logs}
+    _RUNS.append(run)
+    return run
+
+
+def stop_rank_processes(run: dict) -> None:
+    """Kill every process of ``run`` that still runs, with what it spawned."""
+    import os
+    import signal
+
+    for p in run["procs"]:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def wait_rank_processes(run: dict, timeout=RANK_TIMEOUT_S) -> list:
+    """Each rank's result (the JSON its job returns) of ``run``.  When a
+    process fails, or ``timeout`` seconds from now pass, every process
+    still running is killed and the phase fails with the processes'
+    output."""
+    procs, logs, world = run["procs"], run["logs"], len(run["procs"])
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        stop_rank_processes(run)
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    assert not failed, f"{run['job']}: ranks {failed} failed:\n" + "\n".join(
+        f"--- rank {r} (exit {procs[r].returncode})\n{texts[r][-4000:]}" for r in range(world))
+    return [json.loads((run["out"] / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def run_rank_processes(job: str, world: int, args=(), *, backend="gloo", group=True,
+                       timeout=RANK_TIMEOUT_S) -> list:
+    """``start_rank_processes`` and ``wait_rank_processes`` in one."""
+    return wait_rank_processes(start_rank_processes(job, world, args, backend=backend,
+                                                    group=group), timeout)
+
+
+def _rank_main() -> None:
+    """A rank process of ``run_rank_processes``."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build
+    from valle_tpu_torch.parallel import dist
+
+    job, rank, world, address, backend, group, out, *args = sys.argv[1:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.build(KERNELS)  # built by the parent: loads only
+    if group == "1":
+        dist.initialize(address, int(world), int(rank), device="cuda", backend=backend,
+                        timeout_s=RANK_TIMEOUT_S)
+    try:
+        res = globals()[job](int(rank), int(world), address, Path(out), *args)
+    finally:
+        dist.shutdown()
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+class GradCapture:
+    """Keeps the gradients that a train state's optimizer gets at its next
+    step (summed over the ranks; before ScaledAdam's own clipping)."""
+
+    def __init__(self, state):
+        self.grads = {}
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        real = state.optimizer.step
+
+        def step(*a, **kw):
+            if not self.grads:
+                self.grads = {names[id(p)]: p.grad.detach().clone()
+                              for g in state.optimizer.param_groups for p in g["params"]}
+            return real(*a, **kw)
+
+        state.optimizer.step = step
+
+
+def _grad_rel_errors(got: dict, want: dict) -> dict:
+    """Per tensor the 2-norm of the error over the tensor's, and over all."""
+    import torch
+
+    assert got.keys() == want.keys()
+    per = {n: float((got[n] - want[n]).norm() / want[n].norm().clamp(min=1e-30)) for n in want}
+    total = float(torch.stack([(got[n] - want[n]).double().norm() for n in want]).norm()
+                  / torch.stack([want[n].double().norm() for n in want]).norm())
+    worst = sorted(per, key=per.get, reverse=True)[:3]
+    return {"all": total, "worst": {n: per[n] for n in worst}}
+
+
+def timed_reductions():
+    """Wrap ``train.step.reduce_gradients_`` so that it records, per call,
+    the bytes reduced and its milliseconds (synchronised on both sides).
+    Returns (records, restore)."""
+    import torch
+
+    from valle_tpu_torch.train import step as step_mod
+
+    real, records = step_mod.reduce_gradients_, []
+
+    def timed(params, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = real(params, group)
+        torch.cuda.synchronize()
+        records.append({"bytes": n, "ms": (time.perf_counter() - t0) * 1e3})
+        return n
+
+    step_mod.reduce_gradients_ = timed
+    return records, lambda: setattr(step_mod, "reduce_gradients_", real)
+
+
+def _ddp_setup(dev, deterministic: bool = True):
+    """Phase 9's model (seeded init), optimizer and schedule."""
+    import functools
+
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
+    from valle_tpu_torch.train.step import init_train_state
+
+    cfg = ModelConfig(attn_impl="fused")
+    torch.manual_seed(SEED)
+    model = get_model(cfg, device=dev)
+    make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
+    return cfg, model, make_opt, get_lr_fn("eden", 0.05, warmup_steps=200)
+
+
+def _ddp_batch(cfg, dev, rows=slice(None)):
+    """Phase 9's batch layout at B=8 (rows ``rows`` of it)."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 17)
+    a, b, s, t = TRAIN_A, DDP_B, TRAIN_S, TRAIN_T
+    x_lens = rng.randint(3 * s // 4, s + 1, (a, b))
+    y_lens = rng.randint(int(0.8 * t), t + 1, (a, b))
+    x_lens[:, 0], y_lens[:, 0] = s, t
+    arrays = {"text_tokens": rng.randint(1, cfg.num_text_tokens, (a, b, s)),
+              "text_tokens_lens": x_lens,
+              "audio_features": rng.randint(0, cfg.num_audio_tokens, (a, b, t, cfg.num_quantizers)),
+              "audio_features_lens": y_lens}
+    return {k: torch.from_numpy(np.ascontiguousarray(v[:, rows])).to(dev)
+            for k, v in arrays.items()}
+
+
+def ddp_train_path(dev, tmp: Path):
+    """Path s.  (1) Phase 9's step (f32, dropout 0.1, B=4, A=2) through the
+    parallel layer in a group of one over NCCL, against the same step
+    without a group: bit-equal loss, gradients, weights and step generator.
+    (2) The deterministic B=8 step on one process, then two ranks sharing
+    the card over gloo, each with half of the batch, held against it
+    (``ddp_train_job``)."""
+    import copy
+
+    import torch
+
+    from valle_tpu_torch.parallel import dist
+    from valle_tpu_torch.parallel.mesh import Mesh
+    from valle_tpu_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg, model, make_opt, lr_fn = _ddp_setup(dev)
+    batch = _train_batch(cfg, np.random.RandomState(SEED + 5), dev)  # phase 9's
+    plain = init_train_state(model, make_opt, train_stage=0)
+    grouped = copy.deepcopy(plain)
+    per_step = TRAIN_A * (cfg.num_layers + cfg.nar_num_layers)
+    world1 = {}
+    dist.initialize(f"127.0.0.1:{dist.free_port()}", 1, 0, device="cuda", force=True)
+    records, restore = timed_reductions()
+    try:
+        backend = torch.distributed.get_backend()
+        for name, state, mesh in (("plain", plain, None), ("group_of_one", grouped, Mesh())):
+            grads = GradCapture(state)
+            step = make_train_step(lr_fn, train_stage=0, mesh=mesh)
+            gen = torch.Generator().manual_seed(SEED)
+            reset_launches()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, gen, 0)
+            torch.cuda.synchronize()
+            world1[name] = {"loss": float(metrics["loss"]), "grads": grads.grads,
+                            "gen": gen.get_state(), "launches": read_launches(),
+                            "step_s": time.perf_counter() - t0}
+    finally:
+        restore()
+        dist.shutdown()
+    a, b = world1["plain"], world1["group_of_one"]
+    grads_equal = all(torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"])
+    weights_equal = all(torch.equal(x, y) for x, y in zip(plain.model.state_dict().values(),
+                                                          grouped.model.state_dict().values()))
+    gen_equal = torch.equal(a["gen"], b["gen"])
+    want = {"ragged_decode": 0, "prefix_attention": per_step, "prefix_attention_bwd": per_step,
+            "flash_attention": 0, "flash_attention_bwd": 0}
+    assert a["launches"] == b["launches"] == want, (a["launches"], b["launches"], want)
+    assert backend == "nccl", backend
+    assert a["loss"] == b["loss"] and grads_equal and weights_equal and gen_equal, \
+        ("a group of one differs from the single-process step", a["loss"], b["loss"],
+         grads_equal, weights_equal, gen_equal)
+    world1_line = {"backend": backend, "loss": a["loss"], "bit_equal": True,
+                   "launches_per_step": b["launches"], "step_s": [a["step_s"], b["step_s"]],
+                   "reduction": records[-1]}  # the group's (the plain step reduces nothing)
+    del plain, grouped, model, world1, a, b
+    torch.cuda.empty_cache()
+
+    # the reference: one process, the whole B=8 batch, deterministic
+    cfg, model, make_opt, lr_fn = _ddp_setup(dev)
+    state = init_train_state(model, make_opt, train_stage=0)
+    grads = GradCapture(state)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, metrics = make_train_step(lr_fn, train_stage=0, deterministic=True)(
+        state, _ddp_batch(cfg, dev), torch.Generator().manual_seed(SEED + 2), 0)
+    torch.cuda.synchronize()
+    ref = {"loss": float(metrics["loss"]), "grads": {n: g.cpu() for n, g in grads.grads.items()},
+           "checksum": sum(float(p.detach().abs().sum()) for p in state.model.parameters())}
+    ref_line = {"loss": ref["loss"], "checksum": ref["checksum"],
+                "step_s": time.perf_counter() - t0,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    ref_path = tmp / "ddp_reference.pt"
+    torch.save(ref, ref_path)
+    del state, model, grads, ref, metrics
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_rank_processes("ddp_train_job", 2, [ref_path])
+    ranks_s = time.perf_counter() - t0
+    ref_path.unlink()
+    r0, r1 = ranks
+    assert r0["loss"] == r1["loss"] and r0["checksum"] == r1["checksum"], (r0, r1)
+    loss_err = abs(r0["loss"] - ref_line["loss"]) / abs(ref_line["loss"])
+    checksum_err = abs(r0["checksum"] - ref_line["checksum"]) / ref_line["checksum"]
+    emit({"phase": "ddp_train", "model": "VALL-E default ModelConfig (367.4 M parameters), "
+          "attn_impl=fused, f32, train_stage 0, ScaledAdam + Eden", "group_of_one": world1_line,
+          "reference_b8": ref_line, "ranks": ranks, "ranks_wall_s": ranks_s,
+          "loss_rel_err": loss_err, "checksum_rel_err": checksum_err,
+          "bars": {"grads_all": DDP_GRAD_RTOL, "grads_each": GRAD_RTOL, "loss": DDP_LOSS_RTOL,
+                   "checksum": DDP_CHECKSUM_RTOL},
+          "note": "two ranks share one card over gloo, which stages through the host: "
+                  "their times are not a multi-card run's",
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": _smi()})
+    assert loss_err <= DDP_LOSS_RTOL and checksum_err <= DDP_CHECKSUM_RTOL, (loss_err,
+                                                                             checksum_err)
+    for r in ranks:
+        assert r["grad_err"]["all"] <= DDP_GRAD_RTOL, r["grad_err"]
+        assert max(r["grad_err"]["worst"].values()) <= GRAD_RTOL, r["grad_err"]
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    return {"ddp_train_group_of_one": world1_line["launches_per_step"], "ddp_train": counts}
+
+
+def ddp_train_job(rank: int, world: int, address: str, out: Path, ref_path: str) -> dict:
+    """A rank of path s: its half of the B=8 batch, a deterministic step
+    held against the reference's gradients, then a step in train mode
+    (dropout 0.1) whose first kernel 2 and 3 launch per shape is held
+    against the plain version on rank 1, with rank 1's dropout bits."""
+    import torch
+
+    from valle_tpu_torch.ops import fused_attention as fa
+    from valle_tpu_torch.ops.philox import SEED_RANGE, draw_seed, dropout_keep_mask, fold_rank
+    from valle_tpu_torch.parallel.mesh import Mesh, replicate_
+    from valle_tpu_torch.train.step import init_train_state, make_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh()
+    cfg, model, make_opt, lr_fn = _ddp_setup(dev)
+    replicate_(model, mesh)
+    state = init_train_state(model, make_opt, train_stage=0)
+    half = slice(rank * DDP_B // world, (rank + 1) * DDP_B // world)
+    batch = _ddp_batch(cfg, dev, half)
+    grads = GradCapture(state)
+    records, restore = timed_reductions()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        _, metrics = make_train_step(lr_fn, train_stage=0, deterministic=True, mesh=mesh)(
+            state, batch, torch.Generator().manual_seed(SEED + 2), 0)
+        torch.cuda.synchronize()
+        step_s = [time.perf_counter() - t0]
+        launches = read_launches()
+        ref = torch.load(ref_path, map_location=dev)
+        grad_err = _grad_rel_errors(grads.grads, ref["grads"])
+        del ref, grads
+        checksum = sum(float(p.detach().abs().sum()) for p in state.model.parameters())
+        loss = float(metrics["loss"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        on_rank1 = lambda: rank == 1  # noqa: E731
+        k2, restore2 = capture_kernel2(on_rank1)
+        k3, restore3 = capture_kernel3(on_rank1)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            make_train_step(lr_fn, train_stage=0, mesh=mesh)(
+                state, batch, torch.Generator().manual_seed(SEED + 3), 0)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            dropout_launches = read_launches()
+        finally:
+            restore2()
+            restore3()
+    finally:
+        restore()
+    res = {"rank": rank, "rows": [half.start, half.stop], "loss": loss, "checksum": checksum,
+           "grad_err": grad_err, "launches": launches, "dropout_step_launches": dropout_launches,
+           "step_s": step_s, "reductions": records, "peak_mem_gib": peak}
+    per_step = TRAIN_A * (cfg.num_layers + cfg.nar_num_layers)
+    for counts in (launches, dropout_launches):
+        assert counts["prefix_attention"] == counts["prefix_attention_bwd"] == per_step, counts
+    if rank == 1:
+        res["kernel2_captures"] = check_kernel2_captures(k2, "ddp rank 1")
+        res["kernel3_captures"] = check_kernel3_captures(k3, "ddp rank 1")
+        assert all(c["rate"] > 0 for c in res["kernel2_captures"]), res["kernel2_captures"]
+        # rank 1's dropout bits: the folded seed of a generator state, and
+        # rank 0's from the same state
+        raw = int(torch.randint(0, SEED_RANGE, (), generator=torch.Generator().manual_seed(
+            SEED + 4)))
+        seeds = [fold_rank(raw, r) for r in (0, 1)]
+        assert draw_seed(torch.Generator().manual_seed(SEED + 4)) == seeds[1]
+        b, h, t = TRAIN_B, cfg.nhead, TRAIN_S + TRAIN_T
+        masks = [dropout_keep_mask(s, b, h, t, t, DROPOUT, device=dev) for s in seeds]
+        q, k, v = (torch.randn(b, t, h, cfg.decoder_dim // h, device=dev) for _ in range(3))
+        kb = torch.zeros(b, t, device=dev)
+        got = fa._forward(q, k, v, kb, TRAIN_S, DROPOUT, seeds[1], False)[0]
+        want = fa.attention_forward_reference(q, k, v, kb, TRAIN_S, DROPOUT, seeds[1])[0]
+        err = float((got - want).abs().max())
+        keep = float(masks[1].float().mean())
+        sigma = float(np.sqrt(DROPOUT * (1 - DROPOUT) / masks[1].numel()))
+        differ = float((masks[0] != masks[1]).float().mean())
+        res["dropout"] = {"seeds": seeds, "keep_rate": keep, "sigma": sigma,
+                          "bits_differing_from_rank0": differ, "kernel2_max_abs_err": err}
+        assert abs(keep - (1 - DROPOUT)) <= 4 * sigma, res["dropout"]
+        assert seeds[0] != seeds[1] and differ > 0.1, res["dropout"]
+        assert err <= TOL["float32"], res["dropout"]
+    return res
+
+
+def ddp_train_cli_path(dev, files) -> dict:
+    """Path t: the train CLI as two processes (``--num-processes 2
+    --dist-backend gloo``, the ranks sharing the card) on path i's corpus,
+    stage 0 for one epoch with path i's flags (OOM scan, validation, step
+    checkpoints, averaging): one log, one set of ``.pt`` files, finite
+    losses, equal on both ranks, then the averaged ``epoch-1.pt`` through
+    the infer CLI to a finite wav."""
+    import shutil
+
+    from valle_tpu_torch.bin import infer as infer_cli
+    from valle_tpu_torch.data import read_wav
+
+    t_phase = time.perf_counter()
+    root = files["dir"] / "ddp_cli"
+    corpus = write_cli_corpus(root / "data", files["tokens.k2symbols"],
+                              splits=(("train", CLI_UTTS), ("dev", CLI_DEV_UTTS)), dur=CLI_DUR,
+                              fmt="vsh", frame_rate=75.0, dim=8, seed=SEED + 11)
+    exp = root / "exp"
+    argv = ["--manifest-dir", corpus, "--exp-dir", exp, *CLI_FLAGS, "--train-stage", "0",
+            "--num-epochs", "1"]
+    t0 = time.perf_counter()
+    ranks = run_rank_processes("train_cli_job", 2, argv, group=False)
+    cli_s = time.perf_counter() - t0
+    log = (exp / "log.txt").read_text()
+    names = sorted(p.name for p in (exp / "checkpoints").iterdir() if p.suffix == ".pt")
+    r0, r1 = ranks
+    assert "distributed: process 0/2" in log and "epoch 1 done" in log, log[-2000:]
+    assert "process 1/2" not in log, "rank 1 wrote to the log"
+    assert "epoch-1.pt" in names and sum(n.startswith("checkpoint-") for n in names) <= 1, names
+    assert r0["losses"] == r1["losses"] and len(r0["losses"]) >= 2, (r0, r1)
+    assert all(np.isfinite(r0["losses"])), r0["losses"]
+    per_step = TRAIN_A * 24
+    for r in ranks:
+        assert all(s["prefix_attention"] == s["prefix_attention_bwd"] == per_step
+                   for s in r["launches_per_step"]), r["launches_per_step"]
+
+    out_dir = root / "infer"
+    before = read_launches()
+    infer_cli.main(["--checkpoint", str(exp / "checkpoints" / "epoch-1.pt"),
+                    "--use-averaged-model", "true", "--codec-checkpoint", str(files["codec.npz"]),
+                    "--text-tokens", str(files["tokens.k2symbols"]), "--text-extractor",
+                    "chars", "--attn-impl", "flash", "--seed", str(SEED), "--max-new-tokens", "150",
+                    "--text-prompts", INFER_PROMPT_TEXT, "--audio-prompts",
+                    str(files["prompt.wav"]), "--text", INFER_TEXTS[0],
+                    "--output-dir", str(out_dir)])
+    infer_launches = _delta(read_launches(), before)
+    wav, sr = read_wav(str(out_dir / "0.wav"))
+    assert wav.size > 0 and np.isfinite(wav).all(), "the trained model's wav is not finite"
+    shutil.rmtree(root)
+    emit({"phase": "ddp_train_cli", "cli": "python -m valle_tpu_torch.bin.train --num-processes 2 "
+          "--dist-backend gloo (two ranks sharing the card)", "flags": CLI_FLAGS,
+          "checkpoints": names, "ranks": ranks, "cli_wall_s": cli_s,
+          "infer": {"launches": infer_launches, "wav_samples": int(wav.size), "sample_rate": sr},
+          "note": "gloo stages the all-reduces through the host: times are not a multi-card "
+                  "run's", "seconds": time.perf_counter() - t_phase, "nvidia_smi": _smi()})
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def train_cli_job(rank: int, world: int, address: str, out: Path, *argv) -> dict:
+    """A rank of path t: ``valle_tpu_torch.bin.train.main`` with this rank's
+    process flags, counting kernel launches per step."""
+    from valle_tpu_torch.bin import train as train_cli
+
+    make_step = train_cli.make_train_step
+    per_step = []
+
+    def counted(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng, epoch):
+            before = read_launches()
+            out_ = step(state, batch, rng, epoch)
+            per_step.append(_delta(read_launches(), before))
+            return out_
+
+        return run
+
+    train_cli.make_train_step = counted
+    reset_launches()
+    summary = train_cli.main([*argv, "--num-processes", str(world), "--process-id", str(rank),
+                              "--coordinator-address", address, "--dist-backend", "gloo"])
+    return {"rank": rank, "losses": [s["loss"] for s in summary["steps"]],
+            "shapes": [s["shape"] for s in summary["steps"]],
+            "step_s": [s["step_s"] for s in summary["steps"]],
+            "oom_scan_shapes": len(summary["oom_scan"]), "saves": summary["saves"],
+            "validations": summary["validations"], "launches": read_launches(),
+            "launches_per_step": per_step, "peak_mem_gib": summary["peak_mem_bytes"] / 2**30}
+
+
+# path u: tensor- and data-parallel serving
+
+def _tp_requests(cfg):
+    """8 requests at generate's shapes: text 40-64 tokens, prompts of
+    150-225 frames."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 19)
+    r, s, p, q = TP_REQUESTS, 64, 225, cfg.num_quantizers
+    arrays = {"x": rng.randint(1, cfg.num_text_tokens, (r, s)),
+              "x_lens": rng.randint(40, s + 1, r),
+              "prompt_codes": rng.randint(0, cfg.num_audio_tokens, (r, p, q)),
+              "prompt_lens": rng.randint(150, p + 1, r)}
+    return {k: torch.from_numpy(v).long() for k, v in arrays.items()}
+
+
+def record_gaps(model):
+    """Forward hooks on the prediction heads that keep, per call, the top
+    logit and the gap to the second (AR: one call per token, prefill first;
+    NAR: one call per stage).  Returns (ar, nar, remove)."""
+    import torch
+
+    ar, nar = [], []
+
+    def top2(out):
+        top = out.float().topk(2, dim=-1).values
+        return torch.stack([top[..., 0], top[..., 0] - top[..., 1]], -1).cpu()
+
+    handles = [model.ar_predict_layer.register_forward_hook(lambda m, i, o: ar.append(top2(o)))]
+    handles += [layer.register_forward_hook(lambda m, i, o: nar.append(top2(o)))
+                for layer in model.nar_predict_layers]
+    return ar, nar, lambda: [h.remove() for h in handles]
+
+
+def first_differences(ref_codes, got_codes, ar_gaps, nar_gaps) -> dict:
+    """Per row, where ``got_codes`` first leaves ``ref_codes`` (codebook 1
+    first, then each NAR codebook where codebook 1 agrees), with the
+    reference's top-two gap there; rows equal throughout count as equal.
+    ``ar_gaps`` (B, steps, 2); ``nar_gaps`` per stage (B, T, 2)."""
+    equal, ties = 0, []
+    for row, (want, got) in enumerate(zip(ref_codes, got_codes)):
+        diff = np.flatnonzero(want[:, 0] != got[:, 0])
+        if diff.size:
+            j = int(diff[0])
+            top, gap = (float(v) for v in ar_gaps[row, j])
+            ties.append({"row": row, "codebook": 1, "step": j, "top_logit": top, "gap": gap,
+                         "limit": NEAR_TIE_ULPS * _bf16_ulp(top)})
+            continue
+        for stage in range(1, want.shape[1]):
+            diff = np.flatnonzero(want[:, stage] != got[:, stage])
+            if diff.size:
+                j = int(diff[0])
+                top, gap = (float(v) for v in nar_gaps[stage - 1][row, j])
+                ties.append({"row": row, "codebook": stage + 1, "step": j, "top_logit": top,
+                             "gap": gap, "limit": NEAR_TIE_ULPS * _bf16_ulp(top)})
+                break
+        else:
+            equal += 1
+    return {"rows_equal": equal, "first_near_ties": ties,
+            "off": [t for t in ties if t["gap"] > t["limit"]]}
+
+
+def _tp_config(w8a8: bool):
+    from valle_tpu_torch.models import ModelConfig
+
+    return ModelConfig(dtype="bfloat16", attn_impl="flash", kv_cache_dtype="int8",
+                       act_quant=w8a8)
+
+
+def tp_generate_job(rank: int, world: int, address: str, out: Path, model_pt: str,
+                    batch_pt: str) -> dict:
+    """A rank of path u's T=2 mesh: the W8A8 prefill logits of the serve
+    CLI's first batch (``batch_pt``, which the parent writes once its
+    one-rank run has it) on its heads, then bf16 ``generate(...,
+    ragged_decode=True)`` with an int8 KV cache on 8 requests, the first
+    kernel 1 and kernel 2 launch of each shape held against the plain
+    versions."""
+    import torch
+
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.models import get_model
+    from valle_tpu_torch.nn import attention
+    from valle_tpu_torch.ops.ragged_decode import (
+        ragged_decode_attention, ragged_decode_attention_reference)
+    from valle_tpu_torch.parallel.mesh import Mesh, shard_parameters_
+    from valle_tpu_torch.sample import _prefill_kv, generate
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh(1, world)
+    sd = infer.load_model_params(model_pt, _tp_config(False), "valle")
+    model = shard_parameters_(get_model(_tp_config(True), device=dev, state_dict=sd,
+                                        quantize=True), mesh)
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while not Path(batch_pt).exists():
+        assert time.monotonic() < deadline, f"{batch_pt} did not come"
+        time.sleep(0.1)
+    with torch.inference_mode():
+        batch = [t.to(dev) for t in torch.load(batch_pt)]
+        logits = _prefill_kv(model, *batch)[0].float().cpu()
+    del model, batch
+    torch.cuda.empty_cache()
+
+    cfg = _tp_config(False)
+    model = shard_parameters_(get_model(cfg, device=dev, state_dict=sd), mesh)
+    del sd
+    heads = model.ar_decoder.layers[0].self_attn.local_heads
+    k1, restore1 = capture_first_calls(attention, "ragged_decode_attention",
+                                       lambda a, kw: tuple(a[0].shape))
+    k2, restore2 = capture_kernel2()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = generate(model, **{k: v.to(dev) for k, v in _tp_requests(cfg).items()}, top_k=1,
+                       max_new_tokens=TP_MAX_NEW, forbid_eos=True, ragged_decode=True,
+                       generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        restore1()
+        restore2()
+    k1_cases = []
+    for shape, (args, kw, got) in sorted(k1.items()):
+        err = float((got.float() - ragged_decode_attention_reference(*args).float()).abs().max())
+        rerun = torch.equal(ragged_decode_attention(*args, **kw), got)
+        assert err <= TOL["float32"] and rerun, (shape, err, rerun)
+        k1_cases.append({"q_shape": list(shape), "cache": str(args[1].dtype),
+                         "max_abs_err": err, "rerun_bit_equal": rerun})
+    k2_cases = check_kernel2_captures(k2, f"tp rank {rank}")
+    assert k1 and all(s[2] == heads for s in k1), list(k1)
+    torch.save({"logits": logits, "codes": res["codes"].cpu(), "lengths": res["lengths"].cpu()},
+               out / f"tp_rank{rank}.pt")
+    return {"rank": rank, "local_heads": heads, "launches": launches, "generate_wall_s": wall,
+            "kernel1_cases": k1_cases, "kernel2_cases": k2_cases,
+            "saved": str(out / f"tp_rank{rank}.pt")}
+
+
+def _serve_tsv(path, wav) -> None:
+    """8 requests with the prompt wav and its text, texts of 20-40
+    characters (a bucket of ``TP_MAX_NEW`` takes them all)."""
+    rng = np.random.RandomState(SEED + 23)
+    path.write_text("".join(f"p{i}\t{_text_of(rng, rng.randint(20, 41))}\t{wav}\t"
+                            f"{INFER_PROMPT_TEXT}\n" for i in range(TP_REQUESTS)))
+
+
+def _serve_outputs(out_dir) -> tuple:
+    manifest = [json.loads(line) for line in (out_dir / "manifest.jsonl").read_text().splitlines()]
+    return manifest, [np.load(out_dir / f"{m['id']}_codes.npy") for m in manifest]
+
+
+def _pad_codes(codes, width: int):
+    out = np.zeros((len(codes), width, codes[0].shape[1]), np.int64)
+    for i, c in enumerate(codes):
+        out[i, :len(c)] = c
+    return out
+
+
+def serve_cli_job(rank: int, world: int, address: str, out: Path, *argv) -> dict:
+    """A process of path u that runs ``valle_tpu_torch.bin.serve.main(argv)``
+    (which starts the CLI's own ranks)."""
+    from valle_tpu_torch.bin import serve
+
+    t0 = time.perf_counter()
+    serve.main(list(argv))
+    return {"seconds": time.perf_counter() - t0}
+
+
+def tp_serve_path(dev, files) -> dict:
+    """Path u, against one rank on the same card: the serve CLI at
+    ``--tensor-parallel 2 --quantize-weights w8a8`` and at
+    ``--data-parallel 2`` (unquantized) on 8 prompted requests in one bucket
+    (manifests and codes equal up to the first near-tie of the one-rank
+    run's logits), and ``tp_generate_job`` on two ranks: the W8A8 prefill
+    logits of the CLI's batch bit-equal to the one-rank CLI's, and bf16
+    ``generate`` codes equal up to the first near-tie.  The ranks share the
+    card over gloo; the two-rank CLI runs (each in a process of
+    ``serve_cli_job``) and the ranks of ``tp_generate_job`` start first and
+    run beside the one-rank runs."""
+    import torch
+
+    from valle_tpu_torch import sample
+    from valle_tpu_torch.bin import serve
+
+    t_phase = time.perf_counter()
+    tmp = files["dir"]
+    tsv = tmp / "tp_requests.tsv"
+    _serve_tsv(tsv, files["prompt.wav"])
+    base = ["--requests", str(tsv), "--checkpoint", str(files["model.pt"]), "--codec-checkpoint",
+            str(files["codec.npz"]), "--text-tokens", str(files["tokens.k2symbols"]),
+            "--text-extractor", "chars", "--batch-size", str(TP_REQUESTS), "--length-buckets",
+            str(TP_MAX_NEW), "--attn-impl", "flash", "--top-k", "1", "--seed", str(SEED)]
+    runs = {"tp": (["--quantize-weights", "w8a8"], "--tensor-parallel"),
+            "dp": ([], "--data-parallel")}
+    two_rank_runs = {name: start_rank_processes(
+        "serve_cli_job", 1, base + extra + [flag, "2", "--dist-backend", "gloo", "--output-dir",
+                                            tmp / f"{name}_two"], group=False)
+        for name, (extra, flag) in runs.items()}
+    batch_pt = tmp / "tp_batch.pt"
+    t_ranks = time.perf_counter()
+    tp_ranks = start_rank_processes("tp_generate_job", 2, [files["model.pt"], batch_pt])
+    real_generate = serve.generate
+    one_rank = {}
+    for name, (extra, _) in runs.items():  # one rank, recording its logits' top-two gaps
+        gaps, kept = [], {}
+
+        def recording(model_, *a, **kw):
+            ar_, nar_, remove_ = record_gaps(model_)
+            try:
+                return real_generate(model_, *a, **kw)
+            finally:
+                remove_()
+                gaps.append((torch.stack(ar_, 1).numpy(), [n.numpy() for n in nar_]))
+                kept["model"] = model_
+
+        prefills, restore_pre = capture_first_calls(sample, "_prefill_kv",
+                                                    lambda a, kw: a[1].shape[0])
+        serve.generate = recording
+        try:
+            t0 = time.perf_counter()
+            serve.main(base + extra + ["--output-dir", str(tmp / f"{name}_one")])
+            one_s = time.perf_counter() - t0
+        finally:
+            serve.generate = real_generate
+            restore_pre()
+        assert len(gaps) == 1 and len(prefills) == 1, "expected one batch"
+        args, _, out = prefills.popitem()[1]
+        one_rank[name] = {"s": one_s, "gaps": gaps[0], "batch": [t.cpu() for t in args[1:5]],
+                          "logits": out[0].float().cpu(), "model": kept["model"]}
+        del args, out, prefills
+        if name == "tp":  # the batch the ranks wait for
+            torch.save(one_rank["tp"]["batch"], batch_pt.with_suffix(".tmp"))
+            batch_pt.with_suffix(".tmp").replace(batch_pt)
+
+    # generate on one rank (the unquantized CLI run's model), then on two
+    cfg = one_rank["dp"]["model"].cfg
+    req = {k: v.to(dev) for k, v in _tp_requests(cfg).items()}
+    ar, nar, remove = record_gaps(one_rank["dp"]["model"])
+    try:
+        reset_launches()
+        want = sample.generate(one_rank["dp"].pop("model"), **req, top_k=1,
+                               max_new_tokens=TP_MAX_NEW, forbid_eos=True, ragged_decode=True,
+                               generator=torch.Generator(device=dev).manual_seed(SEED))
+        one_rank_launches = read_launches()
+    finally:
+        remove()
+    del one_rank["tp"]["model"], req
+    torch.cuda.empty_cache()
+    ranks = wait_rank_processes(tp_ranks)
+    ranks_s = time.perf_counter() - t_ranks
+    got = [torch.load(r["saved"]) for r in ranks]
+    assert all(torch.equal(got[0][k], got[1][k]) for k in ("logits", "codes", "lengths")), \
+        "the ranks of one model group differ"
+    w8a8_equal = torch.equal(got[0]["logits"], one_rank["tp"]["logits"])
+    w8a8_err = float((got[0]["logits"] - one_rank["tp"]["logits"]).abs().max())
+    assert torch.equal(want["lengths"].cpu(), got[0]["lengths"])
+    gen_cmp = first_differences(want["codes"].cpu().numpy(), got[0]["codes"].numpy(),
+                                torch.stack(ar, 1).numpy(), [n.numpy() for n in nar])
+    n_layers = cfg.num_layers
+    for r in ranks:
+        assert r["local_heads"] == cfg.nhead // 2, r
+        assert r["launches"]["ragged_decode"] == n_layers * TP_MAX_NEW, r["launches"]
+        assert r["launches"]["prefix_attention"] == n_layers + 7 * cfg.nar_num_layers, r
+
+    # the serve CLI on two ranks
+    cli = {}
+    for name, (extra, flag) in runs.items():
+        two_s = wait_rank_processes(two_rank_runs[name])[0]["seconds"]
+        (m1, c1), (m2, c2) = (_serve_outputs(tmp / f"{name}_{k}") for k in ("one", "two"))
+        assert [m["id"] for m in m1] == [m["id"] for m in m2]
+        width = max(len(c) for c in c1 + c2)
+        cmp = first_differences(_pad_codes(c1, width), _pad_codes(c2, width),
+                                *one_rank[name]["gaps"])
+        cli[name] = {"flags": extra + [flag, "2"], "one_rank_s": one_rank[name]["s"],
+                     "two_ranks_s": two_s, "manifests_equal": m1 == m2,
+                     "codes_equal": all(np.array_equal(a, b) for a, b in zip(c1, c2)), **cmp}
+    emit({"phase": "tp_serve", "model": "VALL-E default ModelConfig, seeded random weights "
+          "(.pt), bf16, int8 KV, attn_impl=flash", "requests": TP_REQUESTS,
+          "max_new_tokens": TP_MAX_NEW, "ranks": ranks, "ranks_wall_s": ranks_s,
+          "w8a8_prefill_bit_equal": w8a8_equal, "w8a8_prefill_max_abs_err": w8a8_err,
+          "w8a8_batch": [list(t.shape) for t in one_rank["tp"]["batch"]],
+          "generate_vs_one_rank": gen_cmp, "one_rank_launches": one_rank_launches,
+          "serve_cli": cli,
+          "near_tie": f"top-two gap <= {NEAR_TIE_ULPS} bf16 ulps of the top logit",
+          "note": "ranks share one card over gloo, which stages through the host, and the "
+                  "two-rank CLI runs run beside the rest: times are not a multi-card run's",
+          "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": _smi()})
+    assert w8a8_equal, f"W8A8 prefill logits at T=2 differ from T=1 by {w8a8_err}"
+    off = gen_cmp["off"] + [t for c in cli.values() for t in c["off"]]
+    assert not off, f"codes at T=2 / D=2 differ from one rank's without a near-tie: {off}"
+    return {"tp_generate": {k: sum(r["launches"][k] for r in ranks)
+                            for k in ranks[0]["launches"]}}
+
+
 def main() -> int:
     import torch
 
@@ -3710,8 +4505,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = _smi()
     print(smi.splitlines()[0], flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
@@ -3719,11 +4513,14 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = cuda_build.build(KERNELS)
     fwd_log = cuda_build.log_path("prefix_attention")
-    fwd = kernel_resources(fwd_log.with_suffix(".so"), fwd_log)
     bwd_log = cuda_build.log_path("prefix_attention_bwd")
-    bwd = kernel_resources(bwd_log.with_suffix(".so"), bwd_log)
     k1_log = cuda_build.log_path("ragged_decode")
-    k1 = kernel_resources(k1_log.with_suffix(".so"), k1_log, ragged_label, (("i2f", "I2F"),))
+    with ThreadPoolExecutor(3) as pool:  # the three cuobjdump runs side by side
+        jobs = [pool.submit(kernel_resources, fwd_log.with_suffix(".so"), fwd_log),
+                pool.submit(kernel_resources, bwd_log.with_suffix(".so"), bwd_log),
+                pool.submit(kernel_resources, k1_log.with_suffix(".so"), k1_log, ragged_label,
+                            (("i2f", "I2F"),))]
+        fwd, bwd, k1 = (job.result() for job in jobs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": seconds,
           "ptxas": {name: ptxas_summary(cuda_build.log_path(name)) for name in KERNELS},
           "kernel1_kernels": k1, "forward_kernels": fwd, "backward_kernels": bwd})
@@ -3765,6 +4562,9 @@ def main() -> int:
             dev, files, files["dir"] / "data_cli")
         paths.update(train_cli_bf16_path(dev, files, codes_dir, mels_dir))
         paths["tts_scaling_train_cli"] = tts_scaling_cli_path(dev, mels_dir)
+        paths.update(ddp_train_path(dev, files["dir"]))
+        paths["ddp_train_cli"] = ddp_train_cli_path(dev, files)
+        paths.update(tp_serve_path(dev, files))
     paths.update(remat_ab_path(dev))
 
     def entry(name, source, replaces, res, path):
@@ -3798,4 +4598,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:  # a failed phase leaves no rank process behind
+        for started in _RUNS:
+            stop_rank_processes(started)
+    sys.exit(code)

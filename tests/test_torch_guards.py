@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_no_valle_tpu():
     names = set(found.stdout.split())
     assert {"valle_tpu_torch.codec.encodec_model", "valle_tpu_torch.data.text_tokenizer",
             "valle_tpu_torch.bin.infer", "valle_tpu_torch.sample", "valle_tpu_torch.bin.serve",
-            "valle_tpu_torch.sample.continuous", "valle_tpu_torch.nn.qdense"} <= names, \
+            "valle_tpu_torch.sample.continuous", "valle_tpu_torch.nn.qdense",
+            "valle_tpu_torch.parallel.dist", "valle_tpu_torch.parallel.mesh"} <= names, \
         sorted(names)
 
 

@@ -13,8 +13,8 @@ within f32 rounding of a rounding boundary of its int8 quantization takes the
 other int8 value in one package, and this tiny random model's logits are
 nearly flat: 4 of 1,280 codes differed, none of them an AR token).  Also
 the port's copies of ``_quantize_batch``, ``read_requests``' validation and
-``encode_prompts``' grouping, and ``--data-parallel 2``, which the port
-refuses (the parallel layer is not ported).
+``encode_prompts``' grouping, and the refusal of a batch size that does not
+split over ``--data-parallel``.
 """
 
 import json
@@ -170,6 +170,9 @@ def test_encode_prompts_batched_groups(monkeypatch):
 
 
 def test_parallel_flags_are_refused(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        serve.main(_argv(files, tmp_path, ("--data-parallel", "2")) + ["--device", "cpu"])
+    """A batch size that does not split over the data shards is refused
+    before any rank starts (data- and tensor-parallel serving itself:
+    tests/test_torch_sharded_generate.py)."""
+    with pytest.raises(ValueError, match="divide by --data-parallel"):
+        serve.main(_argv(files, tmp_path, ("--data-parallel", "3")) + ["--device", "cpu"])
     assert not (tmp_path / "manifest.jsonl").exists()

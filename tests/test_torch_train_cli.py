@@ -28,7 +28,9 @@ synthetic corpus (``tests/torch_corpus.py``), on the CPU:
       an unknown card trains with ``mfu=n/a``;
   (f) ``--oom-check true`` leaves the losses and weights bit-equal;
   (g) the refusals: ``--device cuda`` without CUDA and ``--num-processes 2``
-      (``--dtype bfloat16`` trains: ``tests/test_torch_train_bf16.py``;
+      without a coordinator address (data parallelism trains:
+      ``tests/test_torch_multiprocess_train.py``; ``--dtype bfloat16``
+      trains: ``tests/test_torch_train_bf16.py``;
       ``--visualize true`` draws: ``tests/test_torch_visualizer.py``).
 """
 
@@ -343,7 +345,9 @@ def test_refusals(corpus, tmp_path):
         assert not exp.exists()
     assert train.get_parser().parse_args(
         ["--manifest-dir", "m", "--exp-dir", "e"]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    # data parallelism needs the group's address (it runs in
+    # tests/test_torch_multiprocess_train.py)
+    with pytest.raises(ValueError, match="coordinator address"):
         train.main(_argv(corpus, exp, "--num-processes", "2"))
     # bf16 mixed precision and remat are ported (tests/test_torch_train_bf16.py,
     # tests/test_torch_remat.py): only --rng-impl, a JAX PRNG's name, has no effect

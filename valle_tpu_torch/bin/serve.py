@@ -17,8 +17,15 @@ of ``valle_tpu/bin/serve.py``.
 Serving defaults: ``--dtype bfloat16 --kv-cache-dtype int8``.  The decode
 reads of ``generate`` are plain math (no ``ragged_decode``), as the JAX CLI
 runs them; ``--attn-impl flash`` takes the prefill and the NAR passes to
-kernel 2.  ``--data-parallel`` / ``--tensor-parallel`` above 1 need the
-parallel layer, which is not ported yet (ROADMAP queue 1, item 10).
+kernel 2.
+
+``--data-parallel D --tensor-parallel T`` serves on D x T ranks, which the
+CLI starts itself (one process each, rank r on ``cuda:{r % device_count}``,
+``parallel/mesh.py``), as the JAX CLI serves on a D x T mesh: every batch is
+padded to a multiple of D rows and data shard d generates rows ``[d b / D,
+(d + 1) b / D)``; the T ranks of a shard split the decoder layers' heads and
+FFN features and sample alike (one seed per shard); the first rank gathers
+the codes, decodes and writes.  Greedy codes equal the one-rank run's.
 
 Input: a TSV of requests ``id<TAB>text[<TAB>prompt_wav<TAB>prompt_text]``
 (prompt columns optional, ``-`` for none: promptless generation).  Output:
@@ -48,6 +55,8 @@ from valle_tpu_torch.codec import load_codec
 from valle_tpu_torch.data import convert_audio, get_text_token_collater, read_wav, write_wav
 from valle_tpu_torch.data.text_tokenizer import TextTokenizer, tokenize_text
 from valle_tpu_torch.models import add_model_arguments, config_from_args, get_model
+from valle_tpu_torch.parallel import dist
+from valle_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch, shard_parameters_
 from valle_tpu_torch.sample import generate
 from valle_tpu_torch.utils import resolve_device
 
@@ -80,9 +89,13 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize-weights", type=str, default="none",
                    choices=("none", "w8", "w8a8"))
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="devices to shard each batch over; only 1 is ported")
+                   help="ranks (one process per card) that split each batch's rows")
     p.add_argument("--tensor-parallel", type=int, default=1,
-                   help="devices to shard the decoder weights over; only 1 is ported")
+                   help="ranks that split the decoder layers' heads and FFN features "
+                   "(Megatron); --data-parallel x --tensor-parallel processes in all")
+    p.add_argument("--dist-backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="collectives between the ranks (default: nccl on cuda, gloo on cpu; "
+                   "gloo on cuda stages through the host, for ranks that share a card)")
     p.add_argument("--top-k", type=int, default=-100)
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
@@ -149,13 +162,36 @@ def encode_prompts(requests, codec, pcap: int, encode_batch: int):
 
 def main(argv=None) -> None:
     args = get_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, force=True,
+    world = args.data_parallel * args.tensor_parallel
+    if world == 1:
+        serve(args)
+        return
+    if args.device == "cuda":
+        resolve_device(None)  # raises without CUDA before any rank starts
+    if args.batch_size % args.data_parallel:
+        raise ValueError("--batch-size must divide by --data-parallel")
+    # one process per rank, on this host; a failed rank fails the run
+    torch.multiprocessing.spawn(_serve_rank, args=(world, f"127.0.0.1:{dist.free_port()}", args),
+                                nprocs=world, join=True)
+
+
+def _serve_rank(rank: int, world: int, address: str, args) -> None:
+    dist.initialize(address, world, rank, device=args.device, backend=args.dist_backend)
+    try:
+        serve(args)
+    finally:
+        dist.shutdown()
+
+
+def serve(args) -> None:
+    """Serve the requests of ``args`` as this process's rank of the
+    ``--data-parallel`` x ``--tensor-parallel`` mesh (one rank without a
+    process group): its rows of each batch on its heads; the first rank
+    gathers the codes, decodes and writes."""
+    mesh = Mesh(args.data_parallel, args.tensor_parallel)
+    logging.basicConfig(level=logging.INFO if mesh.is_primary else logging.WARNING, force=True,
                         format="%(asctime)s %(levelname)s %(message)s")
-    if args.data_parallel * args.tensor_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel / --tensor-parallel above 1 need the parallel layer "
-            "(torch.distributed), not ported yet: ROADMAP queue 1, item 10")
-    dev = resolve_device(None if args.device == "cuda" else args.device)
+    dev = dist.local_device(args.device)
     args.output_dir.mkdir(parents=True, exist_ok=True)
     buckets = sorted(int(b) for b in args.length_buckets.split(","))
 
@@ -166,6 +202,7 @@ def main(argv=None) -> None:
     # quantized on the host from the f32 weights, then cast and moved
     model = get_model(cfg, device=dev, quantize=args.quantize_weights != "none",
                       state_dict=load_model_params(args.checkpoint, cfg, variant))
+    shard_parameters_(model, mesh)
     logging.info("model loaded%s",
                  " + quantized" if args.quantize_weights != "none" else "")
     tokenizer = TextTokenizer(backend=args.text_extractor)
@@ -200,8 +237,8 @@ def main(argv=None) -> None:
         r["bucket"] = next((b for b in buckets if est <= b), buckets[-1])
     logging.info("host preprocessing done (%d requests)", len(requests))
 
-    # bucketed batched generation
-    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    # bucketed batched generation; the ranks of one data shard sample alike
+    generator = torch.Generator(device=dev).manual_seed(args.seed + mesh.data_index)
     manifest = []
     wall0 = time.perf_counter()
     jobs = []
@@ -217,6 +254,7 @@ def main(argv=None) -> None:
         chunked decode; no host sync but generate's own per-step reads."""
         n = len(chunk)
         b = _quantize_batch(n, args.batch_size)
+        b = -(-b // mesh.data) * mesh.data  # rows split over the data shards
         rnd = lambda v: max(32, -(-v // 32) * 32)  # noqa: E731
         s = rnd(max(r["x_len"] for r in chunk))
         sn = rnd(max(r["nar_len"] for r in chunk))
@@ -234,11 +272,13 @@ def main(argv=None) -> None:
             prompts[j, : len(r["prompt"])] = r["prompt"]
             plens[j] = len(r["prompt"])
         put = lambda a: torch.as_tensor(np.asarray(a), device=dev).long()  # noqa: E731
-        out = generate(model, put(x), put(x_lens), put(prompts), put(plens),
-                       generator=generator, top_k=args.top_k, temperature=args.temperature,
-                       max_new_tokens=bucket, nar_text=put(nar_x), nar_text_lens=put(nar_lens))
+        rows = {"x": put(x), "x_lens": put(x_lens), "prompt_codes": put(prompts),
+                "prompt_lens": put(plens), "nar_text": put(nar_x), "nar_text_lens": put(nar_lens)}
+        out = generate(model, **shard_batch(rows, mesh), generator=generator,
+                       top_k=args.top_k, temperature=args.temperature, max_new_tokens=bucket)
+        out = {k: gather_rows(v, mesh) for k, v in out.items()}
         wavs = None
-        if codec is not None:
+        if codec is not None and mesh.is_primary:
             # the decoder is causal, so trimming the padded output to L * hop
             # samples per request equals an unpadded decode
             wavs = [codec.decode(out["codes"][j: j + args.decode_batch], out_int16=True)
@@ -280,13 +320,15 @@ def main(argv=None) -> None:
             job = dispatch(chunk, bucket)
             logging.info("  dispatched batch of %d (max_new=%d) in %.2fs host",
                          len(chunk), bucket, time.perf_counter() - t_d)
-            if pending is not None:
+            if pending is not None and mesh.is_primary:
                 finish(pending)  # overlaps the job just dispatched
             pending = job
-        if pending is not None:
+        if pending is not None and mesh.is_primary:
             finish(pending)
     finally:
         writers.shutdown()
+    if not mesh.is_primary:
+        return
 
     total_s = sum(m["seconds"] for m in manifest)
     wall = time.perf_counter() - wall0

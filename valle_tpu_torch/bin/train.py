@@ -30,8 +30,24 @@ What differs from the JAX CLI, and why:
   - ``--inf-check`` reads the loss before the update, so its report names
     the parameters and the module as they were when the loss went bad;
   - ``--rng-impl`` names a JAX PRNG and has no effect here;
-  - ``--num-processes`` above 1 (data parallelism, ROADMAP queue 1 item 10)
-    raises.
+  - data parallelism runs one process per card, where JAX runs one per
+    host, and ``--dist-backend`` (nccl on the card, gloo on the CPU) picks
+    the collectives.
+
+Data parallelism (``--num-processes N --process-id r --coordinator-address
+host:port``, one command per card): rank r trains on ``cuda:{r %
+device_count}`` over its share of the loader's groups (the loader is
+rank-sharded and every rank takes as many steps), and the step sums the
+gradients and metrics over the ranks (``train/step.py``), so a step is the
+global batch's, as JAX's step over its global batch.  The weights are
+broadcast from rank 0 before the optimizer is built; rank 0 writes the
+checkpoints (every rank waits, then may resume from them), ``log.txt``,
+TensorBoard, ``model.txt`` and the visualizer's PNGs; every rank validates
+on the whole dev set, which is not rank-sharded (as each JAX host feeds its
+own copy), so the validation loss is the single-process one.  The OOM scan
+runs per rank on its own shapes, and MFU is per card.  ``--num-processes 1``
+with a ``--coordinator-address`` makes a group of one, which runs every
+collective and trains bit for bit as a run without it.
 
 ``--visualize true`` draws PNGs of the first validation batch at each
 validation, as the JAX CLI does (``models/visualizer.py``, through
@@ -64,6 +80,8 @@ import torch
 from valle_tpu_torch.data import Manifest, Prefetcher, TtsDataLoader, get_text_token_collater
 from valle_tpu_torch.models import add_model_arguments, config_from_args, get_model, str2bool
 from valle_tpu_torch.optim import ConstantLrAdam, ConstantLrAdamW, Eve, ScaledAdam, get_lr_fn
+from valle_tpu_torch.parallel import dist
+from valle_tpu_torch.parallel.mesh import Mesh, replicate_
 from valle_tpu_torch.train.checkpoint import CheckpointManager
 from valle_tpu_torch.train.metrics import MetricsTracker
 from valle_tpu_torch.train.state import partition_params
@@ -107,10 +125,15 @@ def get_parser():
                         "the exp dir holds a checkpoint to resume from")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--num-processes", type=int, default=1,
-                        help="training processes; above 1 raises (data parallelism is not "
-                        "ported yet)")
+                        help="data-parallel training processes, one per card, each started "
+                        "with its --process-id and the same --coordinator-address")
     parser.add_argument("--process-id", type=int, default=None)
-    parser.add_argument("--coordinator-address", type=str, default="")
+    parser.add_argument("--coordinator-address", type=str, default="",
+                        help="host:port of rank 0's process group store; with "
+                        "--num-processes 1 it makes a group of one")
+    parser.add_argument("--dist-backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="collectives of the process group (default: nccl on cuda, gloo "
+                        "on cpu; gloo on cuda stages through the host)")
     parser.add_argument("--inf-check", type=str2bool, default=False)
     parser.add_argument("--oom-check", type=str2bool, default=True)
     parser.add_argument("--tensorboard", type=str2bool, default=True)
@@ -217,21 +240,34 @@ def run(args) -> dict:
     MFU; the saves, validations and the OOM scan's shapes; the loader path,
     the checkpoint resumed from, the peak device memory and the final
     ``state``."""
-    if args.num_processes > 1:
-        raise NotImplementedError(
-            "--num-processes > 1: data parallelism (torch.distributed) is not ported yet "
-            "(ROADMAP queue 1 item 10)")
     dev = resolve_device(None if args.device == "cuda" else args.device)
+    grouped = dist.initialize(args.coordinator_address, args.num_processes, args.process_id,
+                              device=args.device, backend=args.dist_backend,
+                              force=bool(args.coordinator_address))
+    try:
+        return _run(args, dist.local_device(args.device) if grouped else dev, grouped)
+    finally:
+        if grouped:
+            dist.shutdown()
+
+
+def _run(args, dev, grouped: bool) -> dict:
+    mesh = Mesh()  # data parallel over the process group; one rank without one
+    handlers = [logging.StreamHandler()]
     args.exp_dir.mkdir(parents=True, exist_ok=True)
+    if mesh.is_primary:
+        handlers.append(logging.FileHandler(args.exp_dir / "log.txt"))
     logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s",
-        handlers=[logging.StreamHandler(), logging.FileHandler(args.exp_dir / "log.txt")],
-        force=True)
+        level=logging.INFO if mesh.is_primary else logging.WARNING,
+        format="%(asctime)s %(levelname)s %(message)s", handlers=handlers, force=True)
+    if grouped:
+        logging.info(f"distributed: process {mesh.rank}/{mesh.data} on {dev}")
     cfg = config_from_args(args)
     if cfg.model_name.lower() == "transformer" and args.train_stage != 0:
         raise ValueError("the Transformer baseline has no AR/NAR stages; use --train-stage 0")
     torch.manual_seed(args.seed)
     model = get_model(cfg, device=dev, training=True)
+    replicate_(model, mesh)  # ranks that built other weights start from rank 0's
     logging.info(f"model config: {cfg}")
 
     collater = get_text_token_collater(str(args.manifest_dir / args.text_tokens))
@@ -258,7 +294,7 @@ def run(args) -> dict:
         accum_steps=args.accumulate_grad_steps, seed=args.seed,
         dataset_name=args.dataset or None, min_duration=args.filter_min_duration,
         max_utt_duration=args.filter_max_duration, batch_quant=args.batch_quant,
-        feature_transforms=feature_transforms)
+        feature_transforms=feature_transforms, rank=mesh.data_index, world_size=mesh.data)
     logging.info(f"data loader path: {loader.dataset.loader_path}")
 
     # the JAX CLI draws one group for its init shapes; drawn here too, so that
@@ -275,10 +311,11 @@ def run(args) -> dict:
     params = dict(model.named_parameters(remove_duplicate=True))
     n_params = sum(p.numel() for p in params.values())
     logging.info(f"parameters: {n_params / 1e6:.1f}M")
-    with open(args.exp_dir / "model.txt", "w") as f:
-        f.write(f"{cfg}\n\nparameters: {n_params}\n\n")
-        for name, p in params.items():
-            f.write(f"{name}\t{tuple(p.shape)}\t{str(p.dtype).removeprefix('torch.')}\n")
+    if mesh.is_primary:
+        with open(args.exp_dir / "model.txt", "w") as f:
+            f.write(f"{cfg}\n\nparameters: {n_params}\n\n")
+            for name, p in params.items():
+                f.write(f"{name}\t{tuple(p.shape)}\t{str(p.dtype).removeprefix('torch.')}\n")
 
     ckpt = CheckpointManager(args.exp_dir / "checkpoints", args.keep_last_k)
     meta: dict = {}
@@ -289,6 +326,7 @@ def run(args) -> dict:
         from valle_tpu_torch.bin.infer import load_model_params
 
         model.load_state_dict(load_model_params(args.init_checkpoint, cfg, _variant(cfg)))
+        replicate_(model, mesh)
         state.optimizer = make_opt(list(partition_params(model, args.train_stage)[0].values()))
         if state.model_avg is not None:
             with torch.no_grad():
@@ -306,11 +344,12 @@ def run(args) -> dict:
             loader.load_state_dict(meta["sampler_state"])
 
     step_fn = make_train_step(lr_fn, train_stage=args.train_stage, clip_grad_norm=clip,
-                              average_period=args.average_period, inf_check=args.inf_check)
+                              average_period=args.average_period, inf_check=args.inf_check,
+                              mesh=mesh)
     eval_fn = make_eval_step(train_stage=args.train_stage)
 
     writer = None
-    if args.tensorboard:
+    if args.tensorboard and mesh.is_primary:
         try:
             from tensorboardX import SummaryWriter
 
@@ -375,7 +414,8 @@ def run(args) -> dict:
                 tracker.update(metrics)
             except Exception as e:
                 # the batch that failed, for a look at it later
-                dump = args.exp_dir / f"batch-crash-step{state.step}.npz"
+                rank = f"-rank{mesh.rank}" if grouped else ""
+                dump = args.exp_dir / f"batch-crash-step{state.step}{rank}.npz"
                 np.savez(dump, **arrays,
                          utt_id=np.array([u for row in batch["utt_id"] for u in row]))
                 logging.error(f"step failed; batch dumped to {dump}")
@@ -527,7 +567,7 @@ def run_validation(eval_fn, state, loader, dev, args=None, tag: str = "latest") 
         frames += float(out["frames"])
         if first is None:
             first = batch
-    if (args is not None and args.visualize and first is not None
+    if (args is not None and args.visualize and first is not None and dist.is_primary()
             and args.model_name.lower() != "transformer"):
         visualize_batch(state.model, first, dev, args.exp_dir / "eval" / tag)
     return tot / max(frames, 1.0)

@@ -32,6 +32,11 @@ are ``Dense`` layers that cast to the compute dtype at their call, as
 flax's ``nn.Dense(dtype=...)`` does.  The scaling variant's balanced basic
 norms return f32 (JAX's promotion with their f32 epsilon), so its stacks'
 feed-forward blocks and heads see f32 inputs and cast them.
+
+The two losses are means over the batch's frames.  Under data parallelism
+(``batch_group``, set for a training step by ``parallel.mesh.global_batch``)
+their counts are the whole batch's, so the ranks' losses add up to the
+global batch's, as in the JAX step.
 """
 
 from __future__ import annotations
@@ -49,9 +54,12 @@ from valle_tpu_torch.nn.embedding import SinePositionalEmbedding, TokenEmbedding
 from valle_tpu_torch.nn.layers import TransformerStack
 from valle_tpu_torch.nn.qdense import Dense
 from valle_tpu_torch.ops import masks as mask_ops
+from valle_tpu_torch.parallel import dist
 
 
 class TransformerTTS(nn.Module):
+    batch_group = None  # the data group over which the batch is split
+
     @staticmethod
     def metric_names(train_stage: int):
         del train_stage  # the baseline has no AR/NAR stages
@@ -137,8 +145,6 @@ class TransformerTTS(nn.Module):
         stop_logit = self.stop_layer(dec)[..., 0]
 
         valid = (~y_mask).float()
-        mel_loss = (((mel_pred.float() - y.float()) ** 2) * valid[..., None]).sum() / (
-            valid.sum() * cfg.num_mel_bins).clamp(min=1.0)
         # stop target: 1 at the last valid frame and beyond
         pos = torch.arange(t, device=y.device)[None, :]
         stop_tgt = (pos >= (y_lens - 1)[:, None]).float()
@@ -150,7 +156,12 @@ class TransformerTTS(nn.Module):
         if example_mask is not None:
             loss_mask = loss_mask & example_mask[:, None]
         loss_mask = loss_mask.float()
-        stop_loss = (bce * loss_mask).sum() / loss_mask.sum().clamp(min=1.0)
+        # the means' counts are the whole batch's under data parallelism
+        counts = dist.all_reduce_(torch.stack([valid.sum(), loss_mask.sum()]), "sum",
+                                  self.batch_group)
+        mel_loss = (((mel_pred.float() - y.float()) ** 2) * valid[..., None]).sum() / (
+            counts[0] * cfg.num_mel_bins).clamp(min=1.0)
+        stop_loss = (bce * loss_mask).sum() / counts[1].clamp(min=1.0)
         return {
             "loss": mel_loss + stop_loss,
             "mel_loss": mel_loss,

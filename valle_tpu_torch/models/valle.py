@@ -22,7 +22,14 @@ Dropout is at the JAX model's rates (attention and layer dropout at
 text position at 0, the prenets at 0.5 / 0.25) and active in train mode only.
 The random draws of training (NAR stage, prefix length of mode 1, prompt
 starts of mode 2) are taken from the forward's ``rng`` CPU generator unless
-given explicitly.
+given explicitly.  Under data parallelism (``batch_group``, set for a
+training step by ``parallel.mesh.global_batch``) the NAR stage and the
+prefix length of mode 1 are the group's first rank's draws, and the
+longest length (the AR loss's EOS positions), the shortest one and the
+frame and row totals (the prefix of modes 1 and 2 and its rescale) are the
+whole batch's, as in the JAX step over its global batch (the step pads the
+ranks' parts to the group's widths); the prompt starts of mode 2 stay per
+row, and the prompts of mode 4 are each rank's loader's.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from valle_tpu_torch.nn.embedding import SinePositionalEmbedding, TokenEmbedding
 from valle_tpu_torch.nn.layers import TransformerStack
 from valle_tpu_torch.nn.qdense import Dense
 from valle_tpu_torch.ops import masks as mask_ops
+from valle_tpu_torch.parallel import dist
 
 
 def _cross_entropy_sum(logits, targets, valid):
@@ -130,6 +138,7 @@ class VALLE(nn.Module):
     VALL-F layout)."""
 
     variant = "valle"
+    batch_group = None  # the data group over which the batch is split
 
     @staticmethod
     def metric_names(train_stage: int):
@@ -280,7 +289,7 @@ class VALLE(nn.Module):
         y_mask_int = y_mask.long()
         codes = y.long() * (1 - y_mask_int[..., None])
         ar_in, ar_tgt, t_full = self._pad_y_eos(codes[..., 0], y_mask_int)
-        max_y = y_lens.max()
+        max_y = dist.all_reduce_(y_lens.max(), "max", self.batch_group)
 
         out: Dict[str, torch.Tensor] = {}
         total_loss = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -294,7 +303,8 @@ class VALLE(nn.Module):
             if nar_stage is None:
                 if rng is None:
                     raise ValueError("nar_stage must be given (1..Q-1), or an rng to draw it")
-                nar_stage = int(torch.randint(1, cfg.num_quantizers, (), generator=rng))
+                nar_stage = dist.broadcast_int(
+                    int(torch.randint(1, cfg.num_quantizers, (), generator=rng)), self.batch_group)
             nar_loss, nar_metric = self._forward_nar(
                 x, x_mask, codes, t_full, y_mask, y_lens, int(nar_stage), prefix_len,
                 prompt_starts, y_prompts_codes, example_mask, rng,
@@ -359,6 +369,8 @@ class VALLE(nn.Module):
         q = cfg.num_quantizers
         eos = cfg.eos_id
         mode = cfg.prefix_mode
+        if mode in (1, 2):
+            min_y_lens = -dist.reduce_ints([-min_y_lens], "max", self.batch_group)[0]
 
         y_nar_in = t_full[:, :-1]  # codebook-0 tokens with EOS at padding
         x_emb = self._nar_text(x, rng)
@@ -381,8 +393,9 @@ class VALLE(nn.Module):
                 if rng is None:
                     raise ValueError("prefix mode 1 needs prefix_len, or an rng to draw it")
                 int_low = int(0.25 * min_y_lens)
-                prefix_len = int(torch.randint(int_low, max(int_low * 2, int_low + 1), (),
-                                               generator=rng))
+                prefix_len = dist.broadcast_int(
+                    int(torch.randint(int_low, max(int_low * 2, int_low + 1), (), generator=rng)),
+                    self.batch_group)
                 prefix_len = min(prefix_len, cfg.max_prefix_len)
             in_prefix = torch.arange(t, device=dev)[None, :] < prefix_len  # (1, T)
             w = (in_prefix[0][None, :, None] | (j_idx[None, None, :] < nar_stage)).float()
@@ -452,7 +465,10 @@ class VALLE(nn.Module):
         valid = ~((targets == eos) | tgt_ignore_extra)
         loss = _cross_entropy_sum(logits, torch.where(valid, targets, 0), valid)
         total_length = y_lens.sum().float()
-        loss = loss * (total_length / (total_length - rescale_prefix * n_rows))
+        if rescale_prefix:  # else the factor is exactly 1
+            totals = torch.stack([total_length, n_rows.to(total_length.device)])
+            length, rows = dist.all_reduce_(totals, "sum", self.batch_group)
+            loss = loss * (length / (length - rescale_prefix * rows))
         hits = _top10_hits(logits, targets) & valid
         acc = hits.sum() / valid.sum().clamp(min=1)
         return loss, {"NarTop10Accuracy": acc.float() * total_length}

@@ -24,6 +24,14 @@ row scales ``in_proj_weight_scale`` (W8, or W8A8 under ``act_quant``).
 
 Attention-probability dropout (``dropout``) is active in train mode only;
 its seeds are drawn from the ``rng`` generator of ``forward``.
+
+Under tensor parallelism (``shard_heads_``, from ``parallel/mesh.py``) a
+module keeps the heads of its model shard: the q, k and v rows of those
+heads of the packed in-projection (so rank t of T does not take JAX's
+literal split of the packed kernel's last axis, which under GSPMD is
+placement only), their bias and int8 row scales, and the matching input
+columns of ``out_proj``, whose partial outputs are summed over the model
+group.  Its caches and kernel launches then hold the local heads only.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from valle_tpu_torch.nn.qdense import Dense, Int8Weights, linear
+from valle_tpu_torch.nn.qdense import Dense, Int8Weights, linear, select_, shard_range
 from valle_tpu_torch.ops.attention_impl import dot_product_attention
 from valle_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
@@ -99,6 +107,8 @@ class MultiheadAttention(Int8Weights, nn.Module):
                  cross_attention: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.head_dim = embed_dim // num_heads
+        self.local_heads = num_heads  # this rank's heads (shard_heads_)
         self.attn_impl = attn_impl
         self.dropout = dropout
         self.act_quant = act_quant
@@ -114,6 +124,24 @@ class MultiheadAttention(Int8Weights, nn.Module):
         self.register_buffer("in_proj_weight_scale", None)
         self.out_proj = Dense(embed_dim, embed_dim, use_bias=bias, act_quant=act_quant,
                               dtype=dtype)
+
+    def shard_heads_(self, index: int, size: int, group) -> None:
+        """Keep heads ``index`` of ``size`` equal parts: their q, k and v rows
+        of the packed in-projection (with bias and scales) and their input
+        columns of ``out_proj`` (module docstring)."""
+        d = self.embed_dim
+        cols = shard_range(self.local_heads, index, size)
+        cols = (cols[:, None] * self.head_dim + torch.arange(self.head_dim)).reshape(-1)
+        rows = torch.cat([cols + blk * d for blk in range(3)])
+        for name in ("in_proj_weight", "in_proj_bias", "in_proj_weight_scale"):
+            select_(self, name, 0, rows)
+        self.local_heads //= size
+        if self.cross_attention:
+            dl = len(cols)
+            for p in (self.in_proj_weight, self.in_proj_bias):
+                if isinstance(p, nn.Parameter):
+                    p.row_blocks = (dl, 2 * dl)
+        self.out_proj.shard_inputs_(index, size, group)
 
     def forward(
         self,
@@ -143,8 +171,8 @@ class MultiheadAttention(Int8Weights, nn.Module):
 
         Returns (out, new_cache_or_None, kv_or_None).
         """
-        d, h = self.embed_dim, self.num_heads
-        dh = d // h
+        h, dh = self.local_heads, self.head_dim
+        d = h * dh  # this rank's width of q, k and v
         w, bias, scale = self.in_proj_weight, self.in_proj_bias, self.in_proj_weight_scale
         quant, dt = self.act_quant, self.compute_dtype
         if x_kv is None:

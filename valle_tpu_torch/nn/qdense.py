@@ -24,6 +24,14 @@ casts them back after the cast, and int8 tensors are never cast.  Quantize
 from the f32 weights, before the model is cast for compute
 (``models.get_model(..., quantize=True)`` does it in that order).
 
+Under tensor parallelism (``parallel/mesh.py``) a ``Dense`` keeps a slice
+of its output rows (``shard_outputs_``, with their scales and bias) or of
+its input columns (``shard_inputs_``): then its products are partial sums,
+added over the model group before the scale and the bias, and under W8A8
+the per-row activation amax is taken over the whole input width (a MAX over
+the group) before the rounding, so the int8 values and the int32 sums are
+those of the unsharded layer.
+
 The int8 x int8 product is a plain matrix product, which the JAX package
 leaves to XLA outside any Pallas kernel.  On the card it is
 ``torch._int_mm`` (cuBLASLt, int8 tensor cores), with its shape rules met
@@ -38,6 +46,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from valle_tpu_torch.parallel import dist
 
 # Module names whose weight is quantized by default: the decoder stacks'
 # projections and FFN and the AR prediction head.  Embedding tables and the
@@ -109,25 +119,31 @@ def int8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
 int8_matmul.launches = 0
 
 
-def _w8a8_matmul(x, w8, w_scale, out_dtype):
+def _w8a8_matmul(x, w8, w_scale, out_dtype, group=None):
     """Dynamic per-row activation quantization + int8 x int8 product.
 
     x: (..., In) float; w8: (Out, In) int8; w_scale: (Out,) f32.  The JAX
-    function's arithmetic in its order, as compiled under ``jit``."""
+    function's arithmetic in its order, as compiled under ``jit``.  With a
+    ``group`` x and w8 hold this rank's slice of the input width: the row
+    amax is the MAX over the group and the int32 sums are added over it
+    before the scales."""
     xf = x.float()
-    xs = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) * INV_127
+    amax = dist.all_reduce_(xf.abs().amax(dim=-1, keepdim=True), "max", group)
+    xs = amax.clamp(min=1e-8) * INV_127
     x8 = torch.round(xf / xs).clamp(-127, 127).to(torch.int8)
     y = int8_matmul(x8.reshape(-1, x8.shape[-1]), w8)
-    y = y.reshape(*x.shape[:-1], w8.shape[0])
+    y = dist.all_reduce_(y, "sum", group).reshape(*x.shape[:-1], w8.shape[0])
     return (y.float() * xs * w_scale).to(out_dtype)
 
 
-def linear(x, weight, bias=None, scale=None, act_quant: bool = False, dtype=None):
+def linear(x, weight, bias=None, scale=None, act_quant: bool = False, dtype=None, group=None):
     """The JAX ``Dense``'s product.  ``dtype``: the compute dtype that x,
     the weight and the bias are cast to (None: x's own, and a float weight
     is used as it is).  ``scale`` given: ``weight`` is int8 and the product
     is W8 (``x @ w8.to(x.dtype)``, times the scale cast to x's dtype) or,
-    with ``act_quant``, W8A8."""
+    with ``act_quant``, W8A8.  ``group``: x and the weight hold this rank's
+    slice of the input width (row parallel); the partial products are summed
+    over the group before the scale and the bias."""
     # the casts are made only where the dtypes differ: each is a launch, and
     # decoding calls this a few hundred times per step
     if dtype is not None and x.dtype != dtype:
@@ -137,14 +153,38 @@ def linear(x, weight, bias=None, scale=None, act_quant: bool = False, dtype=None
             weight = weight.to(dtype)
         if dtype is not None and bias is not None and bias.dtype != dtype:
             bias = bias.to(dtype)
-        return F.linear(x, weight, bias)
-    if act_quant:
-        y = _w8a8_matmul(x, weight, scale, x.dtype)
+        if group is None:
+            return F.linear(x, weight, bias)
+        y = dist.all_reduce_(F.linear(x, weight), "sum", group)
+    elif act_quant:
+        y = _w8a8_matmul(x, weight, scale, x.dtype, group)
     else:
-        y = F.linear(x, weight.to(x.dtype)) * scale.to(x.dtype)
+        y = dist.all_reduce_(F.linear(x, weight.to(x.dtype)), "sum", group) * scale.to(x.dtype)
     if bias is not None:
         y = y + (bias if bias.dtype == y.dtype else bias.to(y.dtype))
     return y
+
+
+def select_(module: nn.Module, name: str, dim: int, index: torch.Tensor) -> None:
+    """Keep entries ``index`` of the parameter or buffer ``name`` of
+    ``module`` along ``dim``, in place (a missing one stays None)."""
+    t = getattr(module, name)
+    if t is None:
+        return
+    part = t.detach().index_select(dim, index.to(t.device)).contiguous()
+    if name in module._parameters:
+        module._parameters[name] = nn.Parameter(part, requires_grad=t.requires_grad)
+    else:
+        module._buffers[name] = part
+
+
+def shard_range(n: int, index: int, size: int) -> torch.Tensor:
+    """Entries ``[index n / size, (index + 1) n / size)``; ``n`` must divide
+    by ``size``."""
+    if n % size:
+        raise ValueError(f"{n} does not split over {size} model shards")
+    k = n // size
+    return torch.arange(index * k, (index + 1) * k)
 
 
 def quantize_weight_(module: nn.Module, name: str) -> None:
@@ -195,11 +235,28 @@ class Dense(Int8Weights, nn.Linear):
         super().__init__(in_features, features, bias=use_bias)
         self.act_quant = act_quant
         self.compute_dtype = dtype
+        self.tp_group = None  # set by shard_inputs_: the group of the partial sums
         self.register_buffer("weight_scale", None)
+
+    def shard_outputs_(self, index: int, size: int) -> None:
+        """Column parallel: keep output features ``index`` of ``size`` equal
+        parts, with their bias and scales."""
+        rows = shard_range(self.out_features, index, size)
+        for name in ("weight", "bias", "weight_scale"):
+            select_(self, name, 0, rows)
+        self.out_features = len(rows)
+
+    def shard_inputs_(self, index: int, size: int, group) -> None:
+        """Row parallel: keep input features ``index`` of ``size`` equal
+        parts; the partial outputs are summed over ``group`` before the
+        scales and the bias, which stay whole."""
+        select_(self, "weight", 1, shard_range(self.in_features, index, size))
+        self.in_features //= size
+        self.tp_group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias, self.weight_scale, self.act_quant,
-                      self.compute_dtype)
+                      self.compute_dtype, self.tp_group)
 
 
 def quantize_variables(model: nn.Module, targets: Sequence[str] = DEFAULT_TARGETS,

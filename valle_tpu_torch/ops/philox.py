@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from valle_tpu_torch.parallel import dist
+
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
 MASK32 = 0xFFFFFFFF
@@ -71,7 +73,21 @@ def dropout_keep_mask(seed: int, b: int, h: int, tq: int, tk: int, rate: float,
     return bits >= keep_threshold(rate)
 
 
+SEED_RANGE = 2**63 - 1
+RANK_STRIDE = 0x9E3779B97F4A7C15  # 2**64 / golden ratio, odd
+
+
+def fold_rank(seed: int, rank: int) -> int:
+    """``seed`` moved to rank ``rank``'s stream: the identity at rank 0, and
+    a seed of its own at every other rank (data-parallel ranks draw
+    independent dropout bits, as the JAX kernels fold the mesh position into
+    their seed, ``valle_tpu/ops/fused_attention.py:296-300``)."""
+    return (seed + rank * RANK_STRIDE) % SEED_RANGE
+
+
 def draw_seed(gen: Optional[torch.Generator]) -> int:
     """A 63-bit seed from ``gen`` (a CPU generator, so no device sync), or
-    from torch's default CPU generator when ``gen`` is None."""
-    return int(torch.randint(0, 2**63 - 1, (), generator=gen))
+    from torch's default CPU generator when ``gen`` is None, folded with
+    this process's rank in its process group (0 without one)."""
+    seed = int(torch.randint(0, SEED_RANGE, (), generator=gen))
+    return fold_rank(seed, dist.process_index())

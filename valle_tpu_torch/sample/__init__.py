@@ -15,6 +15,14 @@ and a ``torch.Generator`` takes the place of the JAX key.  ``continual``
 keeps codebook 1 of given codes and regenerates the others with the NAR
 passes; ``nar_refine`` runs the NAR passes over given codebook-1 tokens
 (the continuous-batching scheduler's drain, ``sample/continuous.py``).
+
+Under tensor parallelism (a model sliced by
+``parallel.mesh.shard_parameters_``) every rank of a model group runs the
+loop on the same rows with its heads: the layers' reductions leave equal
+logits on all of them, so generators seeded alike sample the same tokens,
+``finished`` agrees, and the ranks take part in the same collectives until
+the loop ends.  The KV cache holds the local heads (its shape comes from
+the prefill's K/V).
 """
 
 from __future__ import annotations

@@ -16,7 +16,10 @@
     the new stage's parameters and drops the sampler state.
 
 A file is written to a temporary name and then renamed, so a crash during
-a save leaves the previous checkpoints whole.
+a save leaves the previous checkpoints whole.  In a process group the
+first rank writes the files, the markers and the pruning,
+and every rank waits at a barrier after each save, so that all may then
+read the same file (the ranks' weights and optimizer states are equal).
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ from __future__ import annotations
 import json
 import os
 import re
+import time
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from valle_tpu_torch.parallel import dist
 from valle_tpu_torch.train.state import TrainState, partition_params
 
 _STEP = re.compile(r"^checkpoint-(\d+)\.pt$")
@@ -64,9 +69,6 @@ class CheckpointManager:
         return self.dir / f"{name}.pt"
 
     def _save(self, name: str, state: TrainState, meta: Dict) -> Path:
-        import time
-
-        t0 = time.perf_counter()
         payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
                    "step": state.step, "meta": meta}
         if state.model_avg is not None:
@@ -76,8 +78,6 @@ class CheckpointManager:
         torch.save(payload, tmp)
         os.replace(tmp, path)
         (self.dir / f"{name}.meta.json").write_text(json.dumps(meta))
-        self.last_save = {"name": name, "seconds": time.perf_counter() - t0,
-                          "bytes": path.stat().st_size}
         return path
 
     def _load(self, name: str, device) -> Tuple[Dict, Dict]:
@@ -87,13 +87,23 @@ class CheckpointManager:
     # ------------------------------------------------------------ public api
     def save_epoch(self, epoch: int, state: TrainState, meta: Dict) -> None:
         meta = dict(meta, epoch=epoch)
-        self._save(f"epoch-{epoch}", state, meta)
-        self._update_best(f"epoch-{epoch}", meta)
+        self._write(f"epoch-{epoch}", state, meta, prune=False)
 
     def save_step(self, step: int, state: TrainState, meta: Dict) -> None:
-        self._save(f"checkpoint-{step}", state, meta)
-        self._update_best(f"checkpoint-{step}", meta)
-        self._prune()
+        self._write(f"checkpoint-{step}", state, meta, prune=True)
+
+    def _write(self, name: str, state: TrainState, meta: Dict, prune: bool) -> None:
+        """Save on the first rank (with the markers and the pruning), then
+        a barrier; every rank records the save."""
+        t0 = time.perf_counter()
+        if dist.is_primary():
+            self._save(name, state, meta)
+            self._update_best(name, meta)
+            if prune:
+                self._prune()
+        dist.barrier(dist.world_group())
+        self.last_save = {"name": name, "seconds": time.perf_counter() - t0,
+                          "bytes": self.path(name).stat().st_size}
 
     def _update_best(self, name: str, meta: Dict) -> None:
         """The best-train-loss / best-valid-loss markers: the name of the

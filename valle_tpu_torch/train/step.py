@@ -15,6 +15,19 @@ The step takes a CPU ``torch.Generator`` as its random source: dropout seeds
 and the forward's draws (NAR stage, prefix length) come from it, so drawing
 them never syncs the card, and the same generator state repeats a step.
 
+Data parallelism (``mesh``, from ``parallel/mesh.py``): each rank runs its
+own part of the global batch, padded to the group's text and audio widths
+(``parallel.mesh.pad_to_group_widths``), then the gradients are summed over the data
+group in flattened buckets (SUM, as JAX's gradient of the sum loss over the
+global batch; DistributedDataParallel would average), the zero-filled ones
+of parameters that took no part included, before the clip and the update;
+the summed metrics are summed over the group before ``inf_check`` reads the
+loss, so every rank takes the same branch.  The forward's shared draws (the
+NAR stage) are the group's first rank's and its batch-wide quantities the
+whole batch's (``parallel.mesh.global_batch``), and dropout seeds are folded
+with the rank (``ops/philox.py::draw_seed``).  A group of
+one gives the single-process step bit for bit.
+
 Mixed precision follows the JAX package: under ``dtype="bfloat16"`` the
 parameters, gradients, optimizer state and averaged model are f32, the
 modules compute in bf16 and cast the weights at each call (the training
@@ -28,6 +41,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from valle_tpu_torch.parallel import dist
+from valle_tpu_torch.parallel.mesh import global_batch, pad_to_group_widths
 from valle_tpu_torch.train.state import TrainState, partition_params, update_model_avg
 
 
@@ -56,6 +71,20 @@ def accumulate_gradients(model, batch: Dict[str, torch.Tensor], train_stage: int
     return metrics
 
 
+def reduce_gradients_(params, group) -> int:
+    """Sum the ``.grad`` of ``params`` over ``group`` in flattened buckets, in
+    place; returns the bytes reduced."""
+    return dist.coalesced_([p.grad for p in params], "sum", group)
+
+
+def reduce_metrics_(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The summed metrics summed over ``group`` (one collective)."""
+    if group is None:
+        return metrics
+    total = dist.all_reduce_(torch.stack([metrics[k].float() for k in metrics]), "sum", group)
+    return {k: v.to(metrics[k].dtype) for k, v in zip(metrics, total.unbind())}
+
+
 class NonFiniteLoss(FloatingPointError):
     """The step's loss is not finite; raised before the update, so the
     weights are those that gave it."""
@@ -73,9 +102,12 @@ def make_train_step(
     average_period: int = 0,
     deterministic: bool = False,
     inf_check: bool = False,
+    mesh=None,
 ):
     """Returns ``step(state, batch, rng, epoch) -> (state, metrics)``; the
-    state is updated in place and returned.
+    state is updated in place and returned.  With ``mesh`` (a data-parallel
+    ``parallel.mesh.Mesh``) ``batch`` is this rank's part of the global
+    batch and the step is the global batch's (module docstring).
 
     ``batch`` is a dict with a leading micro-batch axis A: text_tokens
     (A,B,S), text_tokens_lens (A,B), audio_features (A,B,T,Q) codes (or
@@ -88,11 +120,16 @@ def make_train_step(
     weights and the optimizer as they were (JAX checks after the update).
     """
 
+    group = None if mesh is None else mesh.data_group
+
     def step(state: TrainState, batch: dict, rng: torch.Generator, epoch: int = 0):
         model, opt = state.model, state.optimizer
         model.train(not deterministic)
         opt.zero_grad(set_to_none=True)
-        metrics = accumulate_gradients(model, batch, train_stage, rng)
+        with global_batch(model, group):
+            metrics = accumulate_gradients(model, pad_to_group_widths(batch, group),
+                                           train_stage, rng)
+        metrics = reduce_metrics_(metrics, group)
         if inf_check and not bool(torch.isfinite(metrics["loss"])):
             opt.zero_grad(set_to_none=True)
             raise NonFiniteLoss(metrics)
@@ -100,12 +137,13 @@ def make_train_step(
         # a trainable parameter that took no part in the forward (a NAR stage
         # that was not drawn) gets a zero gradient: JAX's optimizer updates
         # every trainable leaf, so its moments decay and its momentum moves it
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for pg in opt.param_groups for p in pg["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        reduce_gradients_(params, group)
         if clip_grad_norm is not None:
-            grads = [p.grad for group in opt.param_groups for p in group["params"]]
+            grads = [p.grad for p in params]
             gnorm = torch.stack(torch._foreach_norm(grads)).pow(2).sum().sqrt()
             torch._foreach_mul_(grads, (clip_grad_norm / (gnorm + 1e-12)).clamp(max=1.0))
 
