@@ -9,18 +9,23 @@ ends the run with a non-zero exit code):
   1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
      (TF32 is switched off for matmuls and cuDNN);
   2. build: the three kernel sources from ``valle_tpu_torch/csrc`` with
-     ``nvcc``, in parallel, with each one's most registers and spilled bytes,
+     ``nvcc``, in parallel (no kernel runs until all three are built and
+     scanned, so no timed call shares the host with nvcc), with each one's
+     most registers and spilled bytes,
      and per attention kernel (forward and backward) its registers, spills
      and tensor-core (HMMA) instructions: every forward kernel and backward
-     pass must use the tensor cores and none may spill; per kernel 1
-     instantiation (split and combine kernels) its registers, spills and I2F
-     instructions: none may spill, and no int8-cache instantiation may hold
-     an I2F;
+     pass (the split instantiations of head dims above 128 too) must use the
+     tensor cores and none may spill; per kernel 1 instantiation (split and
+     combine kernels, lane layouts up to 8 chunks per lane, the strided
+     layout of heads past 1024 and its combine) its registers, spills and
+     I2F instructions: none may spill, and no int8-cache instantiation may
+     hold an I2F;
   3. kernel 1 (ragged decode attention, split-K and combine) against its
      plain PyTorch version, with a bit-equal rerun: int8 / f32 / bf16 caches
      at B=8, C=1024; the generate shapes (B=8 and B=1, C=768, 673 live
-     columns, two finished slots at B=8); a long cache (B=1, C=40,000); and
-     head dims 48 and 96 in all three cache types;
+     columns, two finished slots at B=8); a long cache (B=1, C=40,000);
+     head dims 48 and 96 in all three cache types; and path v's 4 heads of
+     Dh 256 at the generate shape (B=8, int8);
   4. kernel 2 (prefix-LM / dense attention) against its plain version in
      prefix, causal, dense self- and cross-attention modes;
   5. kernel 2 with dropout 0.1 and its LSE output at the training shapes
@@ -34,8 +39,15 @@ ends the run with a non-zero exit code):
      training shapes in f32 and bf16, a soft per-head bias and a (1, 1, Tq,
      Tk) bias with d(bias), Tq != Tk, and the inference shape, with
      bit-equal reruns; then kernels 2, 3 and 4, forward and backward, at
-     head dims 16, 32, 48, 96 and 128 on a small shape (48 and 96 through
-     the wrappers' zero padding), likewise;
+     head dims 16, 32, 48, 72, 96, 128, 144, 192, 256, 512 and 1024 on a
+     small shape (48, 72, 96, 144 and 192 through the wrappers' zero padding;
+     past 128 the split instantiations), likewise; kernel 1 at head dims 8,
+     40, 72, 144, 192, 320, 512, 1100 and 2048 in int8 / f32 / bf16 caches
+     (8, 40 and 72 in int8 through the wrapper's zero pad, its copy timed;
+     1100 and 2048 through the strided layout, unpadded) and at 64 heads
+     of Dh 64 in f32 (two head slices), likewise; kernels 2, 3 and 4 at 4
+     heads of Dh 256 on the training shapes (dense T=880; the TTS decoder),
+     f32 and bf16, timed against their plain versions and SDPA;
   8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
      decode logits held against a CPU copy of the model, and timings; then
@@ -48,7 +60,8 @@ ends the run with a non-zero exit code):
      ScaledAdam + Eden, B=4, S=128, T=752, accumulation 2) with launch counts
      per step, a bit-equal repeated step, and one micro-batch's loss and
      gradients at dropout 0 held against a CPU copy of the model that
-     follows the card's ReLU gates, at the initial and the trained weights;
+     follows the card's ReLU gates, at the initial and at the trained
+     weights;
  10. tts_train: full-width Transformer TTS baseline training steps
      (``attn_impl="flash"``, attention dropout 0, B=4, S=128, T=938 mel
      frames) with launch counts per step, a bit-equal repeated step, and the
@@ -57,6 +70,18 @@ ends the run with a non-zero exit code):
  11. tts_inference: the same model's greedy mel loop on 8 requests for 200
      steps, with launch counts and the first steps' mels held against a CPU
      copy;
+ 8v-11x. paths v-x, each right after its 16-head twin: generate_dh256 (v:
+     phase 8's generate at ``nhead=4``, Dh 256, without the codec, in f32
+     and then in bf16 on the same weights (int8 KV both); launches of
+     kernels 1 and 2, f32 logits against a CPU copy at phase 8's bar, bf16
+     logits against the same copy at ``BF16_LOGIT_RTOL``, timings beside
+     phase 8's), train_dh256 (w: phase 9's step at ``nhead=4`` in f32 and
+     bf16, launches, a bit-equal repeated step, step seconds beside phase
+     9's, an f32 gradient check of micro-batch 0 as phase 9's),
+     tts_dh256_train and tts_dh256_inference (x: phases 10 and 11 at
+     ``nhead=4``: launches of kernels 2, 3 and 4, a bit-equal repeated step,
+     phase 10's gradient check, 20 greedy mel steps all held against a CPU
+     copy);
  11n. tts_scaling_train (path n): the same baseline with ``scaling_xformers``
      (balanced DoubleSwish, identity / balanced basic norms) in train mode,
      its balancers active: one micro-batch's train-mode loss and gradients
@@ -69,11 +94,12 @@ ends the run with a non-zero exit code):
      VALL-E under "flash" on one batch (kernel 4, 12 launches) against a CPU
      copy;
  12. infer: the port's infer CLI (``valle_tpu_torch.bin.infer.main``) from
-     files it writes first (the full-width VALL-E as a ``.pt``, the random
-     codec as the converter's ``.npz``, a ``chars`` symbol table and a 3 s
-     prompt wav at 16 kHz), on two texts, through ``--attn-impl flash``,
-     under PyTorch's default TF32 flags: kernel 2's launches per text (12
-     prefill + 7 x 12 NAR; kernel 1 none); the first launch of each of the
+     files it writes first (the full-width VALL-E at CUT_LAYERS = 2 + 2
+     layers as a ``.pt``, the random codec as the converter's ``.npz``, a
+     ``chars`` symbol table and a 3 s prompt wav at 16 kHz), on two texts,
+     through ``--attn-impl flash``, under PyTorch's default TF32 flags:
+     kernel 2's launches per text (CUT_LAYERS prefill + 7 x CUT_LAYERS NAR;
+     kernel 1 none); the first launch of each of the
      run's kernel 2 shapes (batch 1, prefix and dense) against the plain
      attention on the same inputs; the first text's prefill and 8 decode
      steps, fed its own codes, against a CPU copy of the model, and its NAR
@@ -83,8 +109,10 @@ ends the run with a non-zero exit code):
  12r. infer_reference_pt (path r): the same infer CLI run from a
      reference-layout ``.pt`` (extra keys, tied NAR heads overwritten), its
      codes equal to phase 12's;
- 13. serve: the port's serve CLI (``valle_tpu_torch.bin.serve.main``) on 24
-     requests (16 with the prompt wav and its text, 8 promptless; texts of
+ 13. serve: the port's serve CLI (``valle_tpu_torch.bin.serve.main``; the
+     model at CUT_LAYERS = 2 + 2 layers, as in phases 12, 14, 17s, 17u and
+     18)
+     on 24 requests (16 with the prompt wav and its text, 8 promptless; texts of
      20-160 characters in buckets 256 / 512) from the same files, in the
      serving defaults (bf16, int8 KV cache), ``--attn-impl flash``, batch
      16, greedy, once per weight mode (``--quantize-weights none / w8 /
@@ -154,17 +182,18 @@ ends the run with a non-zero exit code):
      tts_scaling_train_cli (path p): ``--model-name Transformer
      --scaling-xformers true`` through the train CLI on that corpus, f32, 2
      steps at 24 / 24 / 12 / 12 launches;
- 17s. ddp_train (path s): phase 9's step through the parallel layer in a
+ 17s. ddp_train (path s): phase 9's step (at CUT_LAYERS = 2 + 2 layers, as
+     phases 12, 13, 14, 17u and 18) through the parallel layer in a
      group of one over NCCL, bit-equal to the same step without a group
      (loss, gradients, weights, step generator), with the gradient
      reduction's bytes and ms; then the deterministic step at B=8 on one
      process, and two ranks sharing the card over gloo, each with 4 of its
      rows: the summed gradients within 1e-5 of it (2-norm over all; each
      tensor within 5e-5), the loss and the updated weights' checksum within
-     1e-5, equal on both ranks; 48 / 48 launches of kernels 2 / 3 per rank
-     and step; then a step with dropout 0.1 whose first kernel 2 and 3
-     launch per shape on rank 1 is held against the plain version with a
-     bit-equal rerun; rank 1's dropout keep rate within 4 sigma of 0.9 and
+     1e-5, equal on both ranks; 2 x 2 x CUT_LAYERS launches of kernels 2
+     and 3 each per rank and step; then a step with dropout 0.1 whose first
+     kernel 2 and 3 launch per shape on rank 1 is held against the plain
+     version with a bit-equal rerun; rank 1's dropout keep rate within 4 sigma of 0.9 and
      its bits other than rank 0's; the reductions' ms and peak GiB per rank;
  17t. ddp_train_cli (path t): the train CLI as two processes
      (``--num-processes 2 --dist-backend gloo``) on path i's corpus and
@@ -172,7 +201,8 @@ ends the run with a non-zero exit code):
      the OOM scan per rank, equal finite losses on both ranks, 48 / 48
      launches per step, the averaged ``epoch-1.pt`` through the infer CLI
      to a finite wav;
- 17u. tp_serve (path u): the serve CLI on 8 prompted requests in one
+ 17u. tp_serve (path u; the model at CUT_LAYERS layers): the serve CLI on
+     8 prompted requests in one
      bucket, bf16, int8 KV, greedy, on one rank and then at
      ``--tensor-parallel 2 --quantize-weights w8a8`` and at
      ``--data-parallel 2`` (ranks sharing the card over gloo): manifests and
@@ -182,7 +212,8 @@ ends the run with a non-zero exit code):
      ragged_decode=True)`` on 8 requests with the first kernel 1 and kernel
      2 launch per shape held against the plain versions, codes equal to one
      rank's up to the first near-tie; launches per rank;
- 18. remat_ab: phase 9's step in f32, and in bf16 under remat none, full and
+ 18. remat_ab: phase 9's step (at CUT_LAYERS = 2 + 2 layers) in f32, and in
+     bf16 under remat none, full and
      dots_nobatch: the bf16 loss, gradients and step generator bit-equal
      across the policies, launches (kernel 2 doubled under remat, kernel 3
      not), peak memory of the accumulation group (lower under remat) and of
@@ -224,7 +255,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
                   "tf32x3": 495e12 / 3}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# depth (AR and NAR layers) of paths e-f (infer, serve), g-h (continuous), m
+# (remat_ab), r (infer_reference_pt), s (ddp_train) and u (tp_serve): cut
+# from 12 so that the script keeps inside its time limit beside paths v-x;
+# full width, and each compares within its own runs
+CUT_LAYERS = 2
 LOGIT_ATOL = 1e-3
+# path v's bf16 logits against the f32 CPU copy's, over their largest
+# magnitude: bf16 rounds every product's inputs and outputs (2^-9 relative)
+# through 12 layers; the bar is about the serve phases' W8 bar (0.03)
+BF16_LOGIT_RTOL = 0.03
 # the eval visualizer's PNGs need matplotlib, which the card's machine may lack
 HAVE_MATPLOTLIB = importlib.util.find_spec("matplotlib") is not None
 
@@ -293,9 +333,10 @@ def ptxas_summary(log_path) -> dict:
     return {"max_registers": max(regs, default=0), "spill_bytes": sum(spills)}
 
 
-_ATTN_KERNEL = re.compile(r"(attn_bwd_dq_kernel|attn_bwd_dkv_kernel|flash_bias_bwd_dq_kernel|"
-                          r"flash_bias_bwd_dkv_kernel|attn_bwd_delta_kernel|"
-                          r"prefix_attention_kernel|flash_bias_fwd_kernel)"
+_ATTN_KERNEL = re.compile(r"(attn_bwd_dq(?:_split)?_kernel|attn_bwd_dkv(?:_split)?_kernel|"
+                          r"flash_bias_bwd_dq(?:_split)?_kernel|"
+                          r"flash_bias_bwd_dkv(?:_split)?_kernel|attn_bwd_delta_kernel|"
+                          r"prefix_attention(?:_split)?_kernel|flash_bias_fwd(?:_split)?_kernel)"
                           r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
 
 
@@ -314,19 +355,28 @@ def kernel_label(mangled: str):
 
 
 _RAGGED_KERNEL = re.compile(r"ragged_decode_split_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
-                            r"|ragged_decode_combine_kernelILi(\d+)E")
+                            r"|ragged_decode_combine_kernelILi(\d+)E"
+                            r"|ragged_decode_strided_kernelI(a|f|13__nv_bfloat16)E"
+                            r"|(ragged_decode_combine_strided_kernel)")
+_KV_NAMES = {"a": "int8", "f": "float32"}
 
 
 def ragged_label(mangled: str):
     """``ragged_decode_split_kernel<int8, 4, 1>`` (cache type, lanes per
-    head, chunks per lane) or ``ragged_decode_combine_kernel<256>`` (threads)
-    for a mangled kernel 1 name, or None for another kernel."""
+    head, chunks per lane), ``ragged_decode_combine_kernel<256>`` (threads),
+    ``ragged_decode_strided_kernel<int8>`` or
+    ``ragged_decode_combine_strided_kernel`` for a mangled kernel 1 name, or
+    None for another kernel."""
     m = _RAGGED_KERNEL.search(mangled)
     if m is None:
         return None
     if m.group(4) is not None:
         return f"ragged_decode_combine_kernel<{m.group(4)}>"
-    kv = {"a": "int8", "f": "float32"}.get(m.group(1), "bfloat16")
+    if m.group(5) is not None:
+        return f"ragged_decode_strided_kernel<{_KV_NAMES.get(m.group(5), 'bfloat16')}>"
+    if m.group(6) is not None:
+        return m.group(6)
+    kv = _KV_NAMES.get(m.group(1), "bfloat16")
     return f"ragged_decode_split_kernel<{kv}, {m.group(2)}, {m.group(3)}>"
 
 
@@ -403,7 +453,8 @@ def bound(n_bytes: float, n_ops: float, op_type: str):
 # ---------------------------------------------------------------- phase 3
 
 
-RAGGED_NAMES = ["ragged_decode_split_kernel", "ragged_decode_combine_kernel"]
+RAGGED_NAMES = ["ragged_decode_split_kernel", "ragged_decode_combine_kernel",
+                "ragged_decode_strided_kernel", "ragged_decode_combine_strided_kernel"]
 PHASE3_LENS = [0, 1024, 517, 300, 1, 777, 64, 900]  # B=8, C=1024: 3,583 live columns
 GENERATE_LENS = [673, 0, 673, 673, 0, 673, 673, 673]  # B=8, C=768: two finished slots
 
@@ -418,6 +469,8 @@ def ragged_cases():
         ("long cache B=1", 1, 40000, 16, 64, [40000], ("int8",)),
         ("dh 48", 8, 1024, 16, 48, PHASE3_LENS, all3),
         ("dh 96", 8, 1024, 8, 96, PHASE3_LENS, all3),
+        # path v's layer: d = 1024 at 4 heads of Dh 256
+        ("generate B=8 dh 256", 8, 768, 4, 256, GENERATE_LENS, ("int8",)),
     ]
 
 
@@ -500,7 +553,7 @@ def check_ragged_decode(dev):
             del args, k_lib, v_lib, ql, kl, vl, mask
     emit({"phase": "kernel1_ragged_decode", "device_ms_is": "split + combine kernels per call",
           "cases": results})
-    return results[0]
+    return {r["case"]: r for r in results}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -936,15 +989,20 @@ def check_flash_bias(dev, fwd_res, res):
 
 
 HEAD_DIM_CASE = (2, 4, 200, 48)  # B, H, T, prefix_s
+# kernels 2-4: the whole-row instantiations (48, 72 and 96 zero-padded), then
+# the split ones (144 and 192 padded to 256; 512 and 1024 in 4 and 8 chunks)
+HEAD_DIMS = (16, 32, 48, 72, 96, 128, 144, 192, 256, 512, 1024)
 
 
 def check_head_dims(dev):
     """Kernels 2, 3 and 4, forward and backward, at the head dims the
-    training shapes do not reach (16, 32, 128, and 48 and 96, which the
-    wrappers zero-pad to 64 and 128; the scale is not a power of two but at
-    16 and 64), in f32 and bf16: kernels 2 / 3 in prefix mode at rate 0.1
-    and in dense mode at rate 0, kernel 4 with a causal + padding bias, each
-    against its plain version with a bit-equal rerun."""
+    training shapes do not reach (``HEAD_DIMS``: 16, 32, 128 and the split
+    instantiations' 256, 512 and 1024, and 48, 72, 96, 144 and 192, which
+    the wrappers zero-pad to 64, 128, 128, 256 and 256; the scale is not a
+    power of two but at 16, 64, 256 and 1024), in f32 and bf16: kernels 2 /
+    3 in prefix mode at rate 0.1 and in dense mode at rate 0, kernel 4 with
+    a causal + padding bias, each against its plain version with a bit-equal
+    rerun."""
     import torch
 
     from valle_tpu_torch.ops import flash_attention as fl
@@ -957,7 +1015,7 @@ def check_head_dims(dev):
     kb = torch.from_numpy(key_bias).to(dev)
     dec = torch.from_numpy(_decoder_bias(rng, b, t, 3 * t // 4)).to(dev)
     results = []
-    for dh in (16, 32, 48, 96, 128):
+    for dh in HEAD_DIMS:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             q, k, v, dout = (torch.from_numpy(rng.randn(b, t, h, dh).astype(np.float32)).to(dev, dt)
@@ -1010,6 +1068,207 @@ def check_head_dims(dev):
     return results
 
 
+DH256_H, DH256_DH = 4, 256  # heads and head dim of paths v-x (d = 1024, nhead 4)
+DH256_MEL_STEPS = 20  # path x's greedy mel steps, all held against the CPU copy
+
+
+def _measure(case, call, want, rel, kernel_names, plain, library, n_bytes, n_ops, dtype,
+             kernels) -> dict:
+    """One kernel call at a timed shape: ``call()``'s tensors against
+    ``want`` (max |kernel - plain|, over max |plain| where ``rel``) within
+    TOL with a bit-equal rerun; event ms, device ms (``kernel_names``), the
+    plain version's and the library's ms, the bound, and the registers,
+    spills and HMMA of ``kernels``."""
+    import torch
+
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    errs = [float((g.float() - w.float()).abs().max()) / (
+        float(w.float().abs().max()) if rel else 1.0) for g, w in zip(got, want)]
+    assert all(torch.isfinite(g).all() for g in got), case
+    assert all(torch.equal(g, a) for g, a in zip(got, again)), f"{case} is not bit-reproducible"
+    assert max(errs) <= TOL[dtype], f"{case} disagrees with its plain version: {errs}"
+    del got, again
+    timing = cuda_time(call, iters=10)
+    timing["device_ms"] = device_ms(call, kernel_names, iters=5)
+    plain_ms = cuda_time(plain, iters=1, windows=3)["ms"]
+    library_ms = cuda_time(library, iters=10)["ms"]
+    bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+    return {"case": case, "dtype": dtype, "max_abs_err": max(errs),
+            "err_is": "max |kernel - plain|" + (" / max |plain|" if rel else ""),
+            "tol": TOL[dtype], "bit_equal_rerun": True, **timing, "plain_ms": plain_ms,
+            "library_ms": library_ms, "ms_over_library": timing["ms"] / library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **_tf32x3_bound(dtype, n_bytes, n_ops), "kernels": kernels,
+            "tflops": n_ops / timing["ms"] / 1e9}
+
+
+def check_dh256(dev, fwd_res, bwd_res) -> dict:
+    """Kernels 2, 3 and 4 at 4 heads of Dh 256 (the split tiles, paths v-x)
+    on the training shapes of phases 5-7: kernel 2's forward and kernel 3
+    on dense self-attention at T=880 (B=4, rate 0.1; the FLOPs of 16 heads of
+    Dh 64), kernel 4's forward and backward on the TTS decoder's causal +
+    padding bias (B=4, T=938), in f32 and bf16, each against its plain
+    version with a bit-equal rerun and timed against it and SDPA (forward,
+    or its backward) on the same dense mask; ``fwd_res`` / ``bwd_res``: the
+    build phase's registers, spills and HMMA per kernel."""
+    import torch
+    from torch.nn import functional as F
+
+    from valle_tpu_torch.ops import flash_attention as fl
+    from valle_tpu_torch.ops import fused_attention as fa
+    from valle_tpu_torch.ops.masks import AttnMaskSpec
+
+    rng = np.random.RandomState(SEED + 14)
+    h, dh = DH256_H, DH256_DH
+    t = TRAIN_S + TRAIN_T
+    kb = torch.from_numpy(_train_key_bias(rng, TRAIN_S, TRAIN_T)).to(dev)
+    dec = torch.from_numpy(_decoder_bias(rng, TTS_B, TTS_T, int(0.8 * TTS_T))).to(dev)
+    results = {}
+
+    def sdpa_grad(q, k, v, dout, mask, rate):
+        ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, dropout_p=rate)
+        return lambda: torch.autograd.grad(ol, (ql, kl, vl), dout.transpose(1, 2),
+                                           retain_graph=True)
+
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        drop = ", drop"
+        q, k, v, dout = (torch.from_numpy(rng.randn(TRAIN_B, t, h, dh).astype(np.float32))
+                         .to(dev, dt) for _ in range(4))
+        seed = int(rng.randint(0, 2**62))
+        args = (q, k, v, kb, None, DROPOUT, seed)
+        mask = AttnMaskSpec(kb, None).dense(t).to(dt)
+        ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
+        n_bytes = (q.numel() * 4 * q.element_size() + kb.numel() * 4 + TRAIN_B * h * t * 4)
+        results[f"kernel2 dense T={t} {dtype}"] = _measure(
+            f"kernel 2 dense self T={t} H={h} Dh={dh} rate {DROPOUT} {dtype}",
+            lambda: fa._forward(*args, with_lse=True), fa.attention_forward_reference(*args),
+            False, ["prefix_attention_split_kernel"], lambda: fa.attention_forward_reference(*args),
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, dropout_p=DROPOUT),
+            n_bytes, 4.0 * TRAIN_B * h * dh * t * t, dtype,
+            {f"prefix_attention_split_kernel<{dtype}{drop}>":
+             fwd_res.get(f"prefix_attention_split_kernel<{dtype}{drop}>")})
+        out, lse = fa._forward(*args, with_lse=True)
+        kw = dict(prefix_s=None, dropout_rate=DROPOUT, dropout_seed=seed)
+        results[f"kernel3 dense T={t} {dtype}"] = _measure(
+            f"kernel 3 dense self T={t} H={h} Dh={dh} rate {DROPOUT} {dtype}",
+            lambda: fa.fused_prefix_attention_backward(q, k, v, kb, out, dout, lse, **kw),
+            fa.attention_backward_reference(q, k, v, kb, out, dout, lse, None, DROPOUT, seed),
+            True, ["attn_bwd_"], lambda: fa.attention_backward_reference(
+                q, k, v, kb, out, dout, lse, None, DROPOUT, seed),
+            sdpa_grad(q, k, v, dout, mask, DROPOUT),
+            (q.numel() * 8 * q.element_size() + kb.numel() * 4 + TRAIN_B * h * t * 8),
+            10.0 * TRAIN_B * h * dh * t * t, dtype,
+            {label: bwd_res.get(label) for label in (
+                f"attn_bwd_dq_split_kernel<{dtype}{drop}>",
+                f"attn_bwd_dkv_split_kernel<{dtype}{drop}>")})
+        del q, k, v, dout, out, lse, mask, ql, kl, vl
+        q, k, v, dout = (torch.from_numpy(rng.randn(TTS_B, TTS_T, h, dh).astype(np.float32))
+                         .to(dev, dt) for _ in range(4))
+        mask = dec.to(dt)
+        ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
+        n_bytes = q.numel() * 4 * q.element_size() + dec.numel() * 4 + TTS_B * h * TTS_T * 4
+        results[f"kernel4 decoder {dtype}"] = _measure(
+            f"kernel 4 TTS decoder B={TTS_B} T={TTS_T} H={h} Dh={dh} {dtype}",
+            lambda: fl._forward(q, k, v, dec, with_lse=True),
+            fl.flash_attention_forward_reference(q, k, v, dec), False,
+            ["flash_bias_fwd_split_kernel"],
+            lambda: fl.flash_attention_forward_reference(q, k, v, dec),
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
+            n_bytes, 4.0 * TTS_B * h * dh * TTS_T * TTS_T, dtype,
+            {f"flash_bias_fwd_split_kernel<{dtype}>":
+             fwd_res.get(f"flash_bias_fwd_split_kernel<{dtype}>")})
+        out, lse = fl._forward(q, k, v, dec, with_lse=True)
+        results[f"kernel4 decoder backward {dtype}"] = _measure(
+            f"kernel 4 backward TTS decoder B={TTS_B} T={TTS_T} H={h} Dh={dh} {dtype}",
+            lambda: fl.flash_attention_biased_backward(q, k, v, dec, out, dout, lse)[:3],
+            fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse)[:3], True,
+            ["flash_bias_bwd_", "attn_bwd_delta"],
+            lambda: fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse),
+            sdpa_grad(q, k, v, dout, mask, 0.0),
+            q.numel() * 8 * q.element_size() + dec.numel() * 4 + TTS_B * h * TTS_T * 8,
+            10.0 * TTS_B * h * dh * TTS_T * TTS_T, dtype,
+            {label: bwd_res.get(label) for label in (
+                f"flash_bias_bwd_dq_split_kernel<{dtype}>",
+                f"flash_bias_bwd_dkv_split_kernel<{dtype}>")})
+        del q, k, v, dout, out, lse, mask, ql, kl, vl
+    emit({"phase": "kernels_2_3_4_dh256", "cases": list(results.values())})
+    return results
+
+
+# kernel 1 at head dims and head counts beyond phase 3's: (name, b, c, h, dh)
+# at rows of about 1,024 elements (Dh 8, 40 and 72 are not whole 16-byte
+# chunks in int8 and run zero-padded; 320 and 512 take 2-4 chunks per lane),
+# and rows of many head groups: 64 heads of Dh 64 in f32 (32 groups, two
+# slices) beside Dh 8's 128 heads (in int8 padded to 16: 4 groups of 32)
+RAGGED_HEAD_DIM_LENS = [0, 512, 259, 150, 1, 388, 32, 450]  # B=8, C=512
+RAGGED_HEAD_DIM_CASES = [(f"dh {dh}", 8, 512, h, dh) for dh, h in
+                         ((8, 128), (40, 25), (72, 14), (144, 7), (192, 5), (320, 3), (512, 2),
+                          (1100, 1), (2048, 2))]  # past 1024: the strided layout, unpadded
+RAGGED_HEAD_COUNT_CASES = [("64 heads of dh 64", 8, 512, 64, 64, ("float32",))]
+
+
+def check_ragged_head_dims(dev):
+    """Kernel 1 (split and combine) at the head dims and head counts phase 3
+    does not reach (``RAGGED_HEAD_DIM_CASES`` in int8, f32 and bf16 caches,
+    ``RAGGED_HEAD_COUNT_CASES``), each against its plain version with a
+    bit-equal rerun and exact zeros for finished slots, with the plan; where
+    the head is not a whole number of 16-byte chunks, the wrapper's zero pad
+    of q, k and v (a copy of the cache at every call) timed beside the call.
+    (Path v's Dh 256 at the generate shape is a case of phase 3.)"""
+    import torch
+    from torch.nn import functional as F
+
+    from valle_tpu_torch.ops.ragged_decode import (
+        _cached_plan, padded_head_dim, ragged_decode_attention, ragged_decode_attention_reference)
+
+    rng = np.random.RandomState(SEED + 13)
+    all3 = ("int8", "float32", "bfloat16")
+    cases = [(*c, all3) for c in RAGGED_HEAD_DIM_CASES] + RAGGED_HEAD_COUNT_CASES
+    results = []
+    for name, b, c, h, dh, caches in cases:
+        for cache in caches:
+            args, _ = ragged_inputs(dev, rng, b, c, h, dh, RAGGED_HEAD_DIM_LENS, cache)
+            tol = TOL["bfloat16" if cache == "bfloat16" else "float32"]
+            got = ragged_decode_attention(*args)
+            again = ragged_decode_attention(*args)
+            want = ragged_decode_attention_reference(*args)
+            torch.cuda.synchronize()
+            case = f"{name} x {h} heads {cache} cache"
+            err = float((got - want).abs().max())
+            assert got.shape == want.shape and torch.isfinite(got).all(), case
+            assert torch.equal(got, again), f"kernel 1 ({case}) is not bit-reproducible"
+            dead = [i for i, n in enumerate(RAGGED_HEAD_DIM_LENS) if n == 0]
+            assert all(float(got[i].abs().max()) == 0.0 for i in dead), \
+                "a length-0 slot must give exact zeros"
+            assert err <= tol, f"kernel 1 ({case}) disagrees with its plain version: {err}"
+            elem = args[1].element_size()
+            dhp = padded_head_dim(dh, elem)
+            live = int(sum(min(max(n, 0), c) for n in RAGGED_HEAD_DIM_LENS))
+            n_bytes = (live * h * dh * 2 * elem + (live * h * 8 if cache == "int8" else 0)
+                       + live * 4 + b * 4 + b * h * dh * (args[0].element_size() + 4))
+            bound_ms, bound_by = bound(n_bytes, 4.0 * live * h * dh, cache)
+            res = {"case": case, "b": b, "c": c, "h": h, "dh": dh, "kernel_dh": dhp,
+                   "plan": _cached_plan(b, c, h, dhp, elem, torch.cuda.current_device())._asdict(),
+                   "max_abs_err": err, "tol": tol, "bit_equal_rerun": True,
+                   "ms": cuda_time(lambda: ragged_decode_attention(*args), iters=10,
+                                   windows=3)["ms"], "bound_ms": bound_ms, "bound_by": bound_by}
+            if dh > 1024:  # the strided layout: device time and the plain version's
+                res["device_ms"] = device_ms(lambda: ragged_decode_attention(*args),
+                                             RAGGED_NAMES)
+                res["plain_ms"] = cuda_time(lambda: ragged_decode_attention_reference(*args),
+                                            iters=10, windows=3)["ms"]
+            if dhp != dh:
+                res["pad_copy_ms"] = cuda_time(lambda: [F.pad(x, (0, dhp - dh))
+                                                        for x in args[:3]], iters=10,
+                                               windows=3)["ms"]
+            results.append(res)
+            del args
+    emit({"phase": "kernel1_head_dims", "cases": results})
+
+
 # ---------------------------------------------------------------- phase 8
 
 
@@ -1040,13 +1299,17 @@ def teacher_forced_logits(model, x, x_lens, prompts, prompt_lens, tokens, ragged
     return torch.stack(out, 1)  # (B, 1 + steps, V+1)
 
 
-def main_path(dev):
+def main_path(dev, nhead: int = 16, beside=None):
+    """Phase 8 (path a) at the default 16 heads, with the codec; path v
+    (``generate_dh256``) at ``nhead=4`` (Dh 256) without it, its timings
+    beside path a's (``beside``, path a's phase line), then in bf16
+    (``bf16_generate``)."""
     import torch
 
     from valle_tpu_torch.models import ModelConfig, get_model
     from valle_tpu_torch.sample import _nar_refine, _prefill_kv, generate
 
-    cfg = ModelConfig(attn_impl="flash", kv_cache_dtype="int8")  # full width
+    cfg = ModelConfig(attn_impl="flash", kv_cache_dtype="int8", nhead=nhead)  # full width
     torch.manual_seed(SEED)
     model = get_model(cfg)
     rng = np.random.RandomState(SEED + 2)
@@ -1111,19 +1374,81 @@ def main_path(dev):
     assert logit_err <= LOGIT_ATOL, f"GPU logits differ from the CPU copy by {logit_err}"
 
     del cpu_model
+    bf16 = None
+    if beside is not None:  # path v: the same weights in bf16, the serving dtype
+        bf16 = bf16_generate(model, x, x_lens_t, prompts, prompt_lens_t, kw, want, forced,
+                             cpu_logits)
     frames = int(lengths.sum())
-    codec = decode_codes(codes, frames, total_s)
-    emit({"phase": "main_path", "model": "VALL-E default ModelConfig (d=1024, 16 heads, "
-          "12+12 layers, Q=8), attn_impl=flash, kv_cache int8, ragged_decode",
-          "batch": b, "text_lens": x_lens.tolist(), "prompt_lens": prompt_lens.tolist(),
-          "stop_lens": stop_lens.tolist(), "decode_steps": steps, "launches": launches,
-          "generate_s": total_s, "prefill_ms": prefill_ms,
-          "decode_ms_per_step": decode_ms_per_step,
-          "nar_ms_per_pass": nar_ms / (cfg.num_quantizers - 1),
-          "frames_per_s": frames / total_s, "audio_s_per_s": frames / 75.0 / total_s,
-          "peak_mem_gib": peak_gib, "logit_max_abs_err_vs_cpu": logit_err,
-          "logit_atol": LOGIT_ATOL, "codec": codec})
-    return launches
+    line = {"phase": "main_path" if beside is None else "generate_dh256",
+            "model": f"VALL-E default ModelConfig (d=1024, {nhead} heads, Dh "
+                     f"{cfg.decoder_dim // nhead}, 12+12 layers, Q=8), attn_impl=flash, "
+                     "kv_cache int8, ragged_decode, f32",
+            "batch": b, "text_lens": x_lens.tolist(), "prompt_lens": prompt_lens.tolist(),
+            "stop_lens": stop_lens.tolist(), "decode_steps": steps, "launches": launches,
+            "generate_s": total_s, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms_per_step,
+            "nar_ms_per_pass": nar_ms / (cfg.num_quantizers - 1),
+            "frames_per_s": frames / total_s, "audio_s_per_s": frames / 75.0 / total_s,
+            "peak_mem_gib": peak_gib, "logit_max_abs_err_vs_cpu": logit_err,
+            "logit_atol": LOGIT_ATOL}
+    if beside is None:
+        line["codec"] = decode_codes(codes, frames, total_s)
+    else:
+        line["beside_16_heads"] = {k: beside[k] for k in (
+            "generate_s", "prefill_ms", "decode_ms_per_step", "nar_ms_per_pass", "peak_mem_gib")}
+        line["bfloat16"] = bf16
+    emit(line)
+    return launches, line
+
+
+def bf16_generate(model, x, x_lens, prompts, prompt_lens, kw, want, forced, cpu_logits) -> dict:
+    """Path v in bf16 (int8 KV, ``ragged_decode``): ``model``'s weights cast
+    for bf16 compute, ``generate`` on the same requests with its launches
+    (``want``, as in f32) and timings, and its teacher-forced prefill and
+    decode logits (fed the f32 run's tokens ``forced``) against the f32 CPU
+    copy's ``cpu_logits``, relative to their largest magnitude, within
+    ``BF16_LOGIT_RTOL``."""
+    import torch
+
+    from valle_tpu_torch.models import get_model
+    from valle_tpu_torch.sample import _nar_refine, _prefill_kv, generate
+
+    cfg = model.cfg.replace(dtype="bfloat16")
+    bf_model = get_model(cfg, device=x.device, state_dict=model.state_dict())
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    generate(bf_model, x, x_lens, prompts, prompt_lens, generator=gen, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = generate(bf_model, x, x_lens, prompts, prompt_lens, generator=gen, **kw)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    assert launches == want, f"bf16 launch counts {launches}, expected {want}"
+    codes, lengths = out["codes"], out["lengths"]
+    assert int(codes.min()) >= 0 and int(codes.max()) < cfg.num_audio_tokens
+
+    def prefill():
+        with torch.inference_mode():
+            _prefill_kv(bf_model, x, x_lens, prompts, prompt_lens)
+
+    def nar():
+        with torch.inference_mode():
+            _nar_refine(bf_model, x, x_lens, prompts, prompt_lens, codes[..., 0], lengths)
+
+    prefill_ms = cuda_time(prefill, iters=3, windows=3, warmup=1)["ms"]
+    nar_ms = cuda_time(nar, iters=1, windows=3, warmup=1)["ms"]
+    steps = want["ragged_decode"] // cfg.num_layers
+    logits = teacher_forced_logits(bf_model, x, x_lens, prompts, prompt_lens, forced, True)
+    assert torch.isfinite(logits).all()
+    rel = float((logits - cpu_logits).abs().max() / cpu_logits.abs().max())
+    del bf_model
+    torch.cuda.empty_cache()
+    assert rel <= BF16_LOGIT_RTOL, f"bf16 logits off the f32 CPU copy's by {rel} of their max"
+    return {"generate_s": total_s, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": (total_s * 1e3 - prefill_ms - nar_ms) / steps,
+            "nar_ms_per_pass": nar_ms / (cfg.num_quantizers - 1), "launches": launches,
+            "logit_rel_err_vs_f32_cpu": rel, "logit_rtol": BF16_LOGIT_RTOL}
 
 
 CODEC_WAV_RTOL = 1e-4  # f32 wav on the card against the CPU copy, over max |wav|
@@ -1217,6 +1542,7 @@ F32_CHECK = {"loss_rtol": LOSS_RTOL, "flip_share": FLIP_SHARE, "flip_atol": FLIP
 # micro-batch, 2 rows, after its two stages) the readings were: loss 4.8e-5,
 # 5.6e-4 of 110 M gates flipped at |h| <= 4.9e-3, gradients 7.4e-3 (largest
 # element) / 2.3e-3 (2-norm); the bars are 4-20x those
+CHECK_ROWS = 2  # rows of the bf16 CLI's first micro-batch in its gradient check
 BF16_CHECK = {"loss_rtol": 1e-3, "flip_share": 2e-3, "flip_atol": 2e-2, "grad_rtol": 5e-2,
               "grad_norm_rtol": 2e-2}
 
@@ -1561,6 +1887,65 @@ def train_path(dev, k2d, k3):
     return launches[0], med
 
 
+def train_dh256_path(dev, beside_step_s: float) -> dict:
+    """Path w: phase 9's step (its batch: B=4, S=128, T=752, A=2; fused,
+    dropout 0.1, ScaledAdam, Eden) at 4 heads (Dh 256: the split tiles of
+    kernels 2 and 3), in f32 and in bf16 (the training build): launches per
+    step, a bit-equal repeated step, the step's seconds beside phase 9's
+    (``beside_step_s``, 16 heads, f32) and, in f32, the loss and gradients
+    at dropout 0 of micro-batch 0 against a CPU copy (``gradient_check``).
+    Returns the f32 step's launches."""
+    import copy
+    import functools
+
+    import torch
+
+    from valle_tpu_torch.models import ModelConfig, get_model
+    from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
+    from valle_tpu_torch.train.step import init_train_state, make_train_step
+
+    batch = _train_batch(ModelConfig(), np.random.RandomState(SEED + 5), dev)
+    make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
+    runs, check = {}, None
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig(attn_impl="fused", nhead=4, dtype=dtype)
+        torch.manual_seed(SEED)
+        model = get_model(cfg, training=True)
+        if dtype == "float32":
+            check = gradient_check(model, batch, "initial", phase="train_dh256_gradient_check",
+                                   nar_stage=cfg.num_quantizers // 2)
+        state = init_train_state(model, make_opt, train_stage=0)
+        step = make_train_step(get_lr_fn("eden", 0.05, warmup_steps=200), train_stage=0)
+        step_s, launches, losses, peak_gib = _timed_steps(
+            step, state, batch, torch.Generator().manual_seed(SEED), TRAIN_STEPS)
+        per_step = TRAIN_A * (cfg.num_layers + cfg.nar_num_layers)
+        want = {"ragged_decode": 0, "prefix_attention": per_step,
+                "prefix_attention_bwd": per_step, "flash_attention": 0, "flash_attention_bwd": 0}
+        assert all(c == want for c in launches), \
+            f"launch counts {launches}, expected {want} per step"
+        twin = copy.deepcopy(state)
+        _, m1 = step(state, batch, torch.Generator().manual_seed(SEED + 1), 0)
+        _, m2 = step(twin, batch, torch.Generator().manual_seed(SEED + 1), 0)
+        repeat_equal = float(m1["loss"]) == float(m2["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(state.model.parameters(), twin.model.parameters()))
+        assert repeat_equal, (dtype, float(m1["loss"]), float(m2["loss"]))
+        med = float(np.median(step_s))
+        runs[dtype] = {"losses": losses, "step_s": step_s, "step_s_median": med,
+                       "frames_per_s": TRAIN_A * TRAIN_B * TRAIN_T / med,
+                       "peak_mem_gib": peak_gib, "launches_per_step": launches[0],
+                       "repeat_bit_equal": repeat_equal}
+        del twin, state, model, step
+        torch.cuda.empty_cache()
+    emit({"phase": "train_dh256", "model": "VALL-E ModelConfig(nhead=4) (d=1024, 4 heads, Dh "
+          "256, 12+12 layers, Q=8), attn_impl=fused, dropout 0.1, train_stage 0, training build",
+          "accumulation": TRAIN_A, "batch": TRAIN_B, "text_tokens": TRAIN_S, "frames": TRAIN_T,
+          "runs": runs, "beside_16_heads_f32_step_s": beside_step_s,
+          "f32_over_16_heads": runs["float32"]["step_s_median"] / beside_step_s,
+          "dropout0_max_grad_rel_err": check["max_grad_rel_err"],
+          "dropout0_flipped_gates": check["flipped_gates"]})
+    return runs["float32"]["launches_per_step"]
+
+
 # -------------------------------------------------------- phases 10 and 11
 
 TTS_STEPS = 5
@@ -1609,10 +1994,13 @@ def _tts_batch(cfg, rng, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
 
-def tts_train_path(dev):
+def tts_train_path(dev, nhead: int = 16, beside_step_s=None):
     """Full-width Transformer TTS baseline training steps through kernels 2,
     3 and 4, with launch counts per step, a bit-equal repeated step, and the
-    loss and gradients in eval mode held against a CPU copy."""
+    loss and gradients in eval mode held against a CPU copy: phase 10 at the
+    default 16 heads, path x (``tts_dh256_train``) at ``nhead=4`` (Dh 256,
+    the split tiles) with its step beside phase 10's (``beside_step_s``) and
+    the same gradient check."""
     import copy
     import functools
 
@@ -1625,11 +2013,12 @@ def tts_train_path(dev):
     # the default widths (d=1024, 16 heads, 12 + 12 layers, FFN 4096, 100 mel
     # bins), f32; attention dropout 0 keeps the decoder self-attention on
     # kernel 4, while the prenet (0.5) and positional (0.1) dropouts stay on
-    cfg = ModelConfig(model_name="Transformer", attn_impl="flash", dropout=0.0)
+    cfg = ModelConfig(model_name="Transformer", attn_impl="flash", dropout=0.0, nhead=nhead)
     torch.manual_seed(SEED)
     model = get_model(cfg)
     batch = _tts_batch(cfg, np.random.RandomState(SEED + 7), dev)
-    check = gradient_check(model, batch, "initial", phase="tts_gradient_check")
+    check = gradient_check(model, batch, "initial", phase="tts_gradient_check"
+                           if beside_step_s is None else "tts_dh256_gradient_check")
 
     make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
     state = init_train_state(model, make_opt, train_stage=0)
@@ -1655,9 +2044,13 @@ def tts_train_path(dev):
 
     med = float(np.median(step_s))
     frames = TTS_B * TTS_T
-    emit({"phase": "tts_train", "model": "Transformer TTS default ModelConfig (d=1024, 16 heads, "
-          "12 encoder + 12 decoder layers, FFN 4096, 100 mel bins), attn_impl=flash, attention "
-          "dropout 0, prenet dropout 0.5, positional dropout 0.1, f32",
+    beside = {} if beside_step_s is None else {"beside_16_heads_step_s": beside_step_s,
+                                               "over_16_heads": med / beside_step_s}
+    emit({"phase": "tts_train" if beside_step_s is None else "tts_dh256_train",
+          "model": f"Transformer TTS ModelConfig(nhead={nhead}) (d=1024, {nhead} heads, Dh "
+          f"{cfg.decoder_dim // nhead}, 12 encoder + 12 decoder layers, FFN 4096, 100 mel "
+          "bins), attn_impl=flash, attention dropout 0, prenet dropout 0.5, positional dropout "
+          "0.1, f32", **beside,
           "params": n_params, "batch": TTS_B, "text_tokens": TTS_S, "frames": TTS_T,
           "text_lens": batch["text_tokens_lens"][0].tolist(),
           "frame_lens": batch["audio_features_lens"][0].tolist(),
@@ -1776,16 +2169,18 @@ def tts_scaling_train_path(dev, plain_step_s: float):
     return {"tts_scaling_train_step": launches[0], "tts_scaling_train_bf16": launches16[0]}
 
 
-def tts_inference_path(dev, scaling: bool = False):
+def tts_inference_path(dev, scaling: bool = False, nhead: int = 16, steps: int = INF_STEPS,
+                       check_steps: int = CHECK_STEPS, phase=None):
     """The Transformer TTS baseline's greedy mel loop at full width on 8
-    requests for INF_STEPS steps, with launch counts and the first
-    CHECK_STEPS mels held against a CPU copy; ``scaling``: its
-    scaling_xformers variant."""
+    requests for ``steps`` steps (INF_STEPS), with launch counts and the
+    first ``check_steps`` (CHECK_STEPS) mels held against a CPU copy;
+    ``scaling``: its scaling_xformers variant; ``nhead``: 4 in path x."""
     import torch
 
     from valle_tpu_torch.models import ModelConfig, get_model
 
-    cfg = ModelConfig(model_name="Transformer", attn_impl="flash", scaling_xformers=scaling)
+    cfg = ModelConfig(model_name="Transformer", attn_impl="flash", scaling_xformers=scaling,
+                      nhead=nhead)
     torch.manual_seed(SEED)
     model = get_model(cfg)
     rng = np.random.RandomState(SEED + 8)
@@ -1798,38 +2193,38 @@ def tts_inference_path(dev, scaling: bool = False):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = model.inference(x, x_lens_t, max_steps=INF_STEPS)
+    out = model.inference(x, x_lens_t, max_steps=steps)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n = cfg.num_layers
-    want = {"ragged_decode": 0, "prefix_attention": n + n * INF_STEPS, "prefix_attention_bwd": 0,
-            "flash_attention": n * INF_STEPS, "flash_attention_bwd": 0}
+    want = {"ragged_decode": 0, "prefix_attention": n + n * steps, "prefix_attention_bwd": 0,
+            "flash_attention": n * steps, "flash_attention_bwd": 0}
     assert launches == want, f"launch counts {launches}, expected {want}"
     mel, lengths = out["mel"], out["lengths"]
-    assert tuple(mel.shape) == (INF_B, INF_STEPS, cfg.num_mel_bins), tuple(mel.shape)
+    assert tuple(mel.shape) == (INF_B, steps, cfg.num_mel_bins), tuple(mel.shape)
     assert torch.isfinite(mel).all()
-    assert int(lengths.min()) >= 1 and int(lengths.max()) <= INF_STEPS
+    assert int(lengths.min()) >= 1 and int(lengths.max()) <= steps
 
     # the first steps against a CPU copy: step i reads frames <= i only, so a
     # shorter loop gives the same first frames
     cpu_model = get_model(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
-    cpu = cpu_model.inference(x.cpu(), x_lens_t.cpu(), max_steps=CHECK_STEPS)
+    cpu = cpu_model.inference(x.cpu(), x_lens_t.cpu(), max_steps=check_steps)
     del cpu_model
-    mel_err = float((mel[:, :CHECK_STEPS].cpu() - cpu["mel"]).abs().max())
+    mel_err = float((mel[:, :check_steps].cpu() - cpu["mel"]).abs().max())
     assert mel_err <= LOGIT_ATOL, f"GPU mels differ from the CPU copy by {mel_err}"
-    assert lengths.cpu().clamp(max=CHECK_STEPS).tolist() == cpu["lengths"].tolist(), (
+    assert lengths.cpu().clamp(max=check_steps).tolist() == cpu["lengths"].tolist(), (
         lengths.tolist(), cpu["lengths"].tolist())
-    emit({"phase": "tts_scaling_inference" if scaling else "tts_inference",
-          "model": "Transformer TTS default ModelConfig" + (" with scaling_xformers" if scaling
-                                                            else "")
+    emit({"phase": phase or ("tts_scaling_inference" if scaling else "tts_inference"),
+          "model": f"Transformer TTS ModelConfig(nhead={nhead})" + (
+              " with scaling_xformers" if scaling else "")
           + ", attn_impl=flash, f32, greedy, full recompute per step", "batch": INF_B,
-          "text_lens": x_lens.tolist(), "max_steps": INF_STEPS, "launches": launches,
-          "lengths": lengths.tolist(), "call_s": total_s, "ms_per_step": total_s * 1e3 / INF_STEPS,
-          "frames_per_s": INF_B * INF_STEPS / total_s, "peak_mem_gib": peak_gib,
-          "mel_max_abs_err_vs_cpu": mel_err, "checked_steps": CHECK_STEPS,
+          "text_lens": x_lens.tolist(), "max_steps": steps, "launches": launches,
+          "lengths": lengths.tolist(), "call_s": total_s, "ms_per_step": total_s * 1e3 / steps,
+          "frames_per_s": INF_B * steps / total_s, "peak_mem_gib": peak_gib,
+          "mel_max_abs_err_vs_cpu": mel_err, "checked_steps": check_steps,
           "mel_atol": LOGIT_ATOL})
     return launches
 
@@ -1840,6 +2235,11 @@ INFER_PROMPT_TEXT = "the prompt is read in this voice"
 INFER_TEXTS = ["to get up and running quickly just follow the steps below",
                "a second request in the same voice"]
 INFER_MAX_NEW = 384
+# paths e and r: the infer CLI's flags beside its files (the model at CUT_LAYERS)
+INFER_FLAGS = ["--num-decoder-layers", str(CUT_LAYERS), "--text-extractor", "chars",
+               "--text-prompts", INFER_PROMPT_TEXT, "--text", "|".join(INFER_TEXTS),
+               "--attn-impl", "flash", "--kv-cache-dtype", "int8", "--top-k", "1",
+               "--max-new-tokens", str(INFER_MAX_NEW), "--seed", str(SEED)]
 PROMPT_S, PROMPT_SR = 3, 16000
 
 
@@ -1995,22 +2395,23 @@ SYMBOLS = "abcdefghijklmnopqrstuvwxyz"  # the chars frontend's symbols ("_" is a
 
 def write_serving_files(tmp) -> dict:
     """The files a user hands the CLIs, written once for the infer, serve and
-    continuous phases: the full-width VALL-E (seeded random weights, f32) as
-    a ``.pt``, the random codec as the converter's ``.npz``, a 3 s prompt wav
-    at 16 kHz and a ``chars`` symbol table."""
+    continuous phases: the full-width VALL-E (seeded random weights, f32) at
+    CUT_LAYERS layers as a ``.pt``, the random codec as the converter's
+    ``.npz``, a 3 s prompt wav at 16 kHz and a ``chars`` symbol table."""
     import torch
 
     from valle_tpu_torch.codec import random_codec_params, save_codec_npz
     from valle_tpu_torch.models import ModelConfig, get_model
 
     torch.manual_seed(SEED)
-    torch.save({"model": get_model(ModelConfig()).state_dict()}, tmp / "model.pt")
+    torch.save({"model": get_model(ModelConfig(num_layers=CUT_LAYERS)).state_dict()},
+               tmp / "model_cut.pt")
     save_codec_npz(tmp / "codec.npz", random_codec_params(seed=SEED))
     _prompt_wav(tmp / "prompt.wav")
     (tmp / "tokens.k2symbols").write_text(
         "".join(f"{c} {i + 1}\n" for i, c in enumerate(list(SYMBOLS) + ["_"])))
     torch.cuda.empty_cache()
-    return {name: tmp / name for name in ("model.pt", "codec.npz", "prompt.wav",
+    return {name: tmp / name for name in ("model_cut.pt", "codec.npz", "prompt.wav",
                                           "tokens.k2symbols")} | {"dir": tmp}
 
 
@@ -2042,16 +2443,12 @@ def _infer_path(dev, files):
     from valle_tpu_torch.data import convert_audio, read_wav
     from valle_tpu_torch.models import ModelConfig
 
-    cfg = ModelConfig()  # the default VALL-E, full width
+    cfg = ModelConfig(num_layers=CUT_LAYERS)  # the default VALL-E's width
     tmp = files["dir"]
-    flags = ["--text-extractor", "chars", "--text-prompts", INFER_PROMPT_TEXT,
-             "--text", "|".join(INFER_TEXTS), "--attn-impl", "flash", "--kv-cache-dtype",
-             "int8", "--top-k", "1", "--max-new-tokens", str(INFER_MAX_NEW), "--seed",
-             str(SEED)]
-    argv = ["--checkpoint", str(tmp / "model.pt"), "--codec-checkpoint",
+    argv = ["--checkpoint", str(tmp / "model_cut.pt"), "--codec-checkpoint",
             str(tmp / "codec.npz"), "--text-tokens", str(tmp / "tokens.k2symbols"),
             "--audio-prompts", str(tmp / "prompt.wav"), "--output-dir",
-            str(tmp / "out")] + flags
+            str(tmp / "out")] + INFER_FLAGS
     captured, calls, restore = _capture_infer_calls()
     try:
         torch.cuda.synchronize()
@@ -2082,7 +2479,7 @@ def _infer_path(dev, files):
         frames.append(int(codes.shape[0]))
 
     args = infer.get_parser().parse_args(argv)
-    checks = check_infer_against_cpu(dev, infer.config_from_args(args), str(tmp / "model.pt"),
+    checks = check_infer_against_cpu(dev, infer.config_from_args(args), str(tmp / "model_cut.pt"),
                                      captured, calls)
     # the prompt's codes from the card's codec against a CPU copy's
     card = load_codec(tmp / "codec.npz")
@@ -2096,8 +2493,9 @@ def _infer_path(dev, files):
     wav, sr = read_wav(str(tmp / "prompt.wav"))
     wav = torch.from_numpy(convert_audio(wav, sr, 24000, 1)[None]).to(dev)
     encode = cuda_time(lambda: card.encode(wav), iters=1, windows=3, warmup=1)
-    emit({"phase": "infer", "cli": "python -m valle_tpu_torch.bin.infer", "flags": flags,
-          "model": "VALL-E default ModelConfig, seeded random weights (.pt)",
+    emit({"phase": "infer", "cli": "python -m valle_tpu_torch.bin.infer", "flags": INFER_FLAGS,
+          "model": f"VALL-E ModelConfig(num_layers={CUT_LAYERS}) (d=1024, 16 heads, "
+                   f"{CUT_LAYERS}+{CUT_LAYERS} layers), seeded random weights (.pt)",
           "codec": "EncodecConfig(), seeded random weights (.npz)", "texts": INFER_TEXTS,
           "tf32_flags": "PyTorch defaults (matmul off, cuDNN on; the codec turns it off)",
           "launches": launches, "frames": frames, "cli_wall_s": wall_s,
@@ -2273,10 +2671,14 @@ def serve_path(dev, files):
     tmp = files["dir"]
     rows = _serve_requests(tmp / "requests.tsv", files["prompt.wav"])
     runs, paths, first_logits, batch = {}, {}, {}, None
-    cfg = ModelConfig(dtype="bfloat16", kv_cache_dtype="int8", attn_impl="flash")  # the CLI's
+    # the CLI's settings, at CUT_LAYERS layers (seeded random weights)
+    cfg = ModelConfig(dtype="bfloat16", kv_cache_dtype="int8", attn_impl="flash",
+                      num_layers=CUT_LAYERS)
+    model_pt = files["model_cut.pt"]
     for mode in SERVE_MODES:
         out_dir = tmp / f"serve_{mode}"
-        argv = ["--requests", str(tmp / "requests.tsv"), "--checkpoint", str(files["model.pt"]),
+        argv = ["--requests", str(tmp / "requests.tsv"), "--checkpoint", str(model_pt),
+                "--num-decoder-layers", str(CUT_LAYERS),
                 "--codec-checkpoint", str(files["codec.npz"]), "--text-tokens",
                 str(files["tokens.k2symbols"]), "--text-extractor", "chars", "--batch-size",
                 str(SERVE_BATCH), "--length-buckets", ",".join(map(str, SERVE_BUCKETS)),
@@ -2345,7 +2747,7 @@ def serve_path(dev, files):
         if rel > rtol:
             off.append(f"serve {mode}: prefill logits {rel} off the unquantized run's")
 
-    sd = infer.load_model_params(str(files["model.pt"]), cfg, "valle")
+    sd = infer.load_model_params(str(model_pt), cfg, "valle")
     layer_errors = check_quantized_layers(sd, dev)
     x = batch[0]
     products = {"decode": quant_product_ms(sd, dev, x.shape[0]),
@@ -2358,7 +2760,8 @@ def serve_path(dev, files):
         del model
         torch.cuda.empty_cache()
     emit({"phase": "serve", "cli": "python -m valle_tpu_torch.bin.serve",
-          "model": "VALL-E default ModelConfig, seeded random weights (.pt), bf16, int8 KV",
+          "model": f"VALL-E ModelConfig(num_layers={CUT_LAYERS}) (d=1024, 16 heads, "
+                   f"{CUT_LAYERS}+{CUT_LAYERS} layers), seeded random weights (.pt), bf16, int8 KV",
           "requests": len(rows), "batch_size": SERVE_BATCH, "buckets": SERVE_BUCKETS,
           "window": f"prefill, {WINDOW_STEPS} decode steps, 7 NAR passes of the first batch",
           "layer_rel_err_vs_float": layer_errors, "layer_rtol": QUANT_LAYER_RTOL,
@@ -2400,9 +2803,11 @@ def continuous_path(dev, files):
     from valle_tpu_torch.sample import generate
     from valle_tpu_torch.sample.continuous import serve_continuous
 
-    cfg = ModelConfig(dtype="bfloat16", attn_impl="flash", kv_cache_dtype="int8")
+    cfg = ModelConfig(dtype="bfloat16", attn_impl="flash", kv_cache_dtype="int8",
+                      num_layers=CUT_LAYERS)
     model = get_model(cfg, device=dev,
-                      state_dict=infer.load_model_params(str(files["model.pt"]), cfg, "valle"))
+                      state_dict=infer.load_model_params(str(files["model_cut.pt"]), cfg,
+                                                         "valle"))
     rng = np.random.RandomState(SEED + 13)
     r, s, p, q = CONT_REQUESTS, 64, 225, cfg.num_quantizers
     req = {"x": rng.randint(1, cfg.num_text_tokens, (r, s)), "x_lens": rng.randint(40, s + 1, r),
@@ -3088,7 +3493,6 @@ BF16_CLI_FLAGS = ["--dtype", "bfloat16", "--remat", "dots_nobatch", "--attn-impl
                   "--save-every-n", "0", "--max-duration", "20", "--num-buckets", "2",
                   "--accumulate-grad-steps", "2", "--batch-quant", "1", "--log-interval", "1",
                   "--tensorboard", "false", "--seed", str(SEED)]
-CHECK_ROWS = 2  # rows of the bf16 CLI's first micro-batch in its gradient check
 REMAT_STEPS = 5
 
 
@@ -3481,7 +3885,7 @@ def remat_ab_path(dev) -> dict:
     runs, base = {}, None
     for dtype, remat in (("float32", "none"), ("bfloat16", "none"), ("bfloat16", "full"),
                          ("bfloat16", "dots_nobatch")):
-        cfg = ModelConfig(attn_impl="fused", dtype=dtype, remat=remat)
+        cfg = ModelConfig(attn_impl="fused", dtype=dtype, remat=remat, num_layers=CUT_LAYERS)
         torch.manual_seed(SEED)
         model = get_model(cfg, training=True)
         state = init_train_state(model, make_opt, train_stage=0)
@@ -3537,7 +3941,7 @@ def remat_ab_path(dev) -> dict:
         torch.cuda.empty_cache()
     del base
     torch.cuda.empty_cache()
-    per_group = TRAIN_A * 24
+    per_group = TRAIN_A * 2 * CUT_LAYERS
     for name, run in runs.items():
         twice = run["remat"] != "none"
         assert run["launches"]["prefix_attention"] == per_group * (2 if twice else 1), run
@@ -3549,8 +3953,9 @@ def remat_ab_path(dev) -> dict:
                     < runs["bfloat16 none"]["accumulation_peak_gib"]), run
     assert runs["bfloat16 dots_nobatch"]["policy_saved_ops"], "the policy saved nothing"
     f32, bf16 = runs["float32 none"]["step_s_median"], runs["bfloat16 none"]["step_s_median"]
-    emit({"phase": "remat_ab", "model": "VALL-E default ModelConfig, attn_impl fused, dropout "
-          "0.1, train_stage 0, phase 9's batch", "accumulation": TRAIN_A, "batch": TRAIN_B,
+    emit({"phase": "remat_ab", "model": f"VALL-E ModelConfig(num_layers={CUT_LAYERS}) (d=1024, "
+          f"16 heads, {CUT_LAYERS}+{CUT_LAYERS} layers), attn_impl fused, dropout 0.1, "
+          "train_stage 0, phase 9's batch", "accumulation": TRAIN_A, "batch": TRAIN_B,
           "text_tokens": TRAIN_S, "frames": TRAIN_T, "runs": runs,
           "bf16_over_f32_step_speedup": f32 / bf16,
           "frames_per_s": {k: TRAIN_A * TRAIN_B * TRAIN_T / r["step_s_median"]
@@ -3675,9 +4080,9 @@ def reference_pt_path(dev, files):
     from valle_tpu_torch.bin import infer
     from valle_tpu_torch.models import ModelConfig
 
-    cfg = ModelConfig()
+    cfg = ModelConfig(num_layers=CUT_LAYERS)
     tmp = files["dir"]
-    sd = dict(torch.load(tmp / "model.pt", map_location="cpu")["model"])
+    sd = dict(torch.load(tmp / "model_cut.pt", map_location="cpu")["model"])
     gen = torch.Generator().manual_seed(SEED)
     for key in REFERENCE_EXTRA:
         sd[key] = torch.randn(7, generator=gen)
@@ -3686,14 +4091,10 @@ def reference_pt_path(dev, files):
         sd[key] = torch.randn(sd[key].shape, generator=gen)
     torch.save({"model": sd, "epoch": 1}, tmp / "reference.pt")
     del sd
-    flags = ["--text-extractor", "chars", "--text-prompts", INFER_PROMPT_TEXT,
-             "--text", "|".join(INFER_TEXTS), "--attn-impl", "flash", "--kv-cache-dtype",
-             "int8", "--top-k", "1", "--max-new-tokens", str(INFER_MAX_NEW), "--seed",
-             str(SEED)]
     argv = ["--checkpoint", str(tmp / "reference.pt"), "--codec-checkpoint",
             str(tmp / "codec.npz"), "--text-tokens", str(tmp / "tokens.k2symbols"),
             "--audio-prompts", str(tmp / "prompt.wav"), "--output-dir",
-            str(tmp / "out_reference")] + flags
+            str(tmp / "out_reference")] + INFER_FLAGS
     tf32 = (torch.backends.cuda.matmul, torch.backends.cudnn)
     saved = [f.allow_tf32 for f in tf32]
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
@@ -3887,7 +4288,8 @@ def timed_reductions():
 
 
 def _ddp_setup(dev, deterministic: bool = True):
-    """Phase 9's model (seeded init), optimizer and schedule."""
+    """Phase 9's model (seeded init) at CUT_LAYERS layers, optimizer and
+    schedule."""
     import functools
 
     import torch
@@ -3896,7 +4298,7 @@ def _ddp_setup(dev, deterministic: bool = True):
     from valle_tpu_torch.optim import ScaledAdam, get_lr_fn
     from valle_tpu_torch.train.step import init_train_state
 
-    cfg = ModelConfig(attn_impl="fused")
+    cfg = ModelConfig(attn_impl="fused", num_layers=CUT_LAYERS)
     torch.manual_seed(SEED)
     model = get_model(cfg, device=dev)
     make_opt = functools.partial(ScaledAdam, lr=0.05, clipping_scale=2.0, betas=(0.9, 0.95))
@@ -4005,8 +4407,9 @@ def ddp_train_path(dev, tmp: Path):
     assert r0["loss"] == r1["loss"] and r0["checksum"] == r1["checksum"], (r0, r1)
     loss_err = abs(r0["loss"] - ref_line["loss"]) / abs(ref_line["loss"])
     checksum_err = abs(r0["checksum"] - ref_line["checksum"]) / ref_line["checksum"]
-    emit({"phase": "ddp_train", "model": "VALL-E default ModelConfig (367.4 M parameters), "
-          "attn_impl=fused, f32, train_stage 0, ScaledAdam + Eden", "group_of_one": world1_line,
+    emit({"phase": "ddp_train", "model": f"VALL-E ModelConfig(num_layers={CUT_LAYERS}) (d=1024, "
+          f"16 heads, {CUT_LAYERS}+{CUT_LAYERS} layers), attn_impl=fused, f32, train_stage 0, "
+          "ScaledAdam + Eden", "group_of_one": world1_line,
           "reference_b8": ref_line, "ranks": ranks, "ranks_wall_s": ranks_s,
           "loss_rel_err": loss_err, "checksum_rel_err": checksum_err,
           "bars": {"grads_all": DDP_GRAD_RTOL, "grads_each": GRAD_RTOL, "loss": DDP_LOSS_RTOL,
@@ -4265,7 +4668,7 @@ def _tp_config(w8a8: bool):
     from valle_tpu_torch.models import ModelConfig
 
     return ModelConfig(dtype="bfloat16", attn_impl="flash", kv_cache_dtype="int8",
-                       act_quant=w8a8)
+                       act_quant=w8a8, num_layers=CUT_LAYERS)
 
 
 def tp_generate_job(rank: int, world: int, address: str, out: Path, model_pt: str,
@@ -4386,7 +4789,8 @@ def tp_serve_path(dev, files) -> dict:
     tmp = files["dir"]
     tsv = tmp / "tp_requests.tsv"
     _serve_tsv(tsv, files["prompt.wav"])
-    base = ["--requests", str(tsv), "--checkpoint", str(files["model.pt"]), "--codec-checkpoint",
+    base = ["--requests", str(tsv), "--checkpoint", str(files["model_cut.pt"]),
+            "--num-decoder-layers", str(CUT_LAYERS), "--codec-checkpoint",
             str(files["codec.npz"]), "--text-tokens", str(files["tokens.k2symbols"]),
             "--text-extractor", "chars", "--batch-size", str(TP_REQUESTS), "--length-buckets",
             str(TP_MAX_NEW), "--attn-impl", "flash", "--top-k", "1", "--seed", str(SEED)]
@@ -4398,7 +4802,7 @@ def tp_serve_path(dev, files) -> dict:
         for name, (extra, flag) in runs.items()}
     batch_pt = tmp / "tp_batch.pt"
     t_ranks = time.perf_counter()
-    tp_ranks = start_rank_processes("tp_generate_job", 2, [files["model.pt"], batch_pt])
+    tp_ranks = start_rank_processes("tp_generate_job", 2, [files["model_cut.pt"], batch_pt])
     real_generate = serve.generate
     one_rank = {}
     for name, (extra, _) in runs.items():  # one rank, recording its logits' top-two gaps
@@ -4510,44 +4914,65 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
 
+    # The three sources build side by side, each followed by its SASS scan;
+    # no kernel is timed until all three are in (nvcc would share the host
+    # with the timed calls).
     t0 = time.perf_counter()
-    seconds = cuda_build.build(KERNELS)
-    fwd_log = cuda_build.log_path("prefix_attention")
-    bwd_log = cuda_build.log_path("prefix_attention_bwd")
-    k1_log = cuda_build.log_path("ragged_decode")
-    with ThreadPoolExecutor(3) as pool:  # the three cuobjdump runs side by side
-        jobs = [pool.submit(kernel_resources, fwd_log.with_suffix(".so"), fwd_log),
-                pool.submit(kernel_resources, bwd_log.with_suffix(".so"), bwd_log),
-                pool.submit(kernel_resources, k1_log.with_suffix(".so"), k1_log, ragged_label,
-                            (("i2f", "I2F"),))]
-        fwd, bwd, k1 = (job.result() for job in jobs)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": seconds,
+    pool = ThreadPoolExecutor(3)
+
+    def build_and_scan(name, *label):
+        seconds = cuda_build.build([name])[name]
+        log = cuda_build.log_path(name)
+        return seconds, kernel_resources(log.with_suffix(".so"), log, *label)
+
+    jobs = {"ragged_decode": pool.submit(build_and_scan, "ragged_decode", ragged_label,
+                                         (("i2f", "I2F"),)),
+            "prefix_attention": pool.submit(build_and_scan, "prefix_attention"),
+            "prefix_attention_bwd": pool.submit(build_and_scan, "prefix_attention_bwd")}
+    built = {name: job.result() for name, job in jobs.items()}
+    pool.shutdown()
+    (_, k1_res), (_, fwd), (_, bwd) = (built[name] for name in KERNELS)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_kernel_s": {name: built[name][0] for name in KERNELS},
           "ptxas": {name: ptxas_summary(cuda_build.log_path(name)) for name in KERNELS},
-          "kernel1_kernels": k1, "forward_kernels": fwd, "backward_kernels": bwd})
-    # kernel 1: five lane layouts per cache type, and the combine kernel in two sizes
-    assert len(k1) == 17, f"expected 17 kernel 1 kernels, found {sorted(k1)}"
-    assert all(r["spill_bytes"] == 0 for r in k1.values()), "ptxas spills in kernel 1"
-    assert all(r["i2f"] == 0 for n, r in k1.items() if "int8" in n), \
+          "kernel1_kernels": k1_res, "forward_kernels": fwd, "backward_kernels": bwd,
+          "note": "seconds: until the last source was built and scanned, before any kernel "
+                  "ran"})
+    # kernel 1: seven / eight / nine lane layouts (int8 / bf16 / f32), the
+    # combine kernel in two sizes, the strided layout in three cache types
+    # and its combine
+    assert len(k1_res) == 30, f"expected 30 kernel 1 kernels, found {sorted(k1_res)}"
+    assert all(r["spill_bytes"] == 0 for r in k1_res.values()), "ptxas spills in kernel 1"
+    assert all(r["i2f"] == 0 for n, r in k1_res.items() if "int8" in n), \
         "an int8-cache instantiation of kernel 1 converts with I2F"
-    # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 x dropout or not; kernel 4 without
-    assert len(fwd) == 24, f"expected 24 forward kernels, found {sorted(fwd)}"
+    # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 / split x dropout or not;
+    # kernel 4 without
+    assert len(fwd) == 30, f"expected 30 forward kernels, found {sorted(fwd)}"
     assert all(r["hmma"] > 0 for r in fwd.values()), "a forward kernel runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in fwd.values()), "ptxas spills in the forward"
     passes = {n: r for n, r in bwd.items() if "delta" not in n}
-    assert len(passes) == 48, f"expected 48 backward pass kernels, found {sorted(passes)}"
+    assert len(passes) == 60, f"expected 60 backward pass kernels, found {sorted(passes)}"
     assert all(r["hmma"] > 0 for r in passes.values()), "a backward pass runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in bwd.values()), "ptxas spills in the backward"
-
     k1 = check_ragged_decode(dev)
+    check_ragged_head_dims(dev)
     check_prefix_attention(dev, fwd)
     k2d = check_dropout_forward(dev, fwd)
     k3 = check_backward(dev, bwd)
     k4 = check_flash_bias(dev, fwd, bwd)
     check_head_dims(dev)
-    paths = {"generate": main_path(dev)}
+    k234_dh256 = check_dh256(dev, fwd, bwd)
+    paths = {}
+    paths["generate"], generate_line = main_path(dev)
+    paths["generate_dh256"], _ = main_path(dev, nhead=DH256_H, beside=generate_line)
     paths["train_step"], hand_fed_step_s = train_path(dev, k2d, k3)
+    paths["train_dh256"] = train_dh256_path(dev, hand_fed_step_s)
     paths["tts_train_step"], tts_step_s = tts_train_path(dev)
+    paths["tts_dh256_train"], _ = tts_train_path(dev, nhead=DH256_H, beside_step_s=tts_step_s)
     paths["tts_inference"] = tts_inference_path(dev)
+    paths["tts_dh256_inference"] = tts_inference_path(
+        dev, nhead=DH256_H, steps=DH256_MEL_STEPS, check_steps=DH256_MEL_STEPS,
+        phase="tts_dh256_inference")
     paths.update(tts_scaling_train_path(dev, tts_step_s))
     paths["tts_scaling_inference"] = tts_inference_path(dev, scaling=True)
     paths["visualize"] = visualize_path(dev)
@@ -4567,30 +4992,38 @@ def main() -> int:
         paths.update(tp_serve_path(dev, files))
     paths.update(remat_ab_path(dev))
 
-    def entry(name, source, replaces, res, path):
+    def numbers(res):
+        return {"case": res["case"], "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "ms_spread": [res["ms_min"], res["ms_max"]], "device_ms": res["device_ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+
+    def entry(name, source, replaces, res, path, dh256):
         by_path = {p: counts[name] for p, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": by_path[path], "launches_by_path": by_path, "case": res["case"],
-                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-                "ms_spread": [res["ms_min"], res["ms_max"]], "device_ms": res["device_ms"],
-                "plain_ms": res["plain_ms"],
-                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-                "library_ms": res["library_ms"]}
+                "launches": by_path[path], "launches_by_path": by_path, **numbers(res),
+                "dh256": [numbers(r) for r in dh256]}
 
+    t = TRAIN_S + TRAIN_T
     emit({"kernels": [
         entry("ragged_decode", "valle_tpu_torch/csrc/ragged_decode.cu",
-              "valle_tpu/ops/ragged_decode.py:56", k1, "generate"),
+              "valle_tpu/ops/ragged_decode.py:56", k1["phase3 int8 cache"], "generate",
+              [k1["generate B=8 dh 256 int8 cache"]]),
         entry("prefix_attention", "valle_tpu_torch/csrc/prefix_attention.cu",
-              "valle_tpu/ops/fused_attention.py:110", k2d["dense_self"], "train_step"),
+              "valle_tpu/ops/fused_attention.py:110", k2d["dense_self"], "train_step",
+              [k234_dh256[f"kernel2 dense T={t} {d}"] for d in ("float32", "bfloat16")]),
         entry("prefix_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
               "valle_tpu/ops/fused_attention.py:139", k3["dense_self float32 rate 0.1"],
-              "train_step"),
+              "train_step",
+              [k234_dh256[f"kernel3 dense T={t} {d}"] for d in ("float32", "bfloat16")]),
         entry("flash_attention", "valle_tpu_torch/csrc/prefix_attention.cu",
               "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["forward"],
-              "tts_train_step"),
+              "tts_train_step",
+              [k234_dh256[f"kernel4 decoder {d}"] for d in ("float32", "bfloat16")]),
         entry("flash_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
               "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["backward"],
-              "tts_train_step"),
+              "tts_train_step",
+              [k234_dh256[f"kernel4 decoder backward {d}"] for d in ("float32", "bfloat16")]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -43,7 +43,7 @@ from valle_tpu_torch.ops.flash_attention import (
 from valle_tpu_torch.ops.fused_attention import (
     attention_backward_reference, attention_forward_reference, kernel_head_dim, run_padded)
 from valle_tpu_torch.ops.ragged_decode import (
-    ragged_decode_attention, ragged_decode_attention_reference, split_plan)
+    padded_head_dim, ragged_decode_attention, ragged_decode_attention_reference, split_plan)
 from valle_tpu_torch.sample import generate
 from valle_tpu_torch.utils.bridge import state_dict_from_jax
 from tests.test_torch_stall_guard import stall_guard
@@ -130,6 +130,75 @@ def split_k_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan):
     return out
 
 
+def strided_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan):
+    """(B, 1, H, Dh) f32 by the strided layout's arithmetic (Dh above
+    1024): per split and head, tiles of ``stage_cols`` columns, each column's
+    score a whole-head dot product times the f32 1 / sqrt(Dh), one online-
+    softmax step per tile with acc updated column by column in order; the
+    combine's weights e^(m_s - M) over the splits in order."""
+    b, cap, h, dh = k.shape
+    kf, vf = k.float(), v.float()
+    scale = torch.tensor(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    qf = q.reshape(b, h, dh).float()
+    out = torch.zeros(b, 1, h, dh)
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), cap)
+        parts = []
+        for s in range(plan.n_splits):
+            c_begin = s * plan.split_cols
+            if c_begin >= n:
+                continue  # an empty partial: weight e^(-2e9 - M) = 0
+            n_cols = min(plan.split_cols, n - c_begin)
+            m, l, acc = torch.full((h,), INIT_MAX), torch.zeros(h), torch.zeros(h, dh)
+            for t0 in range(c_begin, c_begin + n_cols, plan.stage_cols):
+                cols = range(t0, min(t0 + plan.stage_cols, c_begin + n_cols))
+                sc = (qf[bi][None] * kf[bi, cols.start:cols.stop]).sum(-1) * scale  # (nc, H)
+                if k_scale is not None:
+                    sc = sc * k_scale[bi, cols.start:cols.stop]
+                if bias is not None:
+                    sc = sc + bias[bi, cols.start:cols.stop, None]
+                m_new = torch.maximum(m, sc.amax(0))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(sc - m_new)
+                w = p * v_scale[bi, cols.start:cols.stop] if v_scale is not None else p
+                l = l * alpha + p.sum(0)
+                acc = acc * alpha[:, None] if t0 > c_begin else torch.zeros(h, dh)
+                for j, c in enumerate(cols):
+                    acc = acc + w[j][:, None] * vf[bi, c]
+                m = m_new
+            parts.append((m, l, acc))
+        if not parts:
+            continue  # length 0: exact zeros
+        big = torch.stack([m for m, _, _ in parts]).amax(0)
+        num, den = torch.zeros(h, dh), torch.zeros(h)
+        for m, l, acc in parts:
+            w = torch.exp(m - big)
+            num = num + w[:, None] * acc
+            den = den + w * l
+        out[bi, 0] = num / den[:, None]
+    return out
+
+
+@pytest.mark.parametrize("h,sms", [(1, 7), (2, 21)])
+@pytest.mark.parametrize("cache", ["int8", "float32", "bfloat16"])
+def test_strided_mirror_matches_plain_and_jax(cache, h, sms):
+    """The strided layout at Dh 1040 (d = 1040 at one head, or 2080 at two)
+    on the split-edge lengths of ``_mirror_case``: several splits, and
+    splits of more than one 32-column tile (h = 1: 35 columns), against
+    the plain version and JAX's plain reference within 1e-5."""
+    plan, args = _mirror_case(cache, h, 1040, sms)
+    assert plan.n_slices == h and plan.n_splits >= 2
+    targs = _torch_args(args, cache)
+    got = strided_mirror(*targs, plan)
+    plain = ragged_decode_attention_reference(*targs)
+    want = np.asarray(jax_reference(*(None if a is None else jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    assert np.all(got.numpy()[0] == 0.0)  # length 0
+    vf = targs[2].float() * (targs[6][..., None] if targs[6] is not None else 1.0)
+    np.testing.assert_allclose(got[6, 0].numpy(), vf[6, :20].mean(0).numpy(), atol=1e-5)
+
+
 def _mirror_case(cache, h, dh, sms, seed=0):
     """Numpy inputs, with lengths that land on the plan's split edges."""
     rng = np.random.RandomState(seed)
@@ -202,11 +271,97 @@ def test_split_plan_fills_the_card_at_the_generate_shapes():
         assert block <= 232448 and (plan.cols_per_warp == 1 or per_sm * block <= 232448)
     for dh in (16, 48, 80, 96, 112, 256):
         split_plan(8, 768, 4, dh, 4, 132)
-    for dh in (8, 40, 264):
-        with pytest.raises(ValueError, match="multiples of 16"):
+    # int8 heads of Dh 8, 40 and 264 are not whole 16-byte chunks: the
+    # wrapper pads them to the next chunk, and the plan takes the padded Dh
+    for dh, want in ((8, 16), (40, 48), (264, 272)):
+        assert padded_head_dim(dh, 1) == want
+        _assert_plan_covers(split_plan(8, 768, 4, want, 1, 132), 8, 768, 4, want, 1, 132)
+        with pytest.raises(ValueError, match="whole 16-byte chunks"):
             split_plan(8, 768, 4, dh, 1, 132)
-    with pytest.raises(ValueError, match="head groups"):
-        split_plan(8, 768, 64, 64, 4, 132)
+    # 64 heads of Dh 64 in f32 are 32 head groups: two slices of 16
+    plan = split_plan(8, 768, 64, 64, 4, 132)
+    assert (plan.n_slices, plan.n_groups) == (2, 16)
+    _assert_plan_covers(plan, 8, 768, 64, 64, 4, 132)
+
+
+def _assert_plan_covers(plan, b, cap, h, dh, kv_bytes, sms):
+    """Every head of the row in some slice's head group, at most 16 warps
+    a block (8 where a lane holds 32 accumulator floats), and each block's
+    ring and merge buffer in the shared memory a block may use."""
+    g = dh * kv_bytes // 16
+    lanes = min(32, 1 << (g - 1).bit_length())
+    per_lane = 1 << (-(-g // lanes) - 1).bit_length()
+    ns = per_lane * 16 // kv_bytes
+    assert lanes * per_lane >= g
+    assert plan.n_slices * plan.n_groups * (32 // lanes) >= h  # every head covered
+    assert (plan.n_slices - 1) * plan.n_groups * (32 // lanes) < h  # no empty slice
+    assert plan.n_groups * plan.warps_per_group <= (8 if ns > 16 else 16)
+    slice_heads = h if plan.n_slices == 1 else plan.n_groups * (32 // lanes)
+    col = 2 * slice_heads * dh * kv_bytes + (8 * h if kv_bytes == 1 else 0) + 4
+    stages = min(2, -(-plan.split_cols // plan.stage_cols))
+    ring = stages * (plan.stage_cols * col + 48)
+    merge = 32 * plan.n_groups * plan.warps_per_group * (ns + 2) * 4
+    assert max(ring, merge) <= 232448
+    assert plan.split_cols * plan.n_splits >= cap > plan.split_cols * (plan.n_splits - 1)
+
+
+@pytest.mark.parametrize("h,dh,kv_bytes", [(4, 512, 4), (4, 512, 2), (4, 512, 1),
+                                           (2, 1024, 4), (128, 16, 1), (16, 320, 4),
+                                           (8, 144, 2), (16, 192, 1)])
+def test_split_plan_covers_wide_heads_and_many_heads(h, dh, kv_bytes):
+    """The plans of head dims past 256 (up to 1024) and of rows of more
+    head groups than a block's 16 warps: every head covered, the warps and
+    shared memory within a block's, at the generate shapes and at B = 1;
+    past Dh 1024 the strided layout's plan (a block per split, slot and
+    head) at the same head count."""
+    for b, cap in ((8, 768), (1, 768), (8, 40000)):
+        _assert_plan_covers(split_plan(b, cap, h, dh, kv_bytes, 132), b, cap, h, dh, kv_bytes,
+                            132)
+        _assert_strided_plan(split_plan(b, cap, h, 1040, kv_bytes, 132), b, cap, h, 132)
+
+
+def _assert_strided_plan(plan, b, cap, h, sms):
+    """The strided layout's plan: one head per block (grid z = H), one head
+    group of 8 warps taking 4 columns each of a 32-column tile, splits that
+    cover the cache and fill the card (about one block per SM at B = 1, two
+    at B > 1) unless the splits reach their 4-column floor."""
+    assert plan.n_slices == h and (plan.n_groups, plan.warps_per_group) == (1, 8)
+    assert (plan.stage_cols, plan.cols_per_warp) == (32, 4)
+    assert plan.split_cols * plan.n_splits >= cap > plan.split_cols * (plan.n_splits - 1)
+    per_sm = 1 if b == 1 else 2
+    assert plan.split_cols == 4 or b * h * plan.n_splits >= per_sm * sms
+    assert (plan.n_splits + 8) * 4 <= 232448  # the combine's maxima and weights in shared memory
+
+
+@pytest.mark.parametrize("dh,kv_bytes", [(1028, 1), (1100, 2), (2048, 4), (4096, 1)])
+def test_kernel_1_strided_layout_takes_heads_past_1024(dh, kv_bytes):
+    """A head past Dh 1024 runs unpadded (the strided layout reads single
+    elements), at one head (d = Dh, nhead 1) and at 16, on the generate
+    shapes, at B = 1 and on a long cache."""
+    assert padded_head_dim(dh, kv_bytes) == dh
+    for b, cap, h in ((8, 768, 1), (8, 768, 16), (1, 768, 1), (1, 40000, 2)):
+        _assert_strided_plan(split_plan(b, cap, h, dh, kv_bytes, 132), b, cap, h, 132)
+
+
+@pytest.mark.parametrize("dh", [8, 40, 72])
+def test_kernel_1_padded_head_dim(dh):
+    """The int8 cache's zero-padded head dim (what the wrapper launches at
+    Dh 8, 40, 72): through the plain version with the true Dh's scale, the
+    first Dh outputs equal the unpadded call's within f32 rounding and the
+    padded outputs are exactly 0."""
+    _, args = _mirror_case("float32", 4, dh, 21, seed=dh)
+    q, k, v, lengths, bias, _, _ = _torch_args(args, "float32")
+    k8, ks = (torch.from_numpy(np.array(a)) for a in jax_quantize_kv(jnp.asarray(args[1])))
+    v8, vs = (torch.from_numpy(np.array(a)) for a in jax_quantize_kv(jnp.asarray(args[2])))
+    dhp = padded_head_dim(dh, 1)
+    assert dhp % 16 == 0 and dhp - 16 < dh <= dhp
+    pad = lambda x: torch.nn.functional.pad(x, (0, dhp - dh))  # noqa: E731
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    got = ragged_decode_attention_reference(pad(q), pad(k8), pad(v8), lengths, bias, ks, vs,
+                                            scale=scale)
+    want = ragged_decode_attention_reference(q, k8, v8, lengths, bias, ks, vs)
+    assert got.shape[-1] == dhp and torch.all(got[..., dh:] == 0)
+    np.testing.assert_allclose(got[..., :dh].numpy(), want.numpy(), atol=2e-6, rtol=0)
 
 
 def test_wrapper_on_cpu_takes_dh_48_and_a_wide_cache():
@@ -337,8 +492,13 @@ def test_run_padded_leaves_instantiated_dims_alone():
     x = torch.randn(2, 3, 64)
     assert run_padded(launch, (x,), n_sliced=1)[0] is x
     assert calls == [(64, 1.0 / math.sqrt(64))]
-    with pytest.raises(ValueError, match="up to 128"):
-        run_padded(launch, (torch.randn(2, 3, 144),), n_sliced=1)
+    # past 128 a head dim pads to a multiple of 128 (the split instantiations)
+    for dh, n in ((144, 256), (256, 256), (320, 384), (1024, 1024)):
+        assert kernel_head_dim(dh) == n
+        y = torch.randn(2, 3, dh)
+        got = run_padded(launch, (y,), n_sliced=1)[0]
+        assert calls[-1] == (n, 1.0 / math.sqrt(dh))
+        assert torch.equal(got, y)
 
 
 # ---------------------------------------------------------- generate at Dh 48

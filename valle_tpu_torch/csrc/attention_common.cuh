@@ -31,15 +31,26 @@ struct Dropout {
   uint2 seed;
 };
 
-// f(std::integral_constant<int, Dh>) for the supported head dims.
+// The head-dim chunk of the split instantiations of kernels 2-4: a head dim
+// above 128 runs as Dh / kSplitDh chunks of 128 columns (the wrapper
+// zero-pads it to a multiple of 128).
+constexpr int kSplitDh = 128;
+
+// f(std::integral_constant<int, DH>, split, nc) for the supported head dims:
+// Dh in {16, 32, 64, 128} whole (split false, nc 1), or a multiple of
+// kSplitDh above it in nc = Dh / kSplitDh chunks of DH = kSplitDh (split
+// std::true_type).
 template <typename F>
 cudaError_t dispatch_dh(int Dh, F&& f) {
   switch (Dh) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return cudaErrorInvalidValue;
+    case 16: return f(std::integral_constant<int, 16>{}, std::false_type{}, 1);
+    case 32: return f(std::integral_constant<int, 32>{}, std::false_type{}, 1);
+    case 64: return f(std::integral_constant<int, 64>{}, std::false_type{}, 1);
+    case 128: return f(std::integral_constant<int, 128>{}, std::false_type{}, 1);
+    default:
+      if (Dh > kSplitDh && Dh % kSplitDh == 0)
+        return f(std::integral_constant<int, kSplitDh>{}, std::true_type{}, Dh / kSplitDh);
+      return cudaErrorInvalidValue;
   }
 }
 

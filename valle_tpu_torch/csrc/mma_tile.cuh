@@ -157,8 +157,11 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // acc[n] += X Y^T over Dh for a warp: X the 16 rows at x (row-major, stride
 // LDT), Y the NT * 8 rows at y.  acc[n] is the m16n8 C fragment of columns
 // 8n .. 8n + 7: lane (g = lane / 4, t = lane % 4) holds rows g, g + 8 and
-// columns 2t, 2t + 1.
-template <typename T, int DH, int NT>
+// columns 2t, 2t + 1.  kF32Sum (f32): each k step of 8 sums into a zeroed
+// fragment that is added to acc in f32, as in mma_fz; the split tiles sum
+// S over Dh chunk by chunk, and at Dh 256 the tensor cores' truncated sums
+// over 96 products per score held the TTS's gradients 1.1x over their bar.
+template <typename T, int DH, int NT, bool kF32Sum = false>
 __device__ __forceinline__ void mma_xyt(float (&acc)[NT][4], const T* x, const T* y, int lane) {
   constexpr int LDT = row_stride<T, DH>();
   if constexpr (kF32<T>) {
@@ -170,7 +173,14 @@ __device__ __forceinline__ void mma_xyt(float (&acc)[NT][4], const T* x, const T
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const float* yb = y + (8 * n + g) * LDT + k0 + t;
-        mma_3xtf32(acc[n], a, yb[0], yb[4]);
+        if constexpr (kF32Sum) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(part, a, yb[0], yb[4]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+        } else {
+          mma_3xtf32(acc[n], a, yb[0], yb[4]);
+        }
       }
     }
   } else {

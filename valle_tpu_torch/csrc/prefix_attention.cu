@@ -79,7 +79,27 @@
 //      _windows clip did.  No atomics: reruns are bit-equal.
 //   6. Registers decide the occupancy: fwd_bounds_class() gives each
 //      instantiation the launch bounds under which ptxas spills nothing.
-// Later work: wgmma / TMA, and skipping kernel 4's wholly masked key tiles.
+//   7. Head dims above 128 (the split instantiations, *_split_kernel): a
+//      warp's 16 rows of O in f32 take Dh / 2 accumulator registers per
+//      thread (128 at Dh 256, over the budget beside S and the operands),
+//      and a whole-row tile at Dh 512 needs 264 KB of shared memory in f32,
+//      over the 227 KB a block may use.  So the head dim is split: the
+//      wrapper zero-pads Dh to a multiple of kSplitDh = 128, and a grid
+//      dimension takes the nc = Dh / 128 chunks of O, each block holding
+//      Dh 128's accumulators (and launch bounds) for its chunk.  S needs the
+//      whole Dh, so each block recomputes it: every key tile takes nc steps
+//      of the two-stage ring, step i staging chunk i of the q tile and the
+//      key tile (q is restaged per key tile: it no longer fits beside the
+//      ring at Dh 1024) and adding its product to S; the block's own V chunk
+//      comes with the tile's first step.  Shared memory stays that of Dh 128
+//      plus a second q stage (101.5 KB f32, 69.9 KB bf16) at any Dh.  The
+//      cost: S's products nc times, (nc + 1) / 2 times the forward's
+//      operations (1.5x at Dh 256), and q read once per key tile from L2.
+//      Every chunk sums S in the same order, so the LSE (written by chunk
+//      0) is every chunk's.
+// Later work: wgmma / TMA, skipping kernel 4's wholly masked key tiles, and
+// at Dh 256 keeping q whole in shared memory (66.6 KB in f32) instead of
+// restaging it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -112,9 +132,10 @@ constexpr int fwd_bounds_class() {
   return kF32<T> ? 0 : 4;
 }
 
-template <typename T, int DH>
+// A split instantiation holds two stages of q's chunk instead of one q tile.
+template <typename T, int DH, bool kSplit = false>
 constexpr size_t fwd_smem_bytes() {
-  return (size_t)(BM + 4 * fwd_kn<T, DH>()) * row_stride<T, DH>() * sizeof(T) +
+  return (size_t)((kSplit ? 2 : 1) * BM + 4 * fwd_kn<T, DH>()) * row_stride<T, DH>() * sizeof(T) +
          2 * fwd_kn<T, DH>() * sizeof(float);
 }
 
@@ -129,33 +150,46 @@ __device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
 // One (64-row q tile, head, batch) of the forward.  kBias: kernel 4 (dense
 // bias, bias before scale, no structural mask, no dropout); otherwise kernel
 // 2 (key bias, structural mask from prefix_s, dropout when kDrop).
-template <typename T, int DH, bool kDrop, bool kBias>
+// kSplit: the head dim is nc chunks of DH (= kSplitDh) columns, blockIdx.y
+// is h * nc + j, and the block writes O's chunk j (chunk 0 also the LSE).
+// Each key tile then takes nc steps of the ring, step i staging chunk i of
+// the q tile and of the key tile and adding its part of S = q k^T; the first
+// step also stages chunk j of the V tile.  Every block of a (q tile, head)
+// sums S in the same order, so their P, and the LSE, are equal.
+template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false>
 __device__ __forceinline__ void attention_fwd_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
     const T* __restrict__ k, long long k_sb, long long k_st,
     const T* __restrict__ v, long long v_sb, long long v_st,
     const float* __restrict__ kv_bias, Bias bias, T* __restrict__ out,
     float* __restrict__ lse, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
-    bool vec) {
+    bool vec, int nc = 1) {
   static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
   constexpr int KN = fwd_kn<T, DH>();
   constexpr int LDT = row_stride<T, DH>(), TILE = KN * LDT;
   constexpr int NT = KN / 8, DT = DH / 8;  // n8 tiles of a key tile, of Dh
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BM][LDT]
-  T* sK = sQ + BM * LDT;                   // [2][KN][LDT]
-  T* sV = sK + 2 * TILE;                   // [2][KN][LDT]
+  T* sQ = reinterpret_cast<T*>(smem_raw);       // [BM][LDT], kSplit: [2][BM][LDT]
+  T* sK = sQ + (kSplit ? 2 : 1) * BM * LDT;     // [2][KN][LDT]
+  T* sV = sK + 2 * TILE;                        // [2][KN][LDT]
   float* sB = reinterpret_cast<float*>(sV + 2 * TILE);  // [2][KN] kernel 2's key bias
 
-  const int r0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * BM, b = blockIdx.z;
+  int h = blockIdx.y, j = 0;  // head, and the block's chunk of O (kSplit)
+  if constexpr (kSplit) {
+    h = blockIdx.y / nc;
+    j = blockIdx.y - h * nc;
+  }
+  const int D = kSplit ? nc * DH : DH;  // a head's elements in a row of q, k, v, out
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
   int kend = Tk;  // structural frontier of this q tile
   if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + BM));
   const int n_tiles = (kend + KN - 1) / KN;
 
-  const T* kb = k + (long long)b * k_sb + (long long)h * DH;
-  const T* vb = v + (long long)b * v_sb + (long long)h * DH;
+  const T* qb = q + (long long)b * q_sb + (long long)h * D;
+  const T* kb = k + (long long)b * k_sb + (long long)h * D;
+  const T* vb = v + (long long)b * v_sb + (long long)h * D;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
   const float* kvb = (!kBias && kv_bias != nullptr) ? kv_bias + (long long)b * Tk : nullptr;
@@ -169,11 +203,25 @@ __device__ __forceinline__ void attention_fwd_tile(
       }
     }
   };
+  // kSplit: step (it, i) of the ring stages chunk i of q and of key tile it
+  // into stage (it nc + i) & 1, and at i = 0 the tile's V chunk j and bias
+  auto stage_step = [&](int it, int i, int st) {
+    stage_rows<T, DH, BM>(sQ + st * BM * LDT, qb + i * DH, q_st, r0, Tq, vec);
+    stage_rows<T, DH, KN>(sK + st * TILE, kb + i * DH, k_st, it * KN, kend, vec);
+    if (i == 0) {
+      stage_rows<T, DH, KN>(sV + (it & 1) * TILE, vb + j * DH, v_st, it * KN, kend, vec);
+      stage_bias(it & 1, it * KN);
+    }
+  };
   if (!kBias && kvb == nullptr && threadIdx.x < 2 * KN) sB[threadIdx.x] = 0.f;
-  stage_rows<T, DH, BM>(sQ, q + (long long)b * q_sb + (long long)h * DH, q_st, r0, Tq, vec);
-  stage_rows<T, DH, KN>(sK, kb, k_st, 0, kend, vec);
-  stage_rows<T, DH, KN>(sV, vb, v_st, 0, kend, vec);
-  stage_bias(0, 0);
+  if constexpr (kSplit) {
+    stage_step(0, 0, 0);
+  } else {
+    stage_rows<T, DH, BM>(sQ, qb, q_st, r0, Tq, vec);
+    stage_rows<T, DH, KN>(sK, kb, k_st, 0, kend, vec);
+    stage_rows<T, DH, KN>(sV, vb, v_st, 0, kend, vec);
+    stage_bias(0, 0);
+  }
   cp_async_commit();
 
   const int wr = 16 * warp;  // the warp's first row in the tile
@@ -196,16 +244,18 @@ __device__ __forceinline__ void attention_fwd_tile(
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * KN;
-    if (it + 1 < n_tiles) {  // the next K / V tile loads while this one computes
-      stage_rows<T, DH, KN>(sK + ((it + 1) & 1) * TILE, kb, k_st, k0 + KN, kend, vec);
-      stage_rows<T, DH, KN>(sV + ((it + 1) & 1) * TILE, vb, v_st, k0 + KN, kend, vec);
-      stage_bias((it + 1) & 1, k0 + KN);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    if constexpr (!kSplit) {
+      if (it + 1 < n_tiles) {  // the next K / V tile loads while this one computes
+        stage_rows<T, DH, KN>(sK + ((it + 1) & 1) * TILE, kb, k_st, k0 + KN, kend, vec);
+        stage_rows<T, DH, KN>(sV + ((it + 1) & 1) * TILE, vb, v_st, k0 + KN, kend, vec);
+        stage_bias((it + 1) & 1, k0 + KN);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
     }
-    __syncthreads();
     const T* cK = sK + (it & 1) * TILE;
     const T* cV = sV + (it & 1) * TILE;
     const float* cB = sB + (it & 1) * KN;
@@ -228,7 +278,24 @@ __device__ __forceinline__ void attention_fwd_tile(
                                                   : -INFINITY;
         }
     }
-    mma_xyt<T, DH, NT>(s, sQ + wr * LDT, cK, lane);  // S = q k^T
+    if constexpr (kSplit) {
+      for (int i = 0; i < nc; ++i) {  // S = q k^T, chunk by chunk
+        const int st = (it * nc + i) & 1;
+        const int i2 = i + 1 < nc ? i + 1 : 0, it2 = i + 1 < nc ? it : it + 1;
+        if (it2 < n_tiles) {  // the next step loads while this one computes
+          stage_step(it2, i2, st ^ 1);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        mma_xyt<T, DH, NT, true>(s, sQ + st * BM * LDT + wr * LDT, sK + st * TILE, lane);
+        if (i + 1 < nc) __syncthreads();  // the next step's loads overwrite this stage
+      }
+    } else {
+      mma_xyt<T, DH, NT>(s, sQ + wr * LDT, cK, lane);  // S = q k^T
+    }
 
     // scaled scores (-inf where masked) and this tile's row maxima
     float mx_a = -INFINITY, mx_b = -INFINITY;
@@ -313,11 +380,11 @@ __device__ __forceinline__ void attention_fwd_tile(
       const int r = half ? rb : ra;
       if (r >= Tq) continue;
       const float l = half ? l_b : l_a;
-      store2(out + (((long long)b * Tq + r) * H + h) * DH + 8 * n + 2 * t,
+      store2(out + (((long long)b * Tq + r) * H + h) * D + j * DH + 8 * n + 2 * t,
              acc[n][2 * half] / l, acc[n][2 * half + 1] / l);
     }
   }
-  if (lse != nullptr && t == 0) {
+  if (lse != nullptr && t == 0 && j == 0) {
     const long long base = ((long long)b * H + h) * Tq;
     if (ra < Tq) lse[base + ra] = m_a + logf(l_a);
     if (rb < Tq) lse[base + rb] = m_b + logf(l_b);
@@ -349,6 +416,30 @@ __global__ void BOUNDS flash_bias_fwd_kernel(                                   
     float scale, bool vec) {                                                                      \
   attention_fwd_tile<T, DH, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr,    \
                                          bias, out, lse, Tq, Tk, H, -1, scale, Dropout{}, vec);   \
+}                                                                                                 \
+                                                                                                  \
+template <typename T, bool kDrop>                                                                 \
+__global__ void BOUNDS prefix_attention_split_kernel(                                             \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    const float* __restrict__ kv_bias, T* __restrict__ out, float* __restrict__ lse,              \
+    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop, bool vec, int nc) {           \
+  attention_fwd_tile<T, kSplitDh, kDrop, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb,      \
+                                                      v_st, kv_bias, Bias{}, out, lse, Tq, Tk, H, \
+                                                      prefix_s, scale, drop, vec, nc);            \
+}                                                                                                 \
+                                                                                                  \
+template <typename T>                                                                             \
+__global__ void BOUNDS flash_bias_fwd_split_kernel(                                               \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    Bias bias, T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H,               \
+    float scale, bool vec, int nc) {                                                              \
+  attention_fwd_tile<T, kSplitDh, false, true, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, \
+                                                     nullptr, bias, out, lse, Tq, Tk, H, -1,      \
+                                                     scale, Dropout{}, vec, nc);                  \
 }
 
 namespace fit4 {
@@ -362,22 +453,33 @@ FWD_KERNELS(__launch_bounds__(kMmaThreads))
 }  // namespace any_regs
 #undef FWD_KERNELS
 
-// Kernel 2.
-template <typename T, int DH, bool kDrop>
+// Kernel 2 (kSplit: the split instantiation, DH = kSplitDh).
+template <typename T, int DH, bool kDrop, bool kSplit>
 auto prefix_kernel() {
   constexpr int c = fwd_bounds_class<T, DH>();
-  if constexpr (c == 4) return fit4::prefix_attention_kernel<T, DH, kDrop>;
+  if constexpr (kSplit) {
+    static_assert(c == 2, "the split forward takes Dh 128's launch bounds");
+    return fit2::prefix_attention_split_kernel<T, kDrop>;
+  } else if constexpr (c == 4) return fit4::prefix_attention_kernel<T, DH, kDrop>;
   else if constexpr (c == 2) return fit2::prefix_attention_kernel<T, DH, kDrop>;
   else return any_regs::prefix_attention_kernel<T, DH, kDrop>;
 }
 
 // Kernel 4.
-template <typename T, int DH>
+template <typename T, int DH, bool kSplit>
 auto bias_kernel() {
   constexpr int c = fwd_bounds_class<T, DH>();
-  if constexpr (c == 4) return fit4::flash_bias_fwd_kernel<T, DH>;
+  if constexpr (kSplit) {
+    static_assert(c == 2, "the split forward takes Dh 128's launch bounds");
+    return fit2::flash_bias_fwd_split_kernel<T>;
+  } else if constexpr (c == 4) return fit4::flash_bias_fwd_kernel<T, DH>;
   else if constexpr (c == 2) return fit2::flash_bias_fwd_kernel<T, DH>;
   else return any_regs::flash_bias_fwd_kernel<T, DH>;
+}
+
+// The grid of a forward launch: (q tiles, H heads x nc chunks, B).
+inline dim3 fwd_grid(int B, int Tq, int H, int nc) {
+  return dim3((Tq + BM - 1) / BM, H * nc, B);
 }
 
 // Whether q, k and v can be staged with 16-byte cp.async.
@@ -395,14 +497,24 @@ cudaError_t launch_prefix(int Dh, const void* q, long long q_sb, long long q_st,
                           int Tq, int Tk, int H, int prefix_s, Dropout drop, float scale,
                           cudaStream_t stream) {
   const bool vec = qkv_aligned<T>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st);
-  return dispatch_dh(Dh, [&](auto dh) {
+  return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
-    auto kern = prefix_kernel<T, DH, true>();
-    if (drop.threshold == 0) kern = prefix_kernel<T, DH, false>();
-    return launch_pass(kern, dim3((Tq + BM - 1) / BM, H, B), fwd_smem_bytes<T, DH>(), stream,
-                       static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k), k_sb,
-                       k_st, static_cast<const T*>(v), v_sb, v_st, kv_bias,
-                       static_cast<T*>(out), lse, Tq, Tk, H, prefix_s, scale, drop, vec);
+    constexpr bool kSplit = decltype(split)::value;
+    auto kern = prefix_kernel<T, DH, true, kSplit>();
+    if (drop.threshold == 0) kern = prefix_kernel<T, DH, false, kSplit>();
+    const size_t smem = fwd_smem_bytes<T, DH, kSplit>();
+    const dim3 grid = fwd_grid(B, Tq, H, nc);
+    const T* tq = static_cast<const T*>(q);
+    const T* tk = static_cast<const T*>(k);
+    const T* tv = static_cast<const T*>(v);
+    if constexpr (kSplit)
+      return launch_pass(kern, grid, smem, stream, tq, q_sb, q_st, tk, k_sb, k_st, tv, v_sb, v_st,
+                         kv_bias, static_cast<T*>(out), lse, Tq, Tk, H, prefix_s, scale, drop,
+                         vec, nc);
+    else
+      return launch_pass(kern, grid, smem, stream, tq, q_sb, q_st, tk, k_sb, k_st, tv, v_sb, v_st,
+                         kv_bias, static_cast<T*>(out), lse, Tq, Tk, H, prefix_s, scale, drop,
+                         vec);
   });
 }
 
@@ -412,13 +524,21 @@ cudaError_t launch_bias(int Dh, const void* q, long long q_sb, long long q_st, c
                         long long v_st, Bias bias, void* out, float* lse, int B, int Tq, int Tk,
                         int H, float scale, cudaStream_t stream) {
   const bool vec = qkv_aligned<T>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st);
-  return dispatch_dh(Dh, [&](auto dh) {
+  return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
-    auto kern = bias_kernel<T, DH>();
-    return launch_pass(kern, dim3((Tq + BM - 1) / BM, H, B), fwd_smem_bytes<T, DH>(), stream,
-                       static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k), k_sb,
-                       k_st, static_cast<const T*>(v), v_sb, v_st, bias, static_cast<T*>(out),
-                       lse, Tq, Tk, H, scale, vec);
+    constexpr bool kSplit = decltype(split)::value;
+    auto kern = bias_kernel<T, DH, kSplit>();
+    const size_t smem = fwd_smem_bytes<T, DH, kSplit>();
+    const dim3 grid = fwd_grid(B, Tq, H, nc);
+    const T* tq = static_cast<const T*>(q);
+    const T* tk = static_cast<const T*>(k);
+    const T* tv = static_cast<const T*>(v);
+    if constexpr (kSplit)
+      return launch_pass(kern, grid, smem, stream, tq, q_sb, q_st, tk, k_sb, k_st, tv, v_sb, v_st,
+                         bias, static_cast<T*>(out), lse, Tq, Tk, H, scale, vec, nc);
+    else
+      return launch_pass(kern, grid, smem, stream, tq, q_sb, q_st, tk, k_sb, k_st, tv, v_sb, v_st,
+                         bias, static_cast<T*>(out), lse, Tq, Tk, H, scale, vec);
   });
 }
 

@@ -84,6 +84,29 @@
 //      see it (prefix mode: rows >= c0 for a key tile at c0 >= prefix_s).
 //      P is recomputed in both passes.  S no longer follows the forward's
 //      FMA order, so P agrees with the forward's to f32 rounding.
+//   6. Head dims above 128 (the split instantiations, *_split_kernel), as in
+//      the forward (prefix_attention.cu, point 7): at Dh 256 the dK/dV
+//      pass's dK and dV accumulators alone would take 256 registers per
+//      thread, over the 255 a thread may hold, and whole-row tiles take 200
+//      KB of shared memory in f32 at Dh 256 and 396 KB at Dh 512.  dQ, dK
+//      and dV are separable over Dh, S and dP are not: a grid dimension
+//      takes the nc = Dh / 128 chunks (the wrapper zero-pads Dh to a
+//      multiple of 128), each block keeps Dh 128's accumulators and launch
+//      bounds, and every streamed tile takes nc steps of the ring, step i
+//      staging chunk i of both the block's own tiles (q and dO, or K and V,
+//      now two stages) and the streamed ones and adding its part of S and
+//      dP.  The tile's first step also stages the block's own chunk of the
+//      second products' operand (K for dQ; q and dO for dK / dV).  The
+//      dK/dV pass streams q tiles of dkv_rows() rows so that S^T and dP^T
+//      stay whole across the steps.  In f32 its chunk is 64 columns
+//      (dkv_split_dh(): at 128, dK and dV's 128 accumulator registers
+//      beside the ring's staging spilled), so its nc is Dh / 64 and its
+//      tiles are Dh 64's (16 q rows).  Shared memory: 185.9 / 104.7 KB (dQ /
+//      dK-dV) in f32, 95.7 / 104.7 KB in bf16, at any Dh.  S and dP's
+//      products run nc times: (2 nc + 1) / 3 of the dQ pass's operations
+//      and (2 nc + 2) / 4 of the dK/dV pass's (nc of 64 columns in f32).
+//      Only chunk 0 writes kernel 4's d(bias); every chunk sums S and dP in
+//      the same order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -136,17 +159,44 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(
   }
 }
 
+// q rows of a streamed tile whose S^T / dP^T a warp of the dK/dV pass holds
+// at once (f32 at Dh = 128: 8, or it spills).
+template <typename T, int DH>
+__host__ __device__ constexpr int dkv_rows() {
+  return DH <= 64 ? BN : (kF32<T> ? 8 : 16);
+}
+
+// The head-dim chunk of the split dK/dV pass: kSplitDh, or 64 in f32, where
+// Dh 128's dK and dV accumulators (128 registers a thread) beside the split's
+// staging spilled 36-60 bytes under ptxas's 255-register cap (measured with
+// the staging inlined at two call sites; untried since).
+template <typename T>
+__host__ __device__ constexpr int dkv_split_dh() {
+  return kF32<T> ? 64 : kSplitDh;
+}
+
 // Shared memory of either pass: four tiles (two stages of the streamed pair)
 // plus the two that stay, and the dK/dV pass's two stages of LSE and delta.
-template <typename T, int DH>
+// A split instantiation (DH = kSplitDh) has two stages of the two tiles that
+// stay, and two stages of the block's own chunk of the streamed operands of
+// its second products (K for dQ; q and dO for dK / dV), whose tiles are
+// dkv_rows() rows in the dK/dV pass.
+template <typename T, int DH, bool kSplit = false, bool kDq = true>
 constexpr size_t bwd_smem_bytes() {
-  return (2 * BM + 4 * BN) * (size_t)row_stride<T, DH>() * sizeof(T) + 4 * BN * sizeof(float);
+  constexpr size_t row = (size_t)row_stride<T, DH>() * sizeof(T);
+  if constexpr (!kSplit) return (2 * BM + 4 * BN) * row + 4 * BN * sizeof(float);
+  if constexpr (kDq) return (4 * BM + 6 * BN) * row;
+  return (4 * BM + 8 * dkv_rows<T, DH>()) * row + 4 * dkv_rows<T, DH>() * sizeof(float);
 }
 
 // The dQ pass of one (64-row q tile, head, batch).  kBias: kernel 4 (dense
 // bias, no structural mask, writes d(bias) when dbias is not null);
-// otherwise kernel 3.
-template <typename T, int DH, bool kDrop, bool kBias>
+// otherwise kernel 3.  kSplit: the head dim is nc chunks of DH (=
+// kSplitDh), blockIdx.y is h * nc + j and the block writes dQ's chunk j
+// (chunk 0 also d(bias)); each key tile takes nc steps of the ring, step i
+// staging chunk i of q, dO, K and V and adding its part of S and dP, the
+// first step also the tile's K chunk j for dQ += dS K.
+template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false>
 __device__ __forceinline__ void attn_bwd_dq_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
     const T* __restrict__ k, long long k_sb, long long k_st,
@@ -154,17 +204,25 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
     const float* __restrict__ kv_bias, Bias bias, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
     float* __restrict__ dbias, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
-    bool vec) {
+    bool vec, int nc = 1) {
   static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
   constexpr int LDT = row_stride<T, DH>(), TILE = BN * LDT;
   constexpr int NT = BN / 8, DT = DH / 8;  // n8 tiles of a key tile, of Dh
+  constexpr int S = kSplit ? 2 : 1;        // stages of the q and dO tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BM][LDT]
-  T* sDO = sQ + BM * LDT;                  // [BM][LDT]
-  T* sK = sDO + BM * LDT;                  // [2][BN][LDT]
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [S][BM][LDT]
+  T* sDO = sQ + S * BM * LDT;              // [S][BM][LDT]
+  T* sK = sDO + S * BM * LDT;              // [2][BN][LDT]
   T* sV = sK + 2 * TILE;                   // [2][BN][LDT]
+  T* sKj = sV + 2 * TILE;                  // kSplit: [2][BN][LDT], K's chunk j
 
-  const int r0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * BM, b = blockIdx.z;
+  int h = blockIdx.y, j = 0;  // head, and the block's chunk of dQ (kSplit)
+  if constexpr (kSplit) {
+    h = blockIdx.y / nc;
+    j = blockIdx.y - h * nc;
+  }
+  const int D = kSplit ? nc * DH : DH;  // a head's elements in a row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
   const long long bh4 = (long long)b * H + h;
@@ -172,15 +230,29 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
   if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + BM));
   const int n_tiles = (kend + BN - 1) / BN;
 
-  const T* kb = k + (long long)b * k_sb + (long long)h * DH;
-  const T* vb = v + (long long)b * v_sb + (long long)h * DH;
+  const T* qb = q + (long long)b * q_sb + (long long)h * D;
+  const T* dob = dout + (long long)b * Tq * H * D + (long long)h * D;
+  const T* kb = k + (long long)b * k_sb + (long long)h * D;
+  const T* vb = v + (long long)b * v_sb + (long long)h * D;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
-  stage_rows<T, DH, BM>(sQ, q + (long long)b * q_sb + (long long)h * DH, q_st, r0, Tq, vec);
-  stage_rows<T, DH, BM>(sDO, dout + (long long)b * Tq * H * DH + (long long)h * DH,
-                        (long long)H * DH, r0, Tq, vec);
-  stage_rows<T, DH, BN>(sK, kb, k_st, 0, kend, vec);
-  stage_rows<T, DH, BN>(sV, vb, v_st, 0, kend, vec);
+  // kSplit: step (it, i) stages chunk i of the q, dO, K and V tiles into
+  // stage (it nc + i) & 1, and at i = 0 K's chunk j of key tile it
+  auto stage_step = [&](int it, int i, int st) {
+    stage_rows<T, DH, BM>(sQ + st * BM * LDT, qb + i * DH, q_st, r0, Tq, vec);
+    stage_rows<T, DH, BM>(sDO + st * BM * LDT, dob + i * DH, (long long)H * D, r0, Tq, vec);
+    stage_rows<T, DH, BN>(sK + st * TILE, kb + i * DH, k_st, it * BN, kend, vec);
+    stage_rows<T, DH, BN>(sV + st * TILE, vb + i * DH, v_st, it * BN, kend, vec);
+    if (i == 0) stage_rows<T, DH, BN>(sKj + (it & 1) * TILE, kb + j * DH, k_st, it * BN, kend, vec);
+  };
+  if constexpr (kSplit) {
+    stage_step(0, 0, 0);
+  } else {
+    stage_rows<T, DH, BM>(sQ, qb, q_st, r0, Tq, vec);
+    stage_rows<T, DH, BM>(sDO, dob, (long long)H * DH, r0, Tq, vec);
+    stage_rows<T, DH, BN>(sK, kb, k_st, 0, kend, vec);
+    stage_rows<T, DH, BN>(sV, vb, v_st, 0, kend, vec);
+  }
   cp_async_commit();
 
   const int wr = 16 * warp;  // the warp's first row in the tile
@@ -198,16 +270,18 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BN;
-    if (it + 1 < n_tiles) {  // the next K / V tile loads while this one computes
-      stage_rows<T, DH, BN>(sK + ((it + 1) & 1) * TILE, kb, k_st, k0 + BN, kend, vec);
-      stage_rows<T, DH, BN>(sV + ((it + 1) & 1) * TILE, vb, v_st, k0 + BN, kend, vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    if constexpr (!kSplit) {
+      if (it + 1 < n_tiles) {  // the next K / V tile loads while this one computes
+        stage_rows<T, DH, BN>(sK + ((it + 1) & 1) * TILE, kb, k_st, k0 + BN, kend, vec);
+        stage_rows<T, DH, BN>(sV + ((it + 1) & 1) * TILE, vb, v_st, k0 + BN, kend, vec);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    const T* cK = sK + (it & 1) * TILE;
+    const T* cK = (kSplit ? sKj : sK) + (it & 1) * TILE;  // the K of dQ += dS K
     const T* cV = sV + (it & 1) * TILE;
 
     {
@@ -226,8 +300,26 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
           for (int e = 0; e < 4; ++e)
             add[n][e] = bias_at(bb, bias, e < 2 ? ra : rb, k0 + 8 * n + 2 * t + (e & 1), Tq, Tk);
       }
-      mma_xyt<T, DH, NT>(s, sQ + wr * LDT, cK, lane);   // S = q k^T
-      mma_xyt<T, DH, NT>(dp, sDO + wr * LDT, cV, lane); // dPd = dO v^T
+      if constexpr (kSplit) {
+        for (int i = 0; i < nc; ++i) {  // S = q k^T and dPd = dO v^T, chunk by chunk
+          const int st = (it * nc + i) & 1;
+          const int i2 = i + 1 < nc ? i + 1 : 0, it2 = i + 1 < nc ? it : it + 1;
+          if (it2 < n_tiles) {  // the next step loads while this one computes
+            stage_step(it2, i2, st ^ 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+          mma_xyt<T, DH, NT, true>(s, sQ + st * BM * LDT + wr * LDT, sK + st * TILE, lane);
+          mma_xyt<T, DH, NT, true>(dp, sDO + st * BM * LDT + wr * LDT, sV + st * TILE, lane);
+          if (i + 1 < nc) __syncthreads();  // the next step's loads overwrite this stage
+        }
+      } else {
+        mma_xyt<T, DH, NT>(s, sQ + wr * LDT, cK, lane);   // S = q k^T
+        mma_xyt<T, DH, NT>(dp, sDO + wr * LDT, cV, lane); // dPd = dO v^T
+      }
 
       // element pass: s becomes dS, rounded like T
 #pragma unroll
@@ -251,7 +343,8 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
             const float x = (s[n][e] + add[n][e]) * scale;
             const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
             ds = (dp[n][e] - dl) * p * scale;
-            if (dbias != nullptr && r < Tq && c < Tk) dbias[(bh4 * Tq + r) * Tk + c] = ds;
+            if (dbias != nullptr && j == 0 && r < Tq && c < Tk)
+              dbias[(bh4 * Tq + r) * Tk + c] = ds;
           } else {
             const float kvb = (kv_bias != nullptr && c < Tk) ? kv_bias[(long long)b * Tk + c] : 0.f;
             const float x =
@@ -280,7 +373,7 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
     for (int half = 0; half < 2; ++half) {
       const int r = half ? rb : ra;
       if (r >= Tq) continue;
-      T* o = dq + (((long long)b * Tq + r) * H + h) * DH + 8 * n + 2 * t;
+      T* o = dq + (((long long)b * Tq + r) * H + h) * D + j * DH + 8 * n + 2 * t;
       from_float(acc[n][2 * half] * post, &o[0]);
       from_float(acc[n][2 * half + 1] * post, &o[1]);
     }
@@ -289,8 +382,11 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
 
 // The dK/dV pass of one (64-column key tile, head, batch); kBias as in
 // attn_bwd_dq_tile.  A warp owns 16 key columns and computes S^T and dP^T
-// for them against NR q rows at a time.
-template <typename T, int DH, bool kDrop, bool kBias>
+// for them against NR q rows at a time.  kSplit: as in attn_bwd_dq_tile,
+// the block writes chunk j of dK and dV; the streamed q tiles are NR rows,
+// each taking nc steps of the ring (chunk i of K, V, q and dO; at i = 0
+// also chunk j of the tile's q and dO, and its LSE and delta).
+template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false>
 __device__ __forceinline__ void attn_bwd_dkv_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
     const T* __restrict__ k, long long k_sb, long long k_st,
@@ -298,51 +394,81 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
     const float* __restrict__ kv_bias, Bias bias, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
     T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
-    bool vec) {
+    bool vec, int nc = 1) {
   static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
-  constexpr int LDT = row_stride<T, DH>(), TILE = BN * LDT;
-  // q rows whose S^T / dP^T a warp holds at once (f32 at Dh = 128: 8, or it spills)
-  constexpr int NR = DH <= 64 ? BN : (kF32<T> ? 8 : 16);
+  constexpr int NR = dkv_rows<T, DH>();
+  constexpr int TR = kSplit ? NR : BN;  // rows of a streamed q tile
+  constexpr int LDT = row_stride<T, DH>(), TILE = TR * LDT;
   constexpr int RT = NR / 8, DT = DH / 8;
+  constexpr int S = kSplit ? 2 : 1;  // stages of the K and V tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);  // [BM][LDT]
-  T* sV = sK + BM * LDT;                   // [BM][LDT]
-  T* sQ = sV + BM * LDT;                   // [2][BN][LDT]
-  T* sDO = sQ + 2 * TILE;                  // [2][BN][LDT]
-  float* sL = reinterpret_cast<float*>(sDO + 2 * TILE);  // [2][BN] lse
-  float* sDl = sL + 2 * BN;                               // [2][BN] delta
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [S][BM][LDT]
+  T* sV = sK + S * BM * LDT;               // [S][BM][LDT]
+  T* sQ = sV + S * BM * LDT;               // [2][TR][LDT]
+  T* sDO = sQ + 2 * TILE;                  // [2][TR][LDT]
+  T* sQj = sDO + 2 * TILE;                 // kSplit: [2][TR][LDT], q's chunk j
+  T* sDOj = sQj + (kSplit ? 2 : 0) * TILE; // kSplit: [2][TR][LDT], dO's chunk j
+  float* sL = reinterpret_cast<float*>(sDOj + (kSplit ? 2 : 0) * TILE);  // [2][TR] lse
+  float* sDl = sL + 2 * TR;                                              // [2][TR] delta
 
-  const int c0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = blockIdx.x * BM, b = blockIdx.z;
+  int h = blockIdx.y, j = 0;  // head, and the block's chunk of dK and dV (kSplit)
+  if constexpr (kSplit) {
+    h = blockIdx.y / nc;
+    j = blockIdx.y - h * nc;
+  }
+  const int D = kSplit ? nc * DH : DH;  // a head's elements in a row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
   const long long bh4 = (long long)b * H + h;
-  const T* qb = q + (long long)b * q_sb + (long long)h * DH;
-  const T* dob = dout + (long long)b * Tq * H * DH + (long long)h * DH;
+  const T* qb = q + (long long)b * q_sb + (long long)h * D;
+  const T* dob = dout + (long long)b * Tq * H * D + (long long)h * D;
+  const T* kb = k + (long long)b * k_sb + (long long)h * D;
+  const T* vb = v + (long long)b * v_sb + (long long)h * D;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
 
   // In prefix mode rows < c0 see no column of this tile unless c0 < prefix_s.
   const int rstart = (!kBias && prefix_s >= 0 && c0 >= prefix_s) ? c0 : 0;
-  const int n_tiles = (Tq - rstart + BN - 1) / BN;
+  const int n_tiles = (Tq - rstart + TR - 1) / TR;
 
-  // LSE and delta of rows [r0, r0 + BN) into stage `st` (zero past Tq).
+  // LSE and delta of rows [r0, r0 + TR) into stage `st` (zero past Tq).
   auto stage_rowstats = [&](int st, int r0) {
-    if (threadIdx.x >= 2 * BN) return;
-    const int i = threadIdx.x % BN, r = r0 + i;
+    if (threadIdx.x >= 2 * TR) return;
+    const int i = threadIdx.x % TR, r = r0 + i;
     const bool ok = r < Tq;
-    const float* src = threadIdx.x < BN ? lse : delta;
-    float* dst = (threadIdx.x < BN ? sL : sDl) + st * BN + i;
+    const float* src = threadIdx.x < TR ? lse : delta;
+    float* dst = (threadIdx.x < TR ? sL : sDl) + st * TR + i;
     if (vec)
       cp_async4(dst, ok ? src + bh4 * Tq + r : src, ok);
     else
       *dst = ok ? src[bh4 * Tq + r] : 0.f;
   };
+  // kSplit: step (it, i) stages chunk i of the K, V, q and dO tiles into
+  // stage (it nc + i) & 1, and at i = 0 q and dO's chunk j of q tile it and
+  // its LSE and delta
+  auto stage_step = [&](int it, int i, int st) {
+    const int r0 = rstart + it * TR;
+    stage_rows<T, DH, BM>(sK + st * BM * LDT, kb + i * DH, k_st, c0, Tk, vec);
+    stage_rows<T, DH, BM>(sV + st * BM * LDT, vb + i * DH, v_st, c0, Tk, vec);
+    stage_rows<T, DH, TR>(sQ + st * TILE, qb + i * DH, q_st, r0, Tq, vec);
+    stage_rows<T, DH, TR>(sDO + st * TILE, dob + i * DH, (long long)H * D, r0, Tq, vec);
+    if (i == 0) {
+      stage_rows<T, DH, TR>(sQj + (it & 1) * TILE, qb + j * DH, q_st, r0, Tq, vec);
+      stage_rows<T, DH, TR>(sDOj + (it & 1) * TILE, dob + j * DH, (long long)H * D, r0, Tq, vec);
+      stage_rowstats(it & 1, r0);
+    }
+  };
 
-  stage_rows<T, DH, BM>(sK, k + (long long)b * k_sb + (long long)h * DH, k_st, c0, Tk, vec);
-  stage_rows<T, DH, BM>(sV, v + (long long)b * v_sb + (long long)h * DH, v_st, c0, Tk, vec);
-  stage_rows<T, DH, BN>(sQ, qb, q_st, rstart, Tq, vec);
-  stage_rows<T, DH, BN>(sDO, dob, (long long)H * DH, rstart, Tq, vec);
-  stage_rowstats(0, rstart);
+  if constexpr (kSplit) {
+    stage_step(0, 0, 0);
+  } else {
+    stage_rows<T, DH, BM>(sK, kb, k_st, c0, Tk, vec);
+    stage_rows<T, DH, BM>(sV, vb, v_st, c0, Tk, vec);
+    stage_rows<T, DH, BN>(sQ, qb, q_st, rstart, Tq, vec);
+    stage_rows<T, DH, BN>(sDO, dob, (long long)H * DH, rstart, Tq, vec);
+    stage_rowstats(0, rstart);
+  }
   cp_async_commit();
 
   const int wc = 16 * warp;  // the warp's first column in the tile
@@ -362,24 +488,27 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int r0 = rstart + it * BN, st = it & 1;
-    if (it + 1 < n_tiles) {  // the next q tile loads while this one computes
-      stage_rows<T, DH, BN>(sQ + (st ^ 1) * TILE, qb, q_st, r0 + BN, Tq, vec);
-      stage_rows<T, DH, BN>(sDO + (st ^ 1) * TILE, dob, (long long)H * DH, r0 + BN, Tq, vec);
-      stage_rowstats(st ^ 1, r0 + BN);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int r0 = rstart + it * TR, st = it & 1;
+    if constexpr (!kSplit) {
+      if (it + 1 < n_tiles) {  // the next q tile loads while this one computes
+        stage_rows<T, DH, BN>(sQ + (st ^ 1) * TILE, qb, q_st, r0 + BN, Tq, vec);
+        stage_rows<T, DH, BN>(sDO + (st ^ 1) * TILE, dob, (long long)H * DH, r0 + BN, Tq, vec);
+        stage_rowstats(st ^ 1, r0 + BN);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    const T* cQ = sQ + st * TILE;
-    const T* cDO = sDO + st * TILE;
-    const float* cL = sL + st * BN;
-    const float* cDl = sDl + st * BN;
+    // the q and dO of dV += Pd^T dO and dK += dS^T q
+    const T* cQ = (kSplit ? sQj : sQ) + st * TILE;
+    const T* cDO = (kSplit ? sDOj : sDO) + st * TILE;
+    const float* cL = sL + st * TR;
+    const float* cDl = sDl + st * TR;
 
 #pragma unroll 1
-    for (int rc = 0; rc < BN && r0 + rc < Tq; rc += NR) {
+    for (int rc = 0; rc < TR && r0 + rc < Tq; rc += NR) {
       float s[RT][4], dp[RT][4];
 #pragma unroll
       for (int n = 0; n < RT; ++n)
@@ -416,8 +545,26 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
           else
             add[n][e] = visible(r, c, Tq, Tk, prefix_s) ? (e < 2 ? kvb_a : kvb_b) : -INFINITY;
         }
-      mma_xyt<T, DH, RT>(s, sK + wc * LDT, cQ + rc * LDT, lane);   // S^T = k q^T
-      mma_xyt<T, DH, RT>(dp, sV + wc * LDT, cDO + rc * LDT, lane); // dPd^T = v dO^T
+      if constexpr (kSplit) {
+        for (int i = 0; i < nc; ++i) {  // S^T = k q^T and dPd^T = v dO^T, chunk by chunk
+          const int ss = (it * nc + i) & 1;
+          const int i2 = i + 1 < nc ? i + 1 : 0, it2 = i + 1 < nc ? it : it + 1;
+          if (it2 < n_tiles) {  // the next step loads while this one computes
+            stage_step(it2, i2, ss ^ 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+          mma_xyt<T, DH, RT, true>(s, sK + ss * BM * LDT + wc * LDT, sQ + ss * TILE, lane);
+          mma_xyt<T, DH, RT, true>(dp, sV + ss * BM * LDT + wc * LDT, sDO + ss * TILE, lane);
+          if (i + 1 < nc) __syncthreads();  // the next step's loads overwrite this stage
+        }
+      } else {
+        mma_xyt<T, DH, RT>(s, sK + wc * LDT, cQ + rc * LDT, lane);   // S^T = k q^T
+        mma_xyt<T, DH, RT>(dp, sV + wc * LDT, cDO + rc * LDT, lane); // dPd^T = v dO^T
+      }
 
       // element pass: s becomes Pd^T and dp becomes dS^T, rounded like T
 #pragma unroll
@@ -462,7 +609,7 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
     for (int half = 0; half < 2; ++half) {
       const int c = half ? cb : ca;
       if (c >= Tk) continue;
-      const long long off = (((long long)b * Tk + c) * H + h) * DH + 8 * n + 2 * t;
+      const long long off = (((long long)b * Tk + c) * H + h) * D + j * DH + 8 * n + 2 * t;
       from_float(acc_k[n][2 * half] * post, &dk[off]);
       from_float(acc_k[n][2 * half + 1] * post, &dk[off + 1]);
       from_float(acc_v[n][2 * half], &dv[off]);
@@ -527,6 +674,62 @@ __global__ void BOUNDS flash_bias_bwd_dkv_kernel(                               
                                         bias, dout, lse, delta, dk, dv, Tq, Tk, H, -1, scale,     \
                                         Dropout{}, vec);                                          \
 }                                                                                                 \
+                                                                                                  \
+template <typename T, bool kDrop>                                                                 \
+__global__ void BOUNDS attn_bwd_dq_split_kernel(                                                  \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,                                \
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,           \
+    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop, bool vec, int nc) {           \
+  attn_bwd_dq_tile<T, kSplitDh, kDrop, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,  \
+                                                    kv_bias, Bias{}, dout, lse, delta, dq,        \
+                                                    nullptr, Tq, Tk, H, prefix_s, scale, drop,    \
+                                                    vec, nc);                                     \
+}                                                                                                 \
+                                                                                                  \
+template <typename T, bool kDrop>                                                                 \
+__global__ void BOUNDS attn_bwd_dkv_split_kernel(                                                 \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,                                \
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,           \
+    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,           \
+    bool vec, int nc) {                                                                           \
+  attn_bwd_dkv_tile<T, dkv_split_dh<T>(), kDrop, false, true>(q, q_sb, q_st, k, k_sb, k_st, v,    \
+                                                              v_sb, v_st, kv_bias, Bias{}, dout,  \
+                                                              lse, delta, dk, dv, Tq, Tk, H,      \
+                                                              prefix_s, scale, drop, vec, nc);    \
+}                                                                                                 \
+                                                                                                  \
+template <typename T>                                                                             \
+__global__ void BOUNDS flash_bias_bwd_dq_split_kernel(                                            \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,                         \
+    const float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ dbias,               \
+    int Tq, int Tk, int H, float scale, bool vec, int nc) {                                       \
+  attn_bwd_dq_tile<T, kSplitDh, false, true, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,   \
+                                                   nullptr, bias, dout, lse, delta, dq, dbias,    \
+                                                   Tq, Tk, H, -1, scale, Dropout{}, vec, nc);     \
+}                                                                                                 \
+                                                                                                  \
+template <typename T>                                                                             \
+__global__ void BOUNDS flash_bias_bwd_dkv_split_kernel(                                           \
+    const T* __restrict__ q, long long q_sb, long long q_st,                                      \
+    const T* __restrict__ k, long long k_sb, long long k_st,                                      \
+    const T* __restrict__ v, long long v_sb, long long v_st,                                      \
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,                         \
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk,      \
+    int H, float scale, bool vec, int nc) {                                                       \
+  attn_bwd_dkv_tile<T, dkv_split_dh<T>(), false, true, true>(q, q_sb, q_st, k, k_sb, k_st, v,     \
+                                                             v_sb, v_st, nullptr, bias, dout, lse, \
+                                                             delta, dk, dv, Tq, Tk, H, -1, scale,  \
+                                                             Dropout{}, vec, nc);                  \
+}                                                                                                 \
                                                                                                   
 namespace fit4 {
 BWD_PASS_KERNELS(__launch_bounds__(kMmaThreads, 4))
@@ -539,34 +742,46 @@ BWD_PASS_KERNELS(__launch_bounds__(kMmaThreads))
 }  // namespace any_regs
 #undef BWD_PASS_KERNELS
 
-template <typename T, int DH, bool kDrop>
+// The kernel of each pass (kSplit: the split instantiation, DH = kSplitDh,
+// or dkv_split_dh() for the dK/dV pass, under Dh 128's launch bounds).
+template <typename T, int DH, bool kDrop, bool kSplit>
 auto dq_kernel() {
   constexpr int c = bounds_class<T, DH, kDrop, false, true>();
-  if constexpr (c == 4) return fit4::attn_bwd_dq_kernel<T, DH, kDrop>;
+  if constexpr (kSplit) {
+    static_assert(c == 1, "the split passes take Dh 128's launch bounds");
+    return fit1::attn_bwd_dq_split_kernel<T, kDrop>;
+  } else if constexpr (c == 4) return fit4::attn_bwd_dq_kernel<T, DH, kDrop>;
   else if constexpr (c == 1) return fit1::attn_bwd_dq_kernel<T, DH, kDrop>;
   else return any_regs::attn_bwd_dq_kernel<T, DH, kDrop>;
 }
 
-template <typename T, int DH, bool kDrop>
+template <typename T, int DH, bool kDrop, bool kSplit>
 auto dkv_kernel() {
   constexpr int c = bounds_class<T, DH, kDrop, false, false>();
-  if constexpr (c == 4) return fit4::attn_bwd_dkv_kernel<T, DH, kDrop>;
+  if constexpr (kSplit) {
+    return fit1::attn_bwd_dkv_split_kernel<T, kDrop>;
+  } else if constexpr (c == 4) return fit4::attn_bwd_dkv_kernel<T, DH, kDrop>;
   else if constexpr (c == 1) return fit1::attn_bwd_dkv_kernel<T, DH, kDrop>;
   else return any_regs::attn_bwd_dkv_kernel<T, DH, kDrop>;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kSplit>
 auto bias_dq_kernel() {
   constexpr int c = bounds_class<T, DH, false, true, true>();
-  if constexpr (c == 4) return fit4::flash_bias_bwd_dq_kernel<T, DH>;
+  if constexpr (kSplit) {
+    static_assert(c == 1, "the split passes take Dh 128's launch bounds");
+    return fit1::flash_bias_bwd_dq_split_kernel<T>;
+  } else if constexpr (c == 4) return fit4::flash_bias_bwd_dq_kernel<T, DH>;
   else if constexpr (c == 1) return fit1::flash_bias_bwd_dq_kernel<T, DH>;
   else return any_regs::flash_bias_bwd_dq_kernel<T, DH>;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kSplit>
 auto bias_dkv_kernel() {
   constexpr int c = bounds_class<T, DH, false, true, false>();
-  if constexpr (c == 4) return fit4::flash_bias_bwd_dkv_kernel<T, DH>;
+  if constexpr (kSplit) {
+    return fit1::flash_bias_bwd_dkv_split_kernel<T>;
+  } else if constexpr (c == 4) return fit4::flash_bias_bwd_dkv_kernel<T, DH>;
   else if constexpr (c == 1) return fit1::flash_bias_bwd_dkv_kernel<T, DH>;
   else return any_regs::flash_bias_bwd_dkv_kernel<T, DH>;
 }
@@ -584,12 +799,26 @@ struct Args {
   int B, Tq, Tk, H, prefix_s;
 };
 
+// Launch one pass, with nc appended to the arguments of a split kernel.
+template <bool kSplit, typename K, typename... A>
+cudaError_t launch_split_pass(K kern, dim3 grid, size_t smem, cudaStream_t stream, int nc,
+                              A... args) {
+  if constexpr (kSplit)
+    return launch_pass(kern, grid, smem, stream, args..., nc);
+  else
+    return launch_pass(kern, grid, smem, stream, args...);
+}
+
 // The three passes of kernel 4 (kBias) or kernel 3.
 template <typename T, bool kBias>
 cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, float scale, cudaStream_t stream) {
-  return dispatch_dh(Dh, [&](auto dh) {
+  return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
-    const size_t smem = bwd_smem_bytes<T, DH>();
+    constexpr bool kSplit = decltype(split)::value;
+    constexpr int DKV = kSplit ? dkv_split_dh<T>() : DH;  // the dK/dV pass's chunk
+    const int nc_dkv = nc * DH / DKV;
+    const size_t smem_dq = bwd_smem_bytes<T, DH, kSplit, true>();
+    const size_t smem_dkv = bwd_smem_bytes<T, DKV, kSplit, false>();
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
@@ -597,42 +826,44 @@ cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, float scale, cudaStr
     T* dq = static_cast<T*>(a.dq);
     T* dk = static_cast<T*>(a.dk);
     T* dv = static_cast<T*>(a.dv);
-    const dim3 gq((a.Tq + BM - 1) / BM, a.H, a.B), gk((a.Tk + BM - 1) / BM, a.H, a.B);
+    const dim3 gq((a.Tq + BM - 1) / BM, a.H * nc, a.B);
+    const dim3 gk((a.Tk + BM - 1) / BM, a.H * nc_dkv, a.B);
     const size_t es = sizeof(T);
     const bool vec = rows_aligned(q, a.q_sb, a.q_st, es) && rows_aligned(k, a.k_sb, a.k_st, es) &&
                      rows_aligned(v, a.v_sb, a.v_st, es) &&
-                     rows_aligned(dout, (long long)a.Tq * a.H * DH, (long long)a.H * DH, es);
+                     rows_aligned(dout, (long long)a.Tq * a.H * Dh, (long long)a.H * Dh, es);
 
     const int n_rows = a.B * a.Tq * a.H;
     auto kdelta = attn_bwd_delta_kernel<T>;
     cudaError_t err = launch(kdelta, dim3((n_rows + kThreads / 32 - 1) / (kThreads / 32)), 0,
                              stream, dout, static_cast<const T*>(a.out), a.delta, n_rows, a.Tq,
-                             a.H, DH);
+                             a.H, Dh);
     if (err != cudaSuccess) return err;
     if constexpr (kBias) {
-      auto kdq = bias_dq_kernel<T, DH>();
-      auto kdkv = bias_dkv_kernel<T, DH>();
-      err = launch_pass(kdq, gq, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                        a.v_st, a.bias, dout, a.lse, a.delta, dq, a.dbias, a.Tq, a.Tk, a.H,
-                        scale, vec);
+      auto kdq = bias_dq_kernel<T, DH, kSplit>();
+      auto kdkv = bias_dkv_kernel<T, DKV, kSplit>();
+      err = launch_split_pass<kSplit>(kdq, gq, smem_dq, stream, nc, q, a.q_sb, a.q_st, k, a.k_sb,
+                                      a.k_st, v, a.v_sb, a.v_st, a.bias, dout, a.lse, a.delta, dq,
+                                      a.dbias, a.Tq, a.Tk, a.H, scale, vec);
       if (err != cudaSuccess) return err;
-      return launch_pass(kdkv, gk, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                         a.v_st, a.bias, dout, a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H, scale,
-                         vec);
+      return launch_split_pass<kSplit>(kdkv, gk, smem_dkv, stream, nc_dkv, q, a.q_sb, a.q_st, k,
+                                       a.k_sb, a.k_st, v, a.v_sb, a.v_st, a.bias, dout, a.lse,
+                                       a.delta, dk, dv, a.Tq, a.Tk, a.H, scale, vec);
     } else {
-      auto kdq = dq_kernel<T, DH, true>();
-      auto kdkv = dkv_kernel<T, DH, true>();
+      auto kdq = dq_kernel<T, DH, true, kSplit>();
+      auto kdkv = dkv_kernel<T, DKV, true, kSplit>();
       if (drop.threshold == 0) {
-        kdq = dq_kernel<T, DH, false>();
-        kdkv = dkv_kernel<T, DH, false>();
+        kdq = dq_kernel<T, DH, false, kSplit>();
+        kdkv = dkv_kernel<T, DKV, false, kSplit>();
       }
-      err = launch_pass(kdq, gq, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                        a.v_st, a.kv_bias, dout, a.lse, a.delta, dq, a.Tq, a.Tk, a.H,
-                        a.prefix_s, scale, drop, vec);
+      err = launch_split_pass<kSplit>(kdq, gq, smem_dq, stream, nc, q, a.q_sb, a.q_st, k, a.k_sb,
+                                      a.k_st, v, a.v_sb, a.v_st, a.kv_bias, dout, a.lse, a.delta,
+                                      dq, a.Tq, a.Tk, a.H, a.prefix_s, scale, drop, vec);
       if (err != cudaSuccess) return err;
-      return launch_pass(kdkv, gk, smem, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
-                         a.v_st, a.kv_bias, dout, a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H,
-                         a.prefix_s, scale, drop, vec);
+      return launch_split_pass<kSplit>(kdkv, gk, smem_dkv, stream, nc_dkv, q, a.q_sb, a.q_st, k,
+                                       a.k_sb, a.k_st, v, a.v_sb, a.v_st, a.kv_bias, dout, a.lse,
+                                       a.delta, dk, dv, a.Tq, a.Tk, a.H, a.prefix_s, scale, drop,
+                                       vec);
     }
   });
 }

@@ -11,8 +11,10 @@
 // column, and a row made only of holes averages over them (the running max
 // starts at -2e9, as in the TPU kernel).  A slot of length 0 (a finished
 // request) yields exact zeros.  The cache is int8 with per-(token, head) f32
-// scales, or f32 / bf16; q is f32 or bf16; any Dh that is a multiple of 16 up
-// to 256.
+// scales, or f32 / bf16; q is f32 or bf16; any Dh up to 1024 whose head is a
+// whole number of 16-byte chunks (the wrapper zero-pads another Dh, and
+// passes the true Dh's scale), any Dh above 1024 (the strided layout,
+// below), and any number of heads.
 //
 // What bounds it on the H100: bytes.  Each live column is read once for K and
 // once for V (sum_b len_b * H * Dh * 2 * element bytes, plus the scales and
@@ -58,6 +60,23 @@
 //   the next power of two lanes, some idle (Dh 48 in int8: 3 of 4), which
 //   keeps every head dim in one code path.  The warps of one head group merge
 //   their (m, l, acc) in a fixed order through shared memory at the end.
+// - Wide heads and wide rows.  A head of more than 32 chunks (Dh above 256
+//   in f32, 512 in bf16) gives each lane CPH = 2, 4 or 8 chunks, up to 1024
+//   elements; those layouts hold 32 floats of q and 32 of acc per lane, so
+//   their blocks take at most 8 warps (kWideWarps), which leaves ptxas 255
+//   registers.  A row of more head groups than a block has warps (64 heads
+//   of Dh 64 in f32: 32 groups) is cut into head slices: grid dimension z
+//   takes slice z's heads, whose bytes of each row the block stages row by
+//   row (a warp per row, a lane per 16 bytes); the combine is per head
+//   already.  A row of one slice is staged in one contiguous sweep of the
+//   slab.  A head above 1024 elements takes the strided layout
+//   (ragged_decode_strided_kernel): a block per (split, slot, head) whose
+//   warps score columns with lane-strided dot products over the whole head
+//   and whose threads keep the head's acc in the split's partial row in
+//   device memory, so no register or shared-memory size grows with Dh; its
+//   combine keeps one weight per split in shared memory.  Simple, not fast:
+//   K and V are read once, in element loads, and acc makes a round trip to
+//   L1 / L2 per tile of 32 columns.
 // - int8 -> f32 without I2F.  A byte x is flipped to x + 128 (one LOP per
 //   word), moved by PRMT into the mantissa of 2^23 (0x4B0000xx) and turned
 //   into x by one FADD of -(2^23 + 128): exact for every int8, on the
@@ -84,7 +103,9 @@ namespace {
 
 constexpr int kStages = 2;          // ring depth
 constexpr int kMaxColsPerWarp = 8;  // columns a warp takes from each stage, at most
-constexpr int kMaxWarps = 16;       // head groups per row, and warps per block
+constexpr int kMaxWarps = 16;       // head groups per block, and warps per block
+constexpr int kWideWarps = 8;       // the same for a layout of 32 floats of acc per lane
+constexpr int kMaxG = 256;          // 16-byte chunks per head, at most (32 lanes x 8)
 constexpr int kCombinePrefetch = 16;  // partials a combine thread holds per round
 constexpr int kMaxSmemBytes = 232448;  // 227 KiB of dynamic shared memory
 constexpr float kInitMax = -2e9f;
@@ -156,17 +177,23 @@ struct SplitArgs {
   float* part_ml;   // (B, S, H, 2): running max, running sum
   int C, H, Dh, G;  // G: 16-byte chunks per head
   int split_cols, n_splits, stage_cols, cols_per_warp, n_groups, warps_per_group;
-  int row_bytes, stage_bytes, scale_bytes;
+  int n_slices, slice_heads;  // head slices of a row (grid z), heads per slice
+  int row_bytes;    // a cache row (H * Dh elements) in device memory
+  int srow_bytes;   // a row's slice in shared memory: slice_heads * Dh elements
+  int stage_bytes, scale_bytes;
   int vec_scales;  // scales copied in 16-byte pieces (H % 4 == 0, aligned)
   float scale;
 };
 
+// The warps a block of accumulator floats NS per lane may take.
+__host__ __device__ constexpr int layout_warps(int ns) { return ns > 16 ? kWideWarps : kMaxWarps; }
+
 // LPH lanes per head (a power of two <= 32), CPH 16-byte chunks per lane and
 // head: G <= LPH * CPH.  One warp per (head group, column phase); the launch
-// bounds leave ptxas the registers of one 512-thread block (with the default
-// bound it spilled in two f32 layouts).
+// bounds leave ptxas the registers of one block of layout_warps() warps (with
+// the default bound it spilled in two f32 layouts).
 template <typename TKV, int LPH, int CPH>
-__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+__global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
     ragged_decode_split_kernel(const SplitArgs a) {
   constexpr bool kQuant = sizeof(TKV) == 1;
   constexpr int EPT = 16 / sizeof(TKV);  // elements per 16-byte chunk
@@ -178,42 +205,58 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x;
   const int H = a.H, Dh = a.Dh;
+  const int h0 = blockIdx.z * a.slice_heads;       // the slice's first head
+  const int n_heads = min(a.slice_heads, H - h0);  // and its heads
   const int len = min(max(a.lengths[b], 0), a.C);
   const int c_begin = split * a.split_cols;
   const long long prow = ((long long)b * a.n_splits + split) * H;  // partial row of head 0
 
   if (c_begin >= len) {  // an empty partial: zero weight in any merge
 #pragma unroll 1
-    for (int i = tid; i < H * Dh; i += nthreads) a.part_acc[prow * Dh + i] = 0.f;
+    for (int i = tid; i < n_heads * Dh; i += nthreads) a.part_acc[(prow + h0) * Dh + i] = 0.f;
 #pragma unroll 1
-    for (int i = tid; i < H; i += nthreads) {
-      a.part_ml[2 * (prow + i)] = kInitMax;
-      a.part_ml[2 * (prow + i) + 1] = 0.f;
+    for (int i = tid; i < n_heads; i += nthreads) {
+      a.part_ml[2 * (prow + h0 + i)] = kInitMax;
+      a.part_ml[2 * (prow + h0 + i) + 1] = 0.f;
     }
     return;
   }
   const int n_cols = min(a.split_cols, len - c_begin);
-  const int W = a.stage_cols, R = a.row_bytes;
+  const int W = a.stage_cols, R = a.row_bytes, RS = a.srow_bytes;
   const long long first = (long long)b * a.C + c_begin;  // first column of the slab
-  const unsigned char* gk = static_cast<const unsigned char*>(a.k) + first * R;
-  const unsigned char* gv = static_cast<const unsigned char*>(a.v) + first * R;
+  const long long slice_off = (long long)h0 * Dh * (int)sizeof(TKV);
+  const unsigned char* gk = static_cast<const unsigned char*>(a.k) + first * R + slice_off;
+  const unsigned char* gv = static_cast<const unsigned char*>(a.v) + first * R + slice_off;
   const float* gbias = a.bias != nullptr ? a.bias + first : nullptr;
 
-  // Stage layout: K (W rows), V (W rows), k scales, v scales, bias.
+  // Stage layout: K (W rows of RS bytes), V (W rows), k scales, v scales
+  // (all H heads), bias.
   auto issue = [&](int t) {
     unsigned char* st = smem + t % kStages * a.stage_bytes;
     const int c0 = t * W, nc = min(W, n_cols - c0);
-    const int n16 = nc * R / 16;
     const unsigned char* sk = gk + (long long)c0 * R;
     const unsigned char* sv = gv + (long long)c0 * R;
+    if (a.n_slices == 1) {  // the stage's rows are one contiguous run
+      const int n16 = nc * R / 16;
 #pragma unroll 1
-    for (int i = tid; i < n16; i += nthreads) {
-      cp_async16(st + 16 * i, sk + 16 * i);
-      cp_async16(st + W * R + 16 * i, sv + 16 * i);
+      for (int i = tid; i < n16; i += nthreads) {
+        cp_async16(st + 16 * i, sk + 16 * i);
+        cp_async16(st + W * R + 16 * i, sv + 16 * i);
+      }
+    } else {  // the slice's bytes of each row: a warp per row, a lane per 16 bytes
+      const int n16 = n_heads * Dh * (int)sizeof(TKV) / 16;
+#pragma unroll 1
+      for (int r = warp; r < nc; r += nthreads >> 5) {
+#pragma unroll 1
+        for (int i = lane; i < n16; i += 32) {
+          cp_async16(st + r * RS + 16 * i, sk + (long long)r * R + 16 * i);
+          cp_async16(st + (W + r) * RS + 16 * i, sv + (long long)r * R + 16 * i);
+        }
+      }
     }
     if (kQuant) {
-      float* dks = reinterpret_cast<float*>(st + 2 * W * R);
-      float* dvs = reinterpret_cast<float*>(st + 2 * W * R + a.scale_bytes);
+      float* dks = reinterpret_cast<float*>(st + 2 * W * RS);
+      float* dvs = reinterpret_cast<float*>(st + 2 * W * RS + a.scale_bytes);
       const float* ks = a.k_scale + (first + c0) * H;
       const float* vs = a.v_scale + (first + c0) * H;
       const int n = nc * H;
@@ -232,7 +275,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
       }
     }
     if (gbias != nullptr) {
-      float* db = reinterpret_cast<float*>(st + 2 * W * R + 2 * a.scale_bytes);
+      float* db = reinterpret_cast<float*>(st + 2 * W * RS + 2 * a.scale_bytes);
 #pragma unroll 1
       for (int i = tid; i < nc; i += nthreads) cp_async4(db + i, gbias + c0 + i);
     }
@@ -252,8 +295,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     hg -= a.n_groups;
     ++wc;
   }
-  const int cl = lane % LPH, head = hg * HPP + lane / LPH;
-  const bool head_ok = head < H;
+  const int cl = lane % LPH, hl = hg * HPP + lane / LPH;  // hl: the head within the slice
+  const int head = h0 + hl;
+  const bool head_ok = hl < n_heads;
   const int hh = head_ok ? head : 0;  // a head index safe to read with
   int off[CPH];
   bool ok[CPH];
@@ -262,7 +306,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
   for (int c = 0; c < CPH; ++c) {
     const int ci = c * LPH + cl;
     ok[c] = head_ok && ci < a.G;
-    off[c] = head * Dh * (int)sizeof(TKV) + ci * 16;
+    off[c] = hl * Dh * (int)sizeof(TKV) + ci * 16;
     // the lane's own EPT elements of q: 16-byte loads where q is f32 and
     // aligned (generate's q); a lane's scalar loads are 64 bytes apart and
     // lengthened a short block's chain in probes
@@ -319,9 +363,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     __syncthreads();
 
     const unsigned char* st = smem + t % kStages * a.stage_bytes;
-    const float* sks = reinterpret_cast<const float*>(st + 2 * W * R);
-    const float* svs = reinterpret_cast<const float*>(st + 2 * W * R + a.scale_bytes);
-    const float* sb = reinterpret_cast<const float*>(st + 2 * W * R + 2 * a.scale_bytes);
+    const float* sks = reinterpret_cast<const float*>(st + 2 * W * RS);
+    const float* svs = reinterpret_cast<const float*>(st + 2 * W * RS + a.scale_bytes);
+    const float* sb = reinterpret_cast<const float*>(st + 2 * W * RS + 2 * a.scale_bytes);
     const int nc = min(W, n_cols - t * W);
     const int c0 = wc * a.cols_per_warp;
     const int ncw = min(a.cols_per_warp, nc - c0);  // this warp's columns: warp-uniform
@@ -332,7 +376,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 #pragma unroll
       for (int j = 0; j < kMaxColsPerWarp; ++j) {
         if (j < ncw) {
-          float x = dot(st + (c0 + j) * R);
+          float x = dot(st + (c0 + j) * RS);
           if (kQuant) x *= sks[(c0 + j) * H + hh];
           if (gbias != nullptr) x += sb[c0 + j];
           sc[j] = x;
@@ -348,7 +392,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
           for (int e = 0; e < EPT; ++e) acc[c][e] *= alpha;
       }
       m = m_new;
-      const unsigned char* sv = st + W * R + c0 * R;
+      const unsigned char* sv = st + (W + c0) * RS;
 #pragma unroll
       for (int j = 0; j < kMaxColsPerWarp; ++j) {
         if (j < ncw) {
@@ -359,7 +403,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
           for (int c = 0; c < CPH; ++c) {
             if (ok[c]) {
               float x[EPT];
-              load_chunk(reinterpret_cast<const TKV*>(sv + j * R + off[c]), x);
+              load_chunk(reinterpret_cast<const TKV*>(sv + j * RS + off[c]), x);
 #pragma unroll
               for (int e = 0; e < EPT; ++e) acc[c][e] = fmaf(w, x[e], acc[c][e]);
             }
@@ -418,10 +462,123 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
   }
 }
 
+// One element of the cache (or of q) to f32: int8 without I2F, as widen_s8x4.
+__device__ __forceinline__ float load_elem(const int8_t* p) {
+  const uint32_t x = (uint32_t)(*reinterpret_cast<const uint8_t*>(p)) ^ 0x80u;
+  return __uint_as_float(0x4B000000u | x) - 8388736.f;
+}
+__device__ __forceinline__ float load_elem(const __nv_bfloat16* p) {
+  return __uint_as_float((uint32_t)(*reinterpret_cast<const uint16_t*>(p)) << 16);
+}
+__device__ __forceinline__ float load_elem(const float* p) { return *p; }
+
+// A head wider than a lane layout holds (Dh above 1024): grid (n_splits, B,
+// H), one block of kWideWarps warps per (split, slot, head), any Dh (no pad).
+// Per tile of kStridedCols columns, warp w scores columns w, w + 8, ... (a
+// lane-strided dot product over the whole head, q read from device memory
+// and L1, then the xor-shuffle sum); every thread then takes the tile's
+// online-softmax step from the scores in shared memory (the same arithmetic
+// in the same order, so m and l agree in every thread), and thread t updates
+// elements t, t + 256, ... of the head's acc, which lives in the split's
+// partial row in device memory: no register or shared-memory size grows
+// with Dh.  K and V are read once, in coalesced element loads.
+constexpr int kStridedCols = 32;  // columns per tile
+constexpr int kStridedThreads = kWideWarps * 32;
+
+template <typename TKV>
+__global__ void __launch_bounds__(kStridedThreads)
+    ragged_decode_strided_kernel(const SplitArgs a) {
+  constexpr bool kQuant = sizeof(TKV) == 1;
+  __shared__ float s_sc[kStridedCols];  // the tile's scores
+  __shared__ float s_p[kStridedCols];   // e^(s - m_new)
+  __shared__ float s_w[kStridedCols];   // the same times the V scale
+  const int split = blockIdx.x, b = blockIdx.y, h = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = a.H, Dh = a.Dh;
+  const int len = min(max(a.lengths[b], 0), a.C);
+  const int c_begin = split * a.split_cols;
+  const long long prow = ((long long)b * a.n_splits + split) * H + h;  // the partial row
+  float* acc = a.part_acc + prow * Dh;
+  if (c_begin >= len) {  // an empty partial: zero weight in any merge
+#pragma unroll 1
+    for (int d = tid; d < Dh; d += kStridedThreads) acc[d] = 0.f;
+    if (tid == 0) {
+      a.part_ml[2 * prow] = kInitMax;
+      a.part_ml[2 * prow + 1] = 0.f;
+    }
+    return;
+  }
+  const int n_cols = min(a.split_cols, len - c_begin);
+  const long long first = (long long)b * a.C + c_begin;  // first column of the run
+  const TKV* gk = static_cast<const TKV*>(a.k) + (first * H + h) * Dh;
+  const TKV* gv = static_cast<const TKV*>(a.v) + (first * H + h) * Dh;
+  const long long col_stride = (long long)H * Dh;
+  const long long qi = (long long)b * a.q_sb + (long long)h * Dh;
+  const float* qf = static_cast<const float*>(a.q) + qi;
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + qi;
+  float m = kInitMax, l = 0.f;
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < n_cols; c0 += kStridedCols) {
+    const int nc = min(kStridedCols, n_cols - c0);
+#pragma unroll 1
+    for (int j = warp; j < nc; j += kWideWarps) {
+      const TKV* kr = gk + (c0 + j) * col_stride;
+      auto qd = [&](int d) { return a.q_bf16 ? load_elem(qb + d) : qf[d]; };
+      float part[4] = {0.f, 0.f, 0.f, 0.f};  // four sums keep the FMA chains short
+      int d = lane;
+#pragma unroll 1
+      for (; d + 96 < Dh; d += 128) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          part[u] = fmaf(qd(d + 32 * u), load_elem(kr + d + 32 * u), part[u]);
+      }
+#pragma unroll 1
+      for (; d < Dh; d += 32) part[0] = fmaf(qd(d), load_elem(kr + d), part[0]);
+      float s = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) {
+        s *= a.scale;
+        const long long c = first + c0 + j;
+        if (kQuant) s *= a.k_scale[c * H + h];
+        if (a.bias != nullptr) s += a.bias[c];
+        s_sc[j] = s;
+      }
+    }
+    __syncthreads();
+    float m_new = m;
+    for (int j = 0; j < nc; ++j) m_new = fmaxf(m_new, s_sc[j]);
+    const float alpha = expf(m - m_new);
+    if (tid < nc) {
+      const float p = expf(s_sc[tid] - m_new);
+      s_p[tid] = p;
+      s_w[tid] = kQuant ? p * a.v_scale[(first + c0 + tid) * H + h] : p;
+    }
+    __syncthreads();
+    l *= alpha;
+    for (int j = 0; j < nc; ++j) l += s_p[j];
+    m = m_new;
+#pragma unroll 1
+    for (int d = tid; d < Dh; d += kStridedThreads) {
+      float x = c0 == 0 ? 0.f : acc[d] * alpha;
+      const TKV* vr = gv + (long long)c0 * col_stride + d;
+#pragma unroll 1
+      for (int j = 0; j < nc; ++j) x = fmaf(s_w[j], load_elem(vr + j * col_stride), x);
+      acc[d] = x;
+    }
+    __syncthreads();  // the tile's scores and weights are rewritten by the next tile
+  }
+  if (tid == 0) {
+    a.part_ml[2 * prow] = m;
+    a.part_ml[2 * prow + 1] = l;
+  }
+}
+
 // out[b, h] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the
 // n_splits partials of the slot, in a fixed order: thread (g, d) of the first
 // ng * Dh sums the splits s = g (mod ng) of dim d, and the ng sums are added
-// in order of g (ng = kThreads / Dh, from the host).  A dead split's empty
+// in order of g (ng = combine_groups(kThreads, Dh), from the host).  A dead split's empty
 // partial weighs e^(-2e9 - M) = 0, so the kernel reads no lengths: each
 // thread loads its first kCombinePrefetch partials and one split's (m, l) at
 // once; split s < kThreads has its weight computed once, by thread s.
@@ -508,17 +665,74 @@ __global__ void __launch_bounds__(kThreads) ragged_decode_combine_kernel(
   }
 }
 
+// The combine of the strided layout (Dh above 1024): grid (H, B), 256 threads.
+// Each split's weight e^(m_s - M) is computed once into shared memory (one
+// float per split), every thread sums the denominator in order of s, and
+// thread t sums elements t, t + 256, ... over the splits in order of s.
+// All its shared memory is dynamic: kWideWarps warp maxima, then the
+// n_splits weights.
+__global__ void __launch_bounds__(kStridedThreads) ragged_decode_combine_strided_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    float* __restrict__ out, int H, int Dh, int n_splits) {
+  extern __shared__ float s_dyn[];
+  float* s_max = s_dyn;
+  float* s_weight = s_dyn + kWideWarps;
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const long long row0 = (long long)b * n_splits * H + h;  // split s at row0 + s * H
+  float mx = kInitMax;
+#pragma unroll 1
+  for (int s = tid; s < n_splits; s += kStridedThreads)
+    mx = fmaxf(mx, part_ml[2 * (row0 + (long long)s * H)]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((tid & 31) == 0) s_max[tid >> 5] = mx;
+  __syncthreads();
+  float M = s_max[0];
+#pragma unroll
+  for (int w = 1; w < kWideWarps; ++w) M = fmaxf(M, s_max[w]);
+  float* o = out + ((long long)b * H + h) * Dh;
+  if (M == kInitMax) {
+#pragma unroll 1
+    for (int d = tid; d < Dh; d += kStridedThreads) o[d] = 0.f;
+    return;
+  }
+#pragma unroll 1
+  for (int s = tid; s < n_splits; s += kStridedThreads)
+    s_weight[s] = expf(part_ml[2 * (row0 + (long long)s * H)] - M);
+  __syncthreads();
+  float den = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < n_splits; ++s)
+    den = fmaf(s_weight[s], part_ml[2 * (row0 + (long long)s * H) + 1], den);
+#pragma unroll 1
+  for (int d = tid; d < Dh; d += kStridedThreads) {
+    float num = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < n_splits; ++s)
+      num = fmaf(s_weight[s], part_acc[(row0 + (long long)s * H) * Dh + d], num);
+    o[d] = num / den;
+  }
+}
+
+// Split groups of a combine block of `threads`: threads / Dh, at most
+// threads / 16 (the sizes of s_den and of one round of prefetched weights).
+inline int combine_groups(int threads, int Dh) {
+  const int ng = threads / Dh;
+  return ng < threads / 16 ? ng : threads / 16;
+}
+
 // The combine in blocks of 256 threads while those hold every split in one
-// round of prefetches, else in blocks of 1024.
+// round of prefetches (and Dh <= 256), else in blocks of 1024 (Dh <= 1024).
 cudaError_t launch_combine(const float* part_acc, const float* part_ml, float* out, int B, int H,
                            int Dh, int n_splits, cudaStream_t stream) {
   const dim3 grid(H, B);
-  if (n_splits <= kCombinePrefetch * (256 / Dh)) {
+  const int ng256 = combine_groups(256, Dh);
+  if (ng256 > 0 && n_splits <= kCombinePrefetch * ng256) {
     ragged_decode_combine_kernel<256><<<grid, 256, 0, stream>>>(part_acc, part_ml, out, H, Dh,
-                                                                n_splits, 256 / Dh);
+                                                                n_splits, ng256);
   } else {
-    ragged_decode_combine_kernel<1024><<<grid, 1024, 0, stream>>>(part_acc, part_ml, out, H, Dh,
-                                                                  n_splits, 1024 / Dh);
+    ragged_decode_combine_kernel<1024><<<grid, 1024, 0, stream>>>(
+        part_acc, part_ml, out, H, Dh, n_splits, combine_groups(1024, Dh));
   }
   return cudaGetLastError();
 }
@@ -527,7 +741,12 @@ cudaError_t launch_combine(const float* part_acc, const float* part_ml, float* o
 template <typename TKV, int LPH, int CPH>
 cudaError_t launch_layout(const SplitArgs& a, dim3 grid, int threads, size_t smem,
                           cudaStream_t stream) {
-  if (a.n_groups != (a.H + 32 / LPH - 1) / (32 / LPH)) return cudaErrorInvalidValue;
+  constexpr int HPP = 32 / LPH;
+  const int groups = (a.H + HPP - 1) / HPP;  // head groups of a row
+  if (a.n_groups * a.warps_per_group > layout_warps(CPH * 16 / sizeof(TKV)) ||
+      a.n_slices != (groups + a.n_groups - 1) / a.n_groups ||
+      a.slice_heads != (a.n_slices == 1 ? a.H : a.n_groups * HPP))
+    return cudaErrorInvalidValue;
   auto kern = ragged_decode_split_kernel<TKV, LPH, CPH>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
@@ -537,56 +756,108 @@ cudaError_t launch_layout(const SplitArgs& a, dim3 grid, int threads, size_t sme
 }
 
 // The lane layout of G chunks per head: LPH = the next power of two (at most
-// 32), CPH = chunks per lane.  Dh in [16, 256] gives G in [sizeof(TKV),
-// 16 * sizeof(TKV)], so each cache type has five layouts.
+// 32), CPH = chunks per lane.  Dh up to 1024 gives G up to kMaxTypeG =
+// 64 * sizeof(TKV): seven layouts in int8, eight in bf16, nine in f32.
 template <typename TKV>
 cudaError_t launch_split(const SplitArgs& a, dim3 grid, int threads, size_t smem,
                          cudaStream_t s) {
-  constexpr int kMinG = sizeof(TKV), kMaxG = 16 * sizeof(TKV);
+  constexpr int kMaxTypeG = 64 * sizeof(TKV);
   const int G = a.G;
-  if (G < kMinG || G > kMaxG) return cudaErrorInvalidValue;
-  if constexpr (kMinG <= 1) {
-    if (G <= 1) return launch_layout<TKV, 1, 1>(a, grid, threads, smem, s);
-  }
-  if constexpr (kMinG <= 2) {
-    if (G <= 2) return launch_layout<TKV, 2, 1>(a, grid, threads, smem, s);
-  }
+  if (G < 1 || G > kMaxTypeG) return cudaErrorInvalidValue;
+  if (G <= 1) return launch_layout<TKV, 1, 1>(a, grid, threads, smem, s);
+  if (G <= 2) return launch_layout<TKV, 2, 1>(a, grid, threads, smem, s);
   if (G <= 4) return launch_layout<TKV, 4, 1>(a, grid, threads, smem, s);
   if (G <= 8) return launch_layout<TKV, 8, 1>(a, grid, threads, smem, s);
   if (G <= 16) return launch_layout<TKV, 16, 1>(a, grid, threads, smem, s);
-  if constexpr (kMaxG > 16) {
-    if (G <= 32) return launch_layout<TKV, 32, 1>(a, grid, threads, smem, s);
+  if (G <= 32) return launch_layout<TKV, 32, 1>(a, grid, threads, smem, s);
+  if (G <= 64) return launch_layout<TKV, 32, 2>(a, grid, threads, smem, s);
+  if constexpr (kMaxTypeG > 64) {
+    if (G <= 128) return launch_layout<TKV, 32, 4>(a, grid, threads, smem, s);
   }
-  if constexpr (kMaxG > 32) {
-    if (G <= 64) return launch_layout<TKV, 32, 2>(a, grid, threads, smem, s);
+  if constexpr (kMaxTypeG > 128) {
+    if (G <= 256) return launch_layout<TKV, 32, 8>(a, grid, threads, smem, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The strided layout: its split kernel, then its combine.
+template <typename TKV>
+cudaError_t launch_strided(const SplitArgs& a, int B, float* out, cudaStream_t s) {
+  const dim3 grid(a.n_splits, B, a.H);
+  ragged_decode_strided_kernel<TKV><<<grid, kStridedThreads, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ragged_decode_combine_strided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  ragged_decode_combine_strided_kernel<<<dim3(a.H, B), kStridedThreads,
+                                         (a.n_splits + kWideWarps) * sizeof(float), s>>>(
+      a.part_acc, a.part_ml, out, a.H, a.Dh, a.n_splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (cache only).
 // q: (B, [1,] H, Dh) with batch stride q_sb elements, (H, Dh) contiguous;
-// k, v: (B, C, H, Dh) contiguous and 16-byte aligned; k_scale, v_scale:
-// (B, C, H) f32 or null (required iff int8); bias: (B, C) f32 or null;
-// lengths: (B,) int32; partials: B * n_splits * H * (Dh + 2) f32 of scratch;
-// out: (B, H, Dh) f32.  split_cols, n_splits, stage_cols, cols_per_warp,
-// n_groups and warps_per_group are the host's plan
-// (ops/ragged_decode.py::split_plan).
+// k, v: (B, C, H, Dh) contiguous and 16-byte aligned, Dh * element size a
+// multiple of 16 bytes where Dh <= 1024 (any Dh above: the strided layout,
+// whose plan is n_groups 1, warps_per_group 8, stage_cols 32, cols_per_warp 4
+// and n_slices = H); k_scale, v_scale: (B, C, H) f32 or null
+// (required iff int8); bias: (B, C) f32 or null; lengths: (B,) int32;
+// partials: B * n_splits * H * (Dh + 2) f32 of scratch; out: (B, H, Dh) f32.
+// split_cols, n_splits, stage_cols, cols_per_warp, n_groups,
+// warps_per_group and n_slices are the host's plan
+// (ops/ragged_decode.py::split_plan); scale multiplies q . k (the wrapper's
+// 1 / sqrt of the true head dim, which a zero-padded Dh exceeds).
 // Launches the split kernel, then the combine kernel, and returns the first
 // cudaError_t.
 extern "C" int ragged_decode_attention_launch(
     const void* q, long long q_sb, int q_dtype, const void* k, const void* v, int kv_dtype,
     const float* k_scale, const float* v_scale, const float* bias, const int* lengths,
     float* partials, float* out, int B, int C, int H, int Dh, int split_cols, int n_splits,
-    int stage_cols, int cols_per_warp, int n_groups, int warps_per_group, void* stream) {
+    int stage_cols, int cols_per_warp, int n_groups, int warps_per_group, int n_slices,
+    float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int elem = kv_dtype == 2 ? 1 : kv_dtype == 1 ? 2 : kv_dtype == 0 ? 4 : 0;
-  if (elem == 0 || (q_dtype != 0 && q_dtype != 1) || Dh % 16 != 0 || Dh > 256 || B < 1 ||
-      C < 1 || H < 1 || split_cols < 1 || n_splits != (C + split_cols - 1) / split_cols ||
-      n_groups < 1 || n_groups > kMaxWarps || warps_per_group < 1 ||
-      n_groups * warps_per_group > kMaxWarps || cols_per_warp < 1 ||
-      cols_per_warp > kMaxColsPerWarp || stage_cols != cols_per_warp * warps_per_group)
+  if (Dh > 1024) {  // the strided layout: any Dh, one block per (split, slot, head)
+    if (elem == 0 || (q_dtype != 0 && q_dtype != 1) || B < 1 || B > 65535 || C < 1 ||
+        H < 1 || H > 65535 || split_cols < 1 || n_splits != (C + split_cols - 1) / split_cols ||
+        (n_splits + kWideWarps) * sizeof(float) > (size_t)kMaxSmemBytes || n_groups != 1 ||
+        warps_per_group != kWideWarps || stage_cols != kStridedCols ||
+        cols_per_warp * kWideWarps != kStridedCols || n_slices != H)
+      return (int)cudaErrorInvalidValue;
+    SplitArgs a = {};
+    a.q = q;
+    a.q_sb = q_sb;
+    a.q_bf16 = q_dtype == 1;
+    a.k = k;
+    a.v = v;
+    a.k_scale = k_scale;
+    a.v_scale = v_scale;
+    a.bias = bias;
+    a.lengths = lengths;
+    a.part_acc = partials;
+    a.part_ml = partials + (long long)B * n_splits * H * Dh;
+    a.C = C;
+    a.H = H;
+    a.Dh = Dh;
+    a.split_cols = split_cols;
+    a.n_splits = n_splits;
+    a.scale = scale;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (kv_dtype == 0) err = launch_strided<float>(a, B, out, s);
+    if (kv_dtype == 1) err = launch_strided<__nv_bfloat16>(a, B, out, s);
+    if (kv_dtype == 2) err = launch_strided<int8_t>(a, B, out, s);
+    return (int)err;
+  }
+  if (elem == 0 || (q_dtype != 0 && q_dtype != 1) || Dh < 1 || Dh * elem % 16 != 0 ||
+      Dh > 1024 || Dh * elem / 16 > kMaxG || B < 1 || C < 1 || H < 1 || split_cols < 1 ||
+      n_splits != (C + split_cols - 1) / split_cols || n_groups < 1 || warps_per_group < 1 ||
+      n_groups * warps_per_group > kMaxWarps || cols_per_warp < 1 || n_slices < 1 ||
+      n_slices > 65535 || cols_per_warp > kMaxColsPerWarp ||
+      stage_cols != cols_per_warp * warps_per_group)
     return (int)cudaErrorInvalidValue;
   SplitArgs a;
   a.q = q;
@@ -611,14 +882,20 @@ extern "C" int ragged_decode_attention_launch(
   a.cols_per_warp = cols_per_warp;
   a.n_groups = n_groups;
   a.warps_per_group = warps_per_group;
+  a.n_slices = n_slices;
+  int lph = 1;  // lanes per head: G rounded up to a power of two, at most 32
+  while (lph < a.G && lph < 32) lph *= 2;
+  a.slice_heads = n_slices == 1 ? H : n_groups * (32 / lph);
   a.row_bytes = H * Dh * elem;
+  a.srow_bytes = a.slice_heads * Dh * elem;
   a.scale_bytes = elem == 1 ? align16(stage_cols * H * 4) : 0;
-  a.stage_bytes = 2 * stage_cols * a.row_bytes + 2 * a.scale_bytes + align16(stage_cols * 4);
+  a.stage_bytes = 2 * stage_cols * a.srow_bytes + 2 * a.scale_bytes + align16(stage_cols * 4);
   a.vec_scales = elem == 1 && H % 4 == 0 && (uintptr_t)k_scale % 16 == 0 &&
                  (uintptr_t)v_scale % 16 == 0;
-  a.scale = 1.f / sqrtf((float)Dh);
+  a.scale = scale;
   const int threads = 32 * n_groups * warps_per_group;
-  const int ns = (Dh * elem / 16 > 32 ? 2 : 1) * 16 / elem;  // accumulator floats per lane
+  const int cph = a.G <= 32 ? 1 : a.G <= 64 ? 2 : a.G <= 128 ? 4 : 8;
+  const int ns = cph * 16 / elem;  // accumulator floats per lane
   // a split of at most one stage of columns uses one stage of the ring
   const int tiles = (split_cols + stage_cols - 1) / stage_cols;
   const size_t ring = (size_t)(tiles < kStages ? tiles : kStages) * a.stage_bytes;
@@ -626,7 +903,7 @@ extern "C" int ragged_decode_attention_launch(
   const size_t smem = ring > merge ? ring : merge;
   if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
 
-  const dim3 grid(n_splits, B);
+  const dim3 grid(n_splits, B, n_slices);
   cudaError_t err = cudaErrorInvalidValue;
   if (kv_dtype == 0) err = launch_split<float>(a, grid, threads, smem, s);
   if (kv_dtype == 1) err = launch_split<__nv_bfloat16>(a, grid, threads, smem, s);

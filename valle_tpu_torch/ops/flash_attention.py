@@ -22,8 +22,8 @@ the JAX wrapper also averages the zero columns it pads to 128, so such rows
 differ from JAX's.  They occur only in rows that the callers' losses skip.
 
 A head dim outside the instantiated ones runs zero-padded, as in kernels 2
-and 3 (``ops/fused_attention.py::run_padded``); d(bias) does not depend on
-Dh.
+and 3 (``ops/fused_attention.py::run_padded``; above 128 to a multiple of
+128, in the split instantiations); d(bias) does not depend on Dh.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch
 
 from valle_tpu_torch.ops import cuda_build
 from valle_tpu_torch.ops.fused_attention import (
-    _DTYPES, _check_heads_contiguous, _compute_dtype, _scale, kernel_head_dim, run_padded)
+    _DTYPES, _check_heads_contiguous, _compute_dtype, _scale, run_padded)
 
 
 def _logits(q, k, bias, cdt, scale=None):
@@ -113,9 +113,8 @@ def _check_cuda(q, k, v, bias) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k, v must share float32 or bfloat16, "
                          f"got {q.dtype} {k.dtype} {v.dtype}")
-    kernel_head_dim(q.shape[-1])  # raises above 128
-    if q.shape[1] == 0 or k.shape[1] == 0:
-        raise ValueError("empty sequence")
+    if q.shape[1] == 0 or k.shape[1] == 0 or q.shape[-1] == 0:
+        raise ValueError("empty sequence or head")
     for name, x in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")

@@ -19,9 +19,11 @@ is added.  On every row that sees at least one visible column this equals the
 JAX kernel, which adds -1e9 for the structural mask instead; the two differ
 only on rows whose columns are all masked, which no caller reads.
 
-Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS``; any
-other Dh up to 128 runs zero-padded to the next of them, with the scale of
-the true Dh (:func:`run_padded`, shared with kernel 4).
+Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS`` and,
+above 128, in chunks of ``SPLIT_HEAD_DIM`` (a grid dimension over the chunks
+of the output, each block recomputing the scores over the whole Dh); any
+other Dh runs zero-padded to the next of them, or to a multiple of 128,
+with the scale of the true Dh (:func:`run_padded`, shared with kernel 4).
 """
 
 from __future__ import annotations
@@ -39,15 +41,19 @@ from valle_tpu_torch.ops.philox import dropout_keep_mask, keep_threshold
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the head dims kernels 2-4 are instantiated for
+SPLIT_HEAD_DIM = 128  # the chunk of the split instantiations (csrc: kSplitDh)
 
 
 def kernel_head_dim(dh: int) -> int:
-    """The instantiated head dim that kernels 2-4 run a head dim of ``dh``
-    at: the next of ``KERNEL_HEAD_DIMS``."""
+    """The head dim that kernels 2-4 run a head dim of ``dh`` at: the next
+    of ``KERNEL_HEAD_DIMS``, or above 128 the next multiple of
+    ``SPLIT_HEAD_DIM`` (the split instantiations)."""
+    if dh < 1:
+        raise ValueError(f"head dim {dh}: must be positive")
     for n in KERNEL_HEAD_DIMS:
         if dh <= n:
             return n
-    raise ValueError(f"head dim {dh}: kernels 2-4 take head dims up to {KERNEL_HEAD_DIMS[-1]}")
+    return -(-dh // SPLIT_HEAD_DIM) * SPLIT_HEAD_DIM
 
 
 def run_padded(launch, padded, *args, n_sliced: int):
@@ -199,9 +205,8 @@ def _check_cuda(q, k, v, kv_bias) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k, v must share float32 or bfloat16, "
                          f"got {q.dtype} {k.dtype} {v.dtype}")
-    kernel_head_dim(q.shape[-1])  # raises above 128
-    if q.shape[1] == 0 or k.shape[1] == 0:
-        raise ValueError("empty sequence")
+    if q.shape[1] == 0 or k.shape[1] == 0 or q.shape[-1] == 0:
+        raise ValueError("empty sequence or head")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")

@@ -11,6 +11,16 @@ PyTorch version.
 
 The JAX kernel rounds q and K to bf16 for the TPU's matrix unit; the CUDA
 kernel computes in f32 from the stored type, like the reference.
+
+Head dims: the kernel's lane layouts take heads of whole 16-byte chunks up
+to Dh 1024 (``MAX_HEAD_DIM``) and any number of heads (a row of more head
+groups than a block has warps is cut into head slices); a head above 1024
+elements takes the strided layout, one block per (split, slot, head), at
+any Dh and unpadded.  A head dim up to 1024 whose head is not a whole
+number of chunks (Dh 8 or 72 in an int8 cache) runs with q, k and v
+zero-padded to the next whole chunk (:func:`padded_head_dim`) and the true
+Dh's scale: zero columns change no score, and the padded output columns are
+sliced off.  That pad copies the cache at every call.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from valle_tpu_torch.ops import cuda_build
@@ -30,10 +41,15 @@ _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
     + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 10
-    + [ctypes.c_void_p]
+    + [ctypes.c_int] * 11
+    + [ctypes.c_float, ctypes.c_void_p]
 )
-MAX_HEAD_GROUPS = 16  # warps of a block, one per 512-byte head group of a cache row
+MAX_HEAD_GROUPS = 16  # warps of a block, one per 512-byte head group (kMaxWarps)
+WIDE_HEAD_GROUPS = 8  # the same for a layout of 32 accumulator floats per lane (kWideWarps)
+MAX_HEAD_DIM = 1024  # the lane layouts': 32 lanes x 8 chunks of 16 bytes in f32 (kMaxG)
+STRIDED_WARPS = 8  # warps of a strided-layout block (kWideWarps), one head each
+STRIDED_COLS = 32  # columns of a strided-layout tile (kStridedCols)
+MAX_GRID_Z = 65535  # the grid's z dimension (head slices), at most
 BLOCKS_PER_SM = 2  # the split-K grid's target size over the card's SMs at B > 1 (1 at B = 1)
 MIN_SPLIT_COLS = 4
 COLS_PER_WARP = 8  # columns a warp takes from each stage (kMaxColsPerWarp), at most
@@ -46,8 +62,9 @@ class SplitPlan(NamedTuple):
     ``split_cols`` columns per block (the last split of a slot may be
     shorter), ``n_splits`` splits per slot, ``stage_cols`` columns per stage
     of the shared-memory ring, of which each warp takes ``cols_per_warp``,
-    ``n_groups`` head groups per row and ``warps_per_group`` warps on each
-    head group (``stage_cols = cols_per_warp * warps_per_group``)."""
+    ``n_groups`` head groups per block and ``warps_per_group`` warps on
+    each head group (``stage_cols = cols_per_warp * warps_per_group``), and
+    ``n_slices`` head slices of a row, each a block of its own."""
 
     split_cols: int
     n_splits: int
@@ -55,42 +72,73 @@ class SplitPlan(NamedTuple):
     cols_per_warp: int
     n_groups: int
     warps_per_group: int
+    n_slices: int
+
+
+def padded_head_dim(dh: int, kv_bytes: int) -> int:
+    """The head dim kernel 1 runs ``dh`` at: the next whole number of
+    16-byte chunks of ``kv_bytes``-byte elements where that is a lane
+    layout's (at most ``MAX_HEAD_DIM``), else ``dh`` itself (the strided
+    layout reads single elements)."""
+    per_chunk = 16 // kv_bytes
+    padded = -(-dh // per_chunk) * per_chunk
+    return padded if padded <= MAX_HEAD_DIM else dh
 
 
 def split_plan(b: int, cap: int, h: int, dh: int, kv_bytes: int, sms: int) -> SplitPlan:
     """The kernel's plan for a (B, C, H, Dh) cache of ``kv_bytes``-byte
-    elements on a card with ``sms`` SMs.  It depends on the shapes only,
-    never on the lengths, so a launch needs no host read.
+    elements on a card with ``sms`` SMs (Dh already padded: a whole number
+    of 16-byte chunks, or any Dh above ``MAX_HEAD_DIM``).  It depends on
+    the shapes only, never on the lengths, so a launch needs no host read.
+
+    Above ``MAX_HEAD_DIM`` the plan is the strided layout's: a block of
+    ``STRIDED_WARPS`` warps per (split, slot, head), so ``n_slices = h``,
+    one head group, tiles of ``STRIDED_COLS`` columns and no ring in shared
+    memory; the splits are cut as below with the heads in place of slices.
 
     A head of Dh elements is G = Dh * kv_bytes / 16 chunks of 16 bytes; it
-    takes LPH lanes (G rounded up to a power of two, at most 32), so a
-    512-byte head group holds 32 / LPH heads.  The grid is about
-    ``BLOCKS_PER_SM`` blocks per SM at B > 1 and one at B = 1: a split is
-    floor(C / n) columns, at least ``MIN_SPLIT_COLS``, for n = ceil(blocks
-    per SM * SMs / B).  (At B = 1, two blocks per SM were slower in probes: splits
-    of 2-3 columns at C = 768, whose partials cost the combine more than the
-    grid gains.)  A warp takes up to ``COLS_PER_WARP`` columns of each stage:
-    a whole split in one stage where that fits, else as many as let the
-    ``STAGES`` stages of every block of the grid fit the SMs' shared memory
-    at once."""
-    if dh % 16 or not 16 <= dh <= 256:
-        raise ValueError(f"head dim {dh}: kernel 1 takes multiples of 16 up to 256")
+    takes LPH lanes (G rounded up to a power of two, at most 32), each CPH
+    chunks (1, or G / 32 rounded up to a power of two), so a 512-byte head
+    group holds 32 / LPH heads.  A block takes at most ``MAX_HEAD_GROUPS``
+    head groups (``WIDE_HEAD_GROUPS`` where a lane holds 32 accumulator
+    floats); a row of more is cut into ``n_slices`` slices of equal groups.
+    The grid is about ``BLOCKS_PER_SM`` blocks per SM at B > 1 and one at B
+    = 1: a split is floor(C / n) columns, at least ``MIN_SPLIT_COLS``, for n
+    = ceil(blocks per SM * SMs / (B * slices)).  (At B = 1, two blocks per
+    SM were slower in probes: splits of 2-3 columns at C = 768, whose
+    partials cost the combine more than the grid gains.)  A warp takes up
+    to ``COLS_PER_WARP`` columns of each stage: a whole split in one stage
+    where that fits, else as many as let the ``STAGES`` stages of every
+    block of the grid fit the SMs' shared memory at once."""
+    per_sm = 1 if b == 1 else BLOCKS_PER_SM
+    if dh > MAX_HEAD_DIM:  # the strided layout
+        if h > MAX_GRID_Z:  # d above 67 M: no card holds such a model
+            raise ValueError(f"{h} heads of Dh {dh}: kernel 1 takes at most {MAX_GRID_Z}")
+        split_cols = max(MIN_SPLIT_COLS, cap // -(-per_sm * sms // (b * h)))
+        return SplitPlan(split_cols, -(-cap // split_cols), STRIDED_COLS,
+                         STRIDED_COLS // STRIDED_WARPS, 1, STRIDED_WARPS, h)
+    if dh < 1 or dh * kv_bytes % 16:
+        raise ValueError(f"head dim {dh}: kernel 1's lane layouts take whole 16-byte chunks "
+                         "per head (pad with padded_head_dim first)")
     g = dh * kv_bytes // 16
     lanes_per_head = min(32, 1 << (g - 1).bit_length())
-    n_groups = -(-h // (32 // lanes_per_head))
-    if n_groups > MAX_HEAD_GROUPS:
-        raise ValueError(f"{h} heads of dim {dh} need {n_groups} head groups per cache row; "
-                         f"kernel 1 takes at most {MAX_HEAD_GROUPS}")
+    per_lane = 1 << (-(-g // lanes_per_head) - 1).bit_length()
+    max_groups = WIDE_HEAD_GROUPS if per_lane * 16 // kv_bytes > 16 else MAX_HEAD_GROUPS
+    heads_per_group = 32 // lanes_per_head
+    groups = -(-h // heads_per_group)
+    n_slices = -(-groups // max_groups)
+    n_groups = -(-groups // n_slices)
+    slice_heads = h if n_slices == 1 else n_groups * heads_per_group
     warps_per_group = max(1, 8 // n_groups)
-    col_bytes = 2 * h * dh * kv_bytes + (8 * h if kv_bytes == 1 else 0) + 4  # K, V, scales, bias
-    per_sm = 1 if b == 1 else BLOCKS_PER_SM
-    split_cols = max(MIN_SPLIT_COLS, cap // -(-per_sm * sms // b))
+    # K and V of the slice's heads, the scales of all H heads, the bias
+    col_bytes = 2 * slice_heads * dh * kv_bytes + (8 * h if kv_bytes == 1 else 0) + 4
+    split_cols = max(MIN_SPLIT_COLS, cap // -(-per_sm * sms // (b * n_slices)))
     n_splits = -(-cap // split_cols)
     # the rings of the whole grid in one wave of the SMs' shared memory; 64 and
     # 96 bytes of slack cover the 16-byte alignment of each stage's arrays.  A
     # split that fits one stage is read in one tile (and the kernel allocates
     # one stage); longer ones stream through STAGES stages.
-    budget = SMEM_BYTES // -(-b * n_splits // sms) - 64
+    budget = SMEM_BYTES // -(-b * n_splits * n_slices // sms) - 64
     one_tile = -(-split_cols // warps_per_group)
     if one_tile <= COLS_PER_WARP and one_tile * warps_per_group * col_bytes + 96 <= budget:
         cols_per_warp = one_tile
@@ -98,13 +146,20 @@ def split_plan(b: int, cap: int, h: int, dh: int, kv_bytes: int, sms: int) -> Sp
         cols_per_warp = max(1, min(COLS_PER_WARP,
                                    budget // (STAGES * warps_per_group * col_bytes + 96)))
     return SplitPlan(split_cols, n_splits, cols_per_warp * warps_per_group, cols_per_warp,
-                     n_groups, warps_per_group)
+                     n_groups, warps_per_group, n_slices)
 
 
 @functools.lru_cache(maxsize=None)
 def _cached_plan(b, cap, h, dh, kv_bytes, device_index) -> SplitPlan:
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return split_plan(b, cap, h, dh, kv_bytes, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_scale(dh: int) -> float:
+    """1 / sqrt(dh) in f32 arithmetic: the logits' scale of the true head
+    dim, which a zero-padded launch passes to the kernel."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,16 +170,17 @@ def _launcher():
 
 
 def ragged_decode_attention_reference(
-    q, k, v, lengths, bias=None, k_scale=None, v_scale=None
+    q, k, v, lengths, bias=None, k_scale=None, v_scale=None, scale=None
 ) -> torch.Tensor:
     """Plain PyTorch version (the twin of the JAX
     ``ragged_decode_attention_reference``): dense f32 math plus the hard
-    length clip.  Returns (B, 1, H, Dh) f32."""
+    length clip; ``scale`` defaults to 1 / sqrt(Dh).  Returns (B, 1, H, Dh)
+    f32."""
     if q.dim() == 4:
         q = q[:, 0]
-    dh = q.shape[-1]
     cap = k.shape[1]
-    logits = torch.einsum("bhd,bchd->bhc", q.float(), k.float()) / math.sqrt(dh)
+    logits = torch.einsum("bhd,bchd->bhc", q.float(), k.float())
+    logits = logits / math.sqrt(q.shape[-1]) if scale is None else logits * scale
     if k_scale is not None:
         logits = logits * k_scale.transpose(1, 2)
     if bias is not None:
@@ -180,8 +236,12 @@ def ragged_decode_attention(
     if kv_code is None or v.dtype != k.dtype:
         raise ValueError(f"k, v must share int8, float32 or bfloat16, got {k.dtype} {v.dtype}")
     device = q.device
-    plan = _cached_plan(b, cap, h, dh, k.element_size(), device.index)
-    if q.stride(-1) != 1 or q.stride(-2) != dh:
+    scale = _f32_scale(dh)
+    dhp = padded_head_dim(dh, k.element_size())
+    if dhp != dh:  # zero columns: the scores and the first dh outputs do not change
+        q, k, v = (torch.nn.functional.pad(x, (0, dhp - dh)) for x in (q, k, v))
+    plan = _cached_plan(b, cap, h, dhp, k.element_size(), device.index)
+    if q.stride(-1) != 1 or q.stride(-2) != dhp:
         raise ValueError(f"q: the (H, Dh) axes must be contiguous, got strides {q.stride()}")
     k_ptr, v_ptr = k.data_ptr(), v.data_ptr()
     if not (k.is_contiguous() and v.is_contiguous()) or (k_ptr | v_ptr) % 16:
@@ -197,19 +257,20 @@ def ragged_decode_attention(
     if k.device != device or v.device != device or lengths.device != device:
         raise ValueError(f"all inputs must be on {device}")
 
-    out = torch.empty((b, 1, h, dh), dtype=torch.float32, device=device)
-    partials = torch.empty(b * plan.n_splits * h * (dh + 2), dtype=torch.float32, device=device)
+    out = torch.empty((b, 1, h, dhp), dtype=torch.float32, device=device)
+    partials = torch.empty(b * plan.n_splits * h * (dhp + 2), dtype=torch.float32, device=device)
     err = _launcher()(
         q.data_ptr(), q.stride(0), q_code, k_ptr, v_ptr, kv_code,
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         None if bias is None else bias.data_ptr(), lengths.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), b, cap, h, dh, *plan, torch._C._cuda_getCurrentRawStream(device.index),
+        out.data_ptr(), b, cap, h, dhp, *plan, scale,
+        torch._C._cuda_getCurrentRawStream(device.index),
     )
     if err != 0:
         raise RuntimeError(f"ragged_decode kernel launch failed: cudaError {err}")
     ragged_decode_attention.launches += 1
-    return out
+    return out if dhp == dh else out[..., :dh].contiguous()
 
 
 ragged_decode_attention.launches = 0
