@@ -15,7 +15,8 @@ ends the run with a non-zero exit code):
      and per attention kernel (forward and backward) its registers, spills
      and tensor-core (HMMA) instructions: every forward kernel and backward
      pass (the split instantiations of head dims above 128 too) must use the
-     tensor cores and none may spill; per kernel 1 instantiation (split and
+     tensor cores and none may spill (the wide passes of the backward at Dh
+     256 too); per kernel 1 instantiation (split and
      combine kernels, lane layouts up to 8 chunks per lane, the strided
      layout of heads past 1024 and its combine) its registers, spills and
      I2F instructions: none may spill, and no int8-cache instantiation may
@@ -41,13 +42,17 @@ ends the run with a non-zero exit code):
      bit-equal reruns; then kernels 2, 3 and 4, forward and backward, at
      head dims 16, 32, 48, 72, 96, 128, 144, 192, 256, 512 and 1024 on a
      small shape (48, 72, 96, 144 and 192 through the wrappers' zero padding;
-     past 128 the split instantiations), likewise; kernel 1 at head dims 8,
+     past 128 the split instantiations, but the backward's wide passes at
+     256), likewise; kernel 1 at head dims 8,
      40, 72, 144, 192, 320, 512, 1100 and 2048 in int8 / f32 / bf16 caches
      (8, 40 and 72 in int8 through the wrapper's zero pad, its copy timed;
      1100 and 2048 through the strided layout, unpadded) and at 64 heads
      of Dh 64 in f32 (two head slices), likewise; kernels 2, 3 and 4 at 4
      heads of Dh 256 on the training shapes (dense T=880; the TTS decoder),
-     f32 and bf16, timed against their plain versions and SDPA;
+     f32 and bf16, timed against their plain versions and SDPA, with the
+     backward's device time per pass and each wide pass's registers, shared
+     memory and resident warps per SM (at least 8, no spill); kernel 1's
+     strided layout is timed against SDPA too;
   8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
      decode logits held against a CPU copy of the model, and timings; then
@@ -333,9 +338,10 @@ def ptxas_summary(log_path) -> dict:
     return {"max_registers": max(regs, default=0), "spill_bytes": sum(spills)}
 
 
-_ATTN_KERNEL = re.compile(r"(attn_bwd_dq(?:_split)?_kernel|attn_bwd_dkv(?:_split)?_kernel|"
-                          r"flash_bias_bwd_dq(?:_split)?_kernel|"
-                          r"flash_bias_bwd_dkv(?:_split)?_kernel|attn_bwd_delta_kernel|"
+_ATTN_KERNEL = re.compile(r"(attn_bwd_dq(?:_split|_wide)?_kernel|"
+                          r"attn_bwd_dkv(?:_split|_wide)?_kernel|"
+                          r"flash_bias_bwd_dq(?:_split|_wide)?_kernel|"
+                          r"flash_bias_bwd_dkv(?:_split|_wide)?_kernel|attn_bwd_delta_kernel|"
                           r"prefix_attention(?:_split)?_kernel|flash_bias_fwd(?:_split)?_kernel)"
                           r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
 
@@ -497,9 +503,28 @@ def ragged_inputs(dev, rng, b, c, h, dh, lens, cache):
     return (q, k, v, lengths, bias, None, None), (k, v)
 
 
-def check_ragged_decode(dev):
+def ragged_library_ms(args, kv_lib, lens, **timing) -> float:
+    """Kernel 1's yardstick: ms of one SDPA call on the same (dequantized)
+    data and mask (``ragged_inputs``' args and dequantized k and v), over
+    the slots of length > 0 (a length-0 slot has no finite column for
+    SDPA); ``timing``: ``cuda_time``'s options."""
     import torch
     from torch.nn import functional as F
+
+    q, lengths, bias = args[0], args[3], args[4]
+    k_lib, v_lib = kv_lib
+    col = torch.arange(bias.shape[1], device=q.device)[None, :]
+    mask = torch.where(col < lengths[:, None].long(), bias, float("-inf"))
+    live_slots = torch.tensor([i for i, n in enumerate(lens) if n > 0], device=q.device)
+    mask = mask[live_slots][:, None, None, :].to(q.dtype)
+    ql, kl, vl = (t[live_slots].transpose(1, 2).contiguous()
+                  for t in (q, k_lib.to(q.dtype), v_lib.to(q.dtype)))
+    return cuda_time(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
+                     **timing)["ms"]
+
+
+def check_ragged_decode(dev):
+    import torch
 
     from valle_tpu_torch.ops.ragged_decode import (
         _cached_plan, ragged_decode_attention, ragged_decode_attention_reference)
@@ -508,8 +533,8 @@ def check_ragged_decode(dev):
     results = []
     for name, b, c, h, dh, lens, caches in ragged_cases():
         for cache in caches:
-            args, (k_lib, v_lib) = ragged_inputs(dev, rng, b, c, h, dh, lens, cache)
-            q, k, lengths, bias = args[0], args[1], args[3], args[4]
+            args, kv_lib = ragged_inputs(dev, rng, b, c, h, dh, lens, cache)
+            q, k = args[0], args[1]
             tol = TOL["bfloat16" if cache == "bfloat16" else "float32"]
             op_type = "int8" if cache == "int8" else cache
             got = ragged_decode_attention(*args)
@@ -527,16 +552,7 @@ def check_ragged_decode(dev):
             timing = cuda_time(lambda: ragged_decode_attention(*args))
             timing["device_ms"] = device_ms(lambda: ragged_decode_attention(*args), RAGGED_NAMES)
             plain_ms = cuda_time(lambda: ragged_decode_attention_reference(*args), iters=20)["ms"]
-            # yardstick: one SDPA call on the same (dequantized) data and mask, over
-            # the slots of length > 0 (a length-0 slot has no finite column for SDPA)
-            col = torch.arange(c, device=dev)[None, :]
-            mask = torch.where(col < lengths[:, None].long(), bias, float("-inf"))
-            live_slots = torch.tensor([i for i, n in enumerate(lens) if n > 0], device=dev)
-            mask = mask[live_slots][:, None, None, :].to(q.dtype)
-            ql, kl, vl = (t[live_slots].transpose(1, 2).contiguous()
-                          for t in (q, k_lib.to(q.dtype), v_lib.to(q.dtype)))
-            library_ms = cuda_time(lambda: F.scaled_dot_product_attention(
-                ql, kl, vl, attn_mask=mask))["ms"]
+            library_ms = ragged_library_ms(args, kv_lib, lens)
             live = int(sum(min(max(n, 0), c) for n in lens))
             elem = k.element_size()
             n_bytes = (live * h * dh * 2 * elem + (live * h * 4 * 2 if cache == "int8" else 0)
@@ -550,7 +566,7 @@ def check_ragged_decode(dev):
                             "bound_by": bound_by,
                             "bound_share": bound_ms / timing["device_ms"]
                             if timing["device_ms"] else None})
-            del args, k_lib, v_lib, ql, kl, vl, mask
+            del args, kv_lib
     emit({"phase": "kernel1_ragged_decode", "device_ms_is": "split + combine kernels per call",
           "cases": results})
     return {r["case"]: r for r in results}
@@ -1103,15 +1119,46 @@ def _measure(case, call, want, rel, kernel_names, plain, library, n_bytes, n_ops
             "tflops": n_ops / timing["ms"] / 1e9}
 
 
+WIDE_MIN_WARPS = 8  # resident warps per SM that each wide backward pass must reach
+
+
+def wide_pass_resources(bwd_res, label: str, dtype: str, bias: bool, drop: bool,
+                        dkv: bool) -> dict:
+    """The build phase's registers, spills and HMMA of one wide backward
+    pass (kernels 3 and 4 at Dh 256) with, from the runtime
+    (``prefix_attention_bwd_wide_info``), its registers, local bytes,
+    dynamic shared memory, threads and resident blocks and warps per SM."""
+    import ctypes
+
+    from valle_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("prefix_attention_bwd").prefix_attention_bwd_wide_info
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 5)()
+    err = fn(0 if dtype == "float32" else 1, int(bias), int(drop), int(dkv), info)
+    assert err == 0, f"{label}: occupancy query failed: cudaError {err}"
+    regs, local, smem, threads, blocks = info
+    res = {**bwd_res[label], "runtime_registers": regs, "local_bytes": local,
+           "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
+           "warps_per_sm": blocks * threads // 32}
+    assert res["spill_bytes"] == 0 and local == 0, f"{label} spills: {res}"
+    assert res["warps_per_sm"] >= WIDE_MIN_WARPS, f"{label}: too few resident warps: {res}"
+    return res
+
+
 def check_dh256(dev, fwd_res, bwd_res) -> dict:
-    """Kernels 2, 3 and 4 at 4 heads of Dh 256 (the split tiles, paths v-x)
-    on the training shapes of phases 5-7: kernel 2's forward and kernel 3
-    on dense self-attention at T=880 (B=4, rate 0.1; the FLOPs of 16 heads of
-    Dh 64), kernel 4's forward and backward on the TTS decoder's causal +
-    padding bias (B=4, T=938), in f32 and bf16, each against its plain
-    version with a bit-equal rerun and timed against it and SDPA (forward,
-    or its backward) on the same dense mask; ``fwd_res`` / ``bwd_res``: the
-    build phase's registers, spills and HMMA per kernel."""
+    """Kernels 2, 3 and 4 at 4 heads of Dh 256 (kernel 2 and kernel 4's
+    forward in the split tiles, kernels 3 and 4's backward in the wide
+    passes; paths v-x) on the training shapes of phases 5-7: kernel 2's
+    forward and kernel 3 on dense self-attention at T=880 (B=4, rate 0.1;
+    the FLOPs of 16 heads of Dh 64), kernel 4's forward and backward on the
+    TTS decoder's causal + padding bias (B=4, T=938), in f32 and bf16, each
+    against its plain version with a bit-equal rerun and timed against it
+    and SDPA (forward, or its backward) on the same dense mask;
+    ``fwd_res`` / ``bwd_res``: the build phase's registers, spills and HMMA
+    per kernel, to which the wide passes add their shared memory and
+    resident warps (``wide_pass_resources``: at least ``WIDE_MIN_WARPS``, no
+    spill)."""
     import torch
     from torch.nn import functional as F
 
@@ -1152,18 +1199,22 @@ def check_dh256(dev, fwd_res, bwd_res) -> dict:
              fwd_res.get(f"prefix_attention_split_kernel<{dtype}{drop}>")})
         out, lse = fa._forward(*args, with_lse=True)
         kw = dict(prefix_s=None, dropout_rate=DROPOUT, dropout_seed=seed)
+        k3_call = lambda: fa.fused_prefix_attention_backward(  # noqa: E731
+            q, k, v, kb, out, dout, lse, **kw)
         results[f"kernel3 dense T={t} {dtype}"] = _measure(
-            f"kernel 3 dense self T={t} H={h} Dh={dh} rate {DROPOUT} {dtype}",
-            lambda: fa.fused_prefix_attention_backward(q, k, v, kb, out, dout, lse, **kw),
+            f"kernel 3 dense self T={t} H={h} Dh={dh} rate {DROPOUT} {dtype}", k3_call,
             fa.attention_backward_reference(q, k, v, kb, out, dout, lse, None, DROPOUT, seed),
             True, ["attn_bwd_"], lambda: fa.attention_backward_reference(
                 q, k, v, kb, out, dout, lse, None, DROPOUT, seed),
             sdpa_grad(q, k, v, dout, mask, DROPOUT),
             (q.numel() * 8 * q.element_size() + kb.numel() * 4 + TRAIN_B * h * t * 8),
             10.0 * TRAIN_B * h * dh * t * t, dtype,
-            {label: bwd_res.get(label) for label in (
-                f"attn_bwd_dq_split_kernel<{dtype}{drop}>",
-                f"attn_bwd_dkv_split_kernel<{dtype}{drop}>")})
+            {label: wide_pass_resources(bwd_res, label, dtype, False, True, dkv)
+             for label, dkv in ((f"attn_bwd_dq_wide_kernel<{dtype}{drop}>", False),
+                                (f"attn_bwd_dkv_wide_kernel<{dtype}{drop}>", True))})
+        results[f"kernel3 dense T={t} {dtype}"]["device_ms_by_pass"] = {
+            name: device_ms(k3_call, [name], iters=5)
+            for name in ("attn_bwd_delta", "attn_bwd_dq_wide", "attn_bwd_dkv_wide")}
         del q, k, v, dout, out, lse, mask, ql, kl, vl
         q, k, v, dout = (torch.from_numpy(rng.randn(TTS_B, TTS_T, h, dh).astype(np.float32))
                          .to(dev, dt) for _ in range(4))
@@ -1181,18 +1232,22 @@ def check_dh256(dev, fwd_res, bwd_res) -> dict:
             {f"flash_bias_fwd_split_kernel<{dtype}>":
              fwd_res.get(f"flash_bias_fwd_split_kernel<{dtype}>")})
         out, lse = fl._forward(q, k, v, dec, with_lse=True)
+        k4_call = lambda: fl.flash_attention_biased_backward(  # noqa: E731
+            q, k, v, dec, out, dout, lse)[:3]
         results[f"kernel4 decoder backward {dtype}"] = _measure(
-            f"kernel 4 backward TTS decoder B={TTS_B} T={TTS_T} H={h} Dh={dh} {dtype}",
-            lambda: fl.flash_attention_biased_backward(q, k, v, dec, out, dout, lse)[:3],
+            f"kernel 4 backward TTS decoder B={TTS_B} T={TTS_T} H={h} Dh={dh} {dtype}", k4_call,
             fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse)[:3], True,
             ["flash_bias_bwd_", "attn_bwd_delta"],
             lambda: fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse),
             sdpa_grad(q, k, v, dout, mask, 0.0),
             q.numel() * 8 * q.element_size() + dec.numel() * 4 + TTS_B * h * TTS_T * 8,
             10.0 * TTS_B * h * dh * TTS_T * TTS_T, dtype,
-            {label: bwd_res.get(label) for label in (
-                f"flash_bias_bwd_dq_split_kernel<{dtype}>",
-                f"flash_bias_bwd_dkv_split_kernel<{dtype}>")})
+            {label: wide_pass_resources(bwd_res, label, dtype, True, False, dkv)
+             for label, dkv in ((f"flash_bias_bwd_dq_wide_kernel<{dtype}>", False),
+                                (f"flash_bias_bwd_dkv_wide_kernel<{dtype}>", True))})
+        results[f"kernel4 decoder backward {dtype}"]["device_ms_by_pass"] = {
+            name: device_ms(k4_call, [name], iters=5)
+            for name in ("attn_bwd_delta", "flash_bias_bwd_dq_wide", "flash_bias_bwd_dkv_wide")}
         del q, k, v, dout, out, lse, mask, ql, kl, vl
     emit({"phase": "kernels_2_3_4_dh256", "cases": list(results.values())})
     return results
@@ -1230,7 +1285,7 @@ def check_ragged_head_dims(dev):
     results = []
     for name, b, c, h, dh, caches in cases:
         for cache in caches:
-            args, _ = ragged_inputs(dev, rng, b, c, h, dh, RAGGED_HEAD_DIM_LENS, cache)
+            args, kv_lib = ragged_inputs(dev, rng, b, c, h, dh, RAGGED_HEAD_DIM_LENS, cache)
             tol = TOL["bfloat16" if cache == "bfloat16" else "float32"]
             got = ragged_decode_attention(*args)
             again = ragged_decode_attention(*args)
@@ -1255,17 +1310,19 @@ def check_ragged_head_dims(dev):
                    "max_abs_err": err, "tol": tol, "bit_equal_rerun": True,
                    "ms": cuda_time(lambda: ragged_decode_attention(*args), iters=10,
                                    windows=3)["ms"], "bound_ms": bound_ms, "bound_by": bound_by}
-            if dh > 1024:  # the strided layout: device time and the plain version's
+            if dh > 1024:  # the strided layout: device time, the plain version's, SDPA's
                 res["device_ms"] = device_ms(lambda: ragged_decode_attention(*args),
                                              RAGGED_NAMES)
                 res["plain_ms"] = cuda_time(lambda: ragged_decode_attention_reference(*args),
                                             iters=10, windows=3)["ms"]
+                res["library_ms"] = ragged_library_ms(args, kv_lib, RAGGED_HEAD_DIM_LENS,
+                                                      iters=10, windows=3)
             if dhp != dh:
                 res["pad_copy_ms"] = cuda_time(lambda: [F.pad(x, (0, dhp - dh))
                                                         for x in args[:3]], iters=10,
                                                windows=3)["ms"]
             results.append(res)
-            del args
+            del args, kv_lib
     emit({"phase": "kernel1_head_dims", "cases": results})
 
 
@@ -4950,8 +5007,9 @@ def main() -> int:
     assert len(fwd) == 30, f"expected 30 forward kernels, found {sorted(fwd)}"
     assert all(r["hmma"] > 0 for r in fwd.values()), "a forward kernel runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in fwd.values()), "ptxas spills in the forward"
+    # kernels 3 / 4: 60 of Dh 16-128 and split, 12 wide passes of Dh 256
     passes = {n: r for n, r in bwd.items() if "delta" not in n}
-    assert len(passes) == 60, f"expected 60 backward pass kernels, found {sorted(passes)}"
+    assert len(passes) == 72, f"expected 72 backward pass kernels, found {sorted(passes)}"
     assert all(r["hmma"] > 0 for r in passes.values()), "a backward pass runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in bwd.values()), "ptxas spills in the backward"
     k1 = check_ragged_decode(dev)
@@ -4996,7 +5054,8 @@ def main() -> int:
         return {"case": res["case"], "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "ms_spread": [res["ms_min"], res["ms_max"]], "device_ms": res["device_ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+                "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+                **({"cuda_kernels": sorted(res["kernels"])} if "kernels" in res else {})}
 
     def entry(name, source, replaces, res, path, dh256):
         by_path = {p: counts[name] for p, counts in paths.items()}

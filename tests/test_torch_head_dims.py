@@ -5,11 +5,14 @@ head groups) and the zero padding of the wrappers run, against the JAX
 package on the same numpy inputs, and the models at 2 heads of Dh 256.
 
   - Kernels 2 and 3 (``fused_prefix_attention``) through ``run_padded`` at
-    Dh 72, 144, 256 and 512 (padded to 128, 256, 256 and 512) against JAX's
-    Pallas kernel in interpret mode at dropout 0 (output 2e-5, gradients
-    1e-5: f32 summation order, as tests/test_torch_attention_grad.py), and
-    at dropout 0.1 against JAX's ``_xla_attention`` with the port's Philox
-    keep mask injected for ``jax.random.bernoulli`` (the same bars).
+    Dh 72, 144, 192, 256 and 512 (padded to 128, 256, 256, 256 and 512:
+    each route of the backward on the card, whole, the wide passes of Dh
+    256 and the split tiles above it) against JAX's Pallas kernel in
+    interpret mode at dropout 0 (output 2e-5, gradients 1e-5: f32
+    summation order, as tests/test_torch_attention_grad.py), and at dropout
+    0.1 against JAX's ``_xla_attention`` with the port's Philox keep mask
+    injected for ``jax.random.bernoulli`` (the same bars), in prefix mode
+    and in dense cross-attention (Tq != Tk).
   - Kernel 4 (``flash_attention_biased``, a causal + padding bias per batch
     row and a soft bias per head) through ``run_padded`` at the same head
     dims against JAX's library flash kernel in interpret mode: output 1e-5,
@@ -65,7 +68,7 @@ from valle_tpu_torch.sample import generate
 from valle_tpu_torch.utils.bridge import numpy_state_dict_from_jax, state_dict_from_jax
 from tests.test_torch_stall_guard import stall_guard
 
-HEAD_DIMS = [72, 144, 256, 512]
+HEAD_DIMS = [72, 144, 192, 256, 512]
 
 _stall_guard = stall_guard(300)
 
@@ -116,7 +119,7 @@ def _check(got_out, got_grads, want_out, want_grads):
 @pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_kernels_2_3_match_jax_at_dropout_0(dh):
     q, k, v, dout, bias, s = _prefix_case(dh)
-    assert kernel_head_dim(dh) == {72: 128, 144: 256, 256: 256, 512: 512}[dh]
+    assert kernel_head_dim(dh) == {72: 128, 144: 256, 192: 256, 256: 256, 512: 512}[dh]
 
     def f(a, b_, c, d):
         out, vjp = jax.vjp(lambda a, b_, c: jax_fused(a, b_, c, jnp.asarray(bias), prefix_s=s,
@@ -127,15 +130,28 @@ def test_kernels_2_3_match_jax_at_dropout_0(dh):
     _check(*_padded_plain_fused(q, k, v, dout, bias, s), want_out, want_grads)
 
 
-@pytest.mark.parametrize("dh", [144, 256])
-def test_kernels_2_3_match_jax_on_the_injected_dropout_mask(dh, monkeypatch):
-    q, k, v, dout, bias, s = _prefix_case(dh)
+def _cross_case(dh, tq):
+    """(q, k, v, dout, (B, Tk) key bias, None): ``tq`` query rows against
+    the keys of ``_prefix_case``, dense (cross-attention)."""
+    q, k, v, dout, bias, _ = _prefix_case(dh)
+    return np.ascontiguousarray(q[:, :tq]), k, v, np.ascontiguousarray(dout[:, :tq]), bias, None
+
+
+@pytest.mark.parametrize("dh,tq", [(144, None), (192, None), (256, None), (512, None), (256, 9)],
+                         ids=["144", "192", "256", "512", "256-cross-tq9"])
+def test_kernels_2_3_match_jax_on_the_injected_dropout_mask(dh, tq, monkeypatch):
+    """Prefix mode (``tq`` None), or dense cross-attention of ``tq`` rows."""
+    q, k, v, dout, bias, s = _prefix_case(dh) if tq is None else _cross_case(dh, tq)
     rate, seed = 0.1, 987654321
-    b, t, h, _ = q.shape
-    keep = dropout_keep_mask(seed, b, h, t, t, rate).numpy()
+    b, tq_, h, _ = q.shape
+    t = k.shape[1]
+    keep = dropout_keep_mask(seed, b, h, tq_, t, rate).numpy()
     assert 0 < keep.mean() < 1
     monkeypatch.setattr(jax.random, "bernoulli", lambda key, p, shape: jnp.asarray(keep))
-    dense = jnp.asarray(np.asarray(jm.AttnMaskSpec(jnp.asarray(bias), s).dense(t)))
+    if s is None:
+        dense = jnp.asarray(bias)[:, None, None, :]
+    else:
+        dense = jnp.asarray(np.asarray(jm.AttnMaskSpec(jnp.asarray(bias), s).dense(t)))
     out, vjp = jax.vjp(
         lambda a, b_, c: jax_xla_attention(a, b_, c, dense, rate, jax.random.PRNGKey(0), False),
         *(jnp.asarray(x) for x in (q, k, v)))

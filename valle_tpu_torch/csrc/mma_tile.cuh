@@ -154,16 +154,17 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 
 // ------------------------------------------------------------ tile products
 
-// acc[n] += X Y^T over Dh for a warp: X the 16 rows at x (row-major, stride
-// LDT), Y the NT * 8 rows at y.  acc[n] is the m16n8 C fragment of columns
-// 8n .. 8n + 7: lane (g = lane / 4, t = lane % 4) holds rows g, g + 8 and
-// columns 2t, 2t + 1.  kF32Sum (f32): each k step of 8 sums into a zeroed
-// fragment that is added to acc in f32, as in mma_fz; the split tiles sum
-// S over Dh chunk by chunk, and at Dh 256 the tensor cores' truncated sums
-// over 96 products per score held the TTS's gradients 1.1x over their bar.
-template <typename T, int DH, int NT, bool kF32Sum = false>
+// acc[n] += X Y^T over DH columns for a warp: X the 16 rows at x
+// (row-major, stride LDT), Y the NT * 8 rows at y.  acc[n] is the m16n8 C
+// fragment of columns 8n .. 8n + 7: lane (g = lane / 4, t = lane % 4) holds
+// rows g, g + 8 and columns 2t, 2t + 1.  kF32Sum (f32): each k step of 8
+// sums into a zeroed fragment that is added to acc in f32, as in mma_fz; the
+// split tiles sum S over Dh chunk by chunk, and at Dh 256 the tensor cores'
+// truncated sums over 96 products per score held the TTS's gradients 1.1x
+// over their bar.  LDT defaults to a DH-wide tile's; a wider tile passes its
+// own to sum over DH of its columns.
+template <typename T, int DH, int NT, bool kF32Sum = false, int LDT = row_stride<T, DH>()>
 __device__ __forceinline__ void mma_xyt(float (&acc)[NT][4], const T* x, const T* y, int lane) {
-  constexpr int LDT = row_stride<T, DH>();
   if constexpr (kF32<T>) {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll 2
@@ -246,22 +247,92 @@ __device__ __forceinline__ void mma_fz(float (&acc)[DH / 8][4], const float (&f)
   }
 }
 
+// acc[m][n] += X Z for a warp, both operands in shared memory: X the MT * 16
+// rows at x (row-major, stride LDX, K columns, already rounded like T), Z
+// the K rows at z (row-major, stride LDZ) of which the NT * 8 columns from z
+// are the output's.  f32 pairs k = t with column 2t of X (row 2t of Z) and
+// k = t + 4 with 2t + 1, so that X's fragment comes in two 8-byte loads
+// (conflict-free at LDX = 8 mod 32 words), and each k step of 8 sums into a
+// zeroed fragment that is added to acc in f32, as in mma_fz.  bf16: ldmatrix
+// for both (Z transposed), conflict-free where a row is an odd number of 16
+// bytes.
+template <typename T, int MT, int NT, int K, int LDX, int LDZ>
+__device__ __forceinline__ void mma_xz(float (&acc)[MT][NT][4], const T* x, const T* z,
+                                       int lane) {
+  if constexpr (kF32<T>) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2  // wholly unrolled at K = 32, the dK/dV pass spilled at 255 registers
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      SplitA a[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* xa = x + (16 * m + g) * LDX + k0 + 2 * t;
+        const float2 lo = *reinterpret_cast<const float2*>(xa);
+        const float2 hi = *reinterpret_cast<const float2*>(xa + 8 * LDX);
+        a[m] = split_a(lo.x, hi.x, lo.y, hi.y);
+      }
+      const float* zb = z + (k0 + 2 * t) * LDZ + g;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float b0 = zb[8 * n], b1 = zb[LDZ + 8 * n];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(part, a[m], b0, b1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] += part[e];
+        }
+      }
+    }
+  } else {
+    static_assert(NT % 2 == 0, "bf16 tiles pair their n8 tiles");
+    const int lr = lane & 7, mm = lane >> 3;
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        ldsm_x4(a[m], x + (16 * m + lr + (mm & 1) * 8) * LDX + k0 + (mm >> 1) * 8);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        unsigned b[4];
+        ldsm_x4_t(b, z + (k0 + (mm & 1) * 8 + lr) * LDZ + 8 * n + (mm >> 1) * 8);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_bf16(acc[m][n], a[m], b[0], b[1]);
+          mma_bf16(acc[m][n + 1], a[m], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// Two adjacent elements of a C fragment (columns 2t, 2t + 1 of a row) into
+// shared memory as T, at p (8-byte aligned in f32, 4-byte in bf16).
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float lo, float hi) {
+  if constexpr (kF32<T>)
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+  else
+    *reinterpret_cast<unsigned*>(p) = pack_bf16(lo, hi);
+}
+
 // Copy rows [r0, r0 + ROWS) of x (row stride x_st elements, Dh contiguous) into
 // s (row stride LDT); rows >= lim are zero.  vec: every row is 16-byte
 // aligned, so the copy is asynchronous (cp.async, completed by the caller's
-// wait); otherwise it is a plain copy.
-template <typename T, int DH, int ROWS>
+// wait); otherwise it is a plain copy.  NTHR: the block's threads.
+template <typename T, int DH, int ROWS, int NTHR = kMmaThreads>
 __device__ __forceinline__ void stage_rows(T* s, const T* x, long long x_st, int r0, int lim,
                                            bool vec) {
   constexpr int LDT = row_stride<T, DH>(), kVec = 16 / (int)sizeof(T), kChunks = DH / kVec;
   if (vec) {
-    for (int i = threadIdx.x; i < ROWS * kChunks; i += kMmaThreads) {
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += NTHR) {
       const int r = i / kChunks, ch = i % kChunks;
       const bool ok = r0 + r < lim;
       cp_async16(s + r * LDT + ch * kVec, ok ? x + (long long)(r0 + r) * x_st + ch * kVec : x, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * DH; i += kMmaThreads) {
+    for (int i = threadIdx.x; i < ROWS * DH; i += NTHR) {
       const int r = i / DH, d = i % DH;
       from_float(r0 + r < lim ? to_float(x[(long long)(r0 + r) * x_st + d]) : 0.f,
                  &s[r * LDT + d]);

@@ -84,29 +84,62 @@
 //      see it (prefix mode: rows >= c0 for a key tile at c0 >= prefix_s).
 //      P is recomputed in both passes.  S no longer follows the forward's
 //      FMA order, so P agrees with the forward's to f32 rounding.
-//   6. Head dims above 128 (the split instantiations, *_split_kernel), as in
-//      the forward (prefix_attention.cu, point 7): at Dh 256 the dK/dV
-//      pass's dK and dV accumulators alone would take 256 registers per
-//      thread, over the 255 a thread may hold, and whole-row tiles take 200
-//      KB of shared memory in f32 at Dh 256 and 396 KB at Dh 512.  dQ, dK
-//      and dV are separable over Dh, S and dP are not: a grid dimension
-//      takes the nc = Dh / 128 chunks (the wrapper zero-pads Dh to a
-//      multiple of 128), each block keeps Dh 128's accumulators and launch
-//      bounds, and every streamed tile takes nc steps of the ring, step i
-//      staging chunk i of both the block's own tiles (q and dO, or K and V,
-//      now two stages) and the streamed ones and adding its part of S and
-//      dP.  The tile's first step also stages the block's own chunk of the
-//      second products' operand (K for dQ; q and dO for dK / dV).  The
-//      dK/dV pass streams q tiles of dkv_rows() rows so that S^T and dP^T
-//      stay whole across the steps.  In f32 its chunk is 64 columns
-//      (dkv_split_dh(): at 128, dK and dV's 128 accumulator registers
-//      beside the ring's staging spilled), so its nc is Dh / 64 and its
-//      tiles are Dh 64's (16 q rows).  Shared memory: 185.9 / 104.7 KB (dQ /
-//      dK-dV) in f32, 95.7 / 104.7 KB in bf16, at any Dh.  S and dP's
-//      products run nc times: (2 nc + 1) / 3 of the dQ pass's operations
-//      and (2 nc + 2) / 4 of the dK/dV pass's (nc of 64 columns in f32).
-//      Only chunk 0 writes kernel 4's d(bias); every chunk sums S and dP in
-//      the same order.
+//   6. Head dim 256 (the wide passes, *_wide_kernel; the wrapper zero-pads Dh
+//      129-255 to 256).  The bound is the one above, 10 B H Dh operations
+//      per visible pair (dense B 4, T 880, H 4: 31.7 G a call, the Dh-64
+//      kernel's at 16 heads), and as at Dh <= 128 each pass computes S and
+//      dP once per (q tile, key tile) pair: no grid dimension over chunks of
+//      the output.  A 16-row warp's dK and dV at Dh 256 would take 256
+//      registers a thread, so a block is kWideWarps = 8 warps and every
+//      streamed tile takes two phases:
+//        phase A: warp w computes a 16 x 16 tile of S and dP (S^T and dP^T
+//          in the dK/dV pass) over Dh half w >> 2 (mma_xyt over 128 of the
+//          256 columns); warps w and w ^ 4 swap one n8 tile of partials
+//          through shared memory and each adds low half + high half for its
+//          own n8 tile (the reduction over Dh in two chunks, nothing
+//          computed twice), runs the element pass of point 3 on it in
+//          registers, and writes dS (Pd^T and dS^T), rounded like T, to a
+//          small tile;
+//        phase C, after one barrier: warp w owns output columns 32 w .. 32 w
+//          + 31 of the whole head and adds dS K (Pd^T dO and dS^T q) over
+//          all of the block's rows (keys), both operands read from shared
+//          memory (mma_xz).
+//      dQ pass: a block of 64 q rows holds q and dO whole and streams key
+//      tiles of 16 through two stages; a warp's dQ is 64 x 32 (64
+//      registers).  dK/dV pass: a block of 32 keys holds K and V whole and
+//      streams q tiles of 32 rows (with their LSE and delta) through two
+//      stages; a warp's dK and dV are 32 x 32 each (64 registers).  Shared
+//      memory: 209.0 / 213.5 KB (dQ / dK-dV) in f32, one block (8 warps) per
+//      SM; 110.0 / 112.5 KB in bf16, launch bounds of two blocks (16 warps)
+//      per SM (at most 128 registers).  Three barriers per streamed tile.
+//      Grids (Tq / 64, H, B) and (Tk / 32, H, B): at B 4, T 880, H 4 they
+//      are 224 and 448 blocks, 1.7 and 3.4 waves of 132 SMs in f32 and 0.85
+//      and 1.7 in bf16; the last partial wave is the tail, which nothing
+//      balances.  Bit-equal reruns: every sum has a fixed order (the two
+//      halves low + high; k steps in order, in f32 each into a zeroed
+//      fragment), no atomics, one writer per element of dq, dk, dv and
+//      d(bias).
+//   7. Head dims above 256 (384, 512, 1024: no shipped configuration) run
+//      the split instantiations (*_split_kernel), as in the forward
+//      (prefix_attention.cu, point 7): whole-row tiles take 396 KB
+//      of shared memory in f32 at Dh 512.  dQ, dK and dV are separable over
+//      Dh, S and dP are not: a grid dimension takes the nc = Dh / 128
+//      chunks (the wrapper zero-pads Dh to a multiple of 128), each block
+//      keeps Dh 128's accumulators and launch bounds, and every streamed
+//      tile takes nc steps of the ring, step i staging chunk i of both the
+//      block's own tiles (q and dO, or K and V, now two stages) and the
+//      streamed ones and adding its part of S and dP.  The tile's first
+//      step also stages the block's own chunk of the second products'
+//      operand (K for dQ; q and dO for dK / dV).  The dK/dV pass streams q
+//      tiles of dkv_rows() rows so that S^T and dP^T stay whole across the
+//      steps.  In f32 its chunk is 64 columns (dkv_split_dh(): at 128, dK
+//      and dV's 128 accumulator registers beside the ring's staging
+//      spilled), so its nc is Dh / 64 and its tiles are Dh 64's (16 q
+//      rows).  Shared memory: 185.9 / 104.7 KB (dQ / dK-dV) in f32, 95.7 /
+//      104.7 KB in bf16, at any Dh.  S and dP's products run nc times: (2
+//      nc + 1) / 3 of the dQ pass's operations and (2 nc + 2) / 4 of the
+//      dK/dV pass's (nc of 64 columns in f32).  Only chunk 0 writes kernel
+//      4's d(bias); every chunk sums S and dP in the same order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -618,6 +651,482 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
   }
 }
 
+// ------------------------------------------------------------ Dh 256
+
+// The wide passes (header point 6): Dh = kWideDh whole, kWideWarps warps a
+// block, S and dP computed once per (q tile, key tile) pair.
+constexpr int kWideDh = 256;
+constexpr int kWideHalf = kWideDh / 2;  // the Dh columns of a phase-A warp
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int WQ = 64;  // dQ pass: q rows of a block (4 m16 tiles)
+constexpr int WK = 16;  // dQ pass: keys of a streamed tile
+constexpr int WC = 32;  // dK/dV pass: keys of a block (2 m16 tiles)
+constexpr int WR = 32;  // dK/dV pass: q rows of a streamed tile
+constexpr int kXchg = 8 * 32;  // floats a warp hands its partner: 2 x 4 per lane
+
+// Blocks per SM that the launch bounds ask ptxas to fit: f32 takes one
+// (shared memory holds one block), bf16 two (at most 128 registers, no
+// spill; with one block of more registers both bf16 passes ran slower).
+template <typename T>
+constexpr int kWideMinBlocks = kF32<T> ? 1 : 2;
+
+// Row stride of the Pd^T / dS^T tiles (W columns): 8 elements past W, 8 mod
+// 32 words in f32 (W = 16, 32) and an odd number of 16-byte units in bf16.
+template <int W>
+__host__ __device__ constexpr int pd_stride() {
+  return W + 8;
+}
+
+// Shared memory of a wide pass: the exchange buffer, then the dQ pass's q
+// and dO (whole), two stages of K and V, and dS; or the dK/dV pass's K and V
+// (whole), two stages of q and dO, Pd^T and dS^T, and two stages of LSE and
+// delta.
+template <typename T, bool kDq>
+constexpr size_t wide_smem_bytes() {
+  constexpr size_t row = (size_t)row_stride<T, kWideDh>() * sizeof(T);
+  constexpr size_t xchg = (size_t)kWideWarps * kXchg * sizeof(float);
+  if constexpr (kDq) return xchg + (2 * WQ + 4 * WK) * row + WQ * pd_stride<WK>() * sizeof(T);
+  return xchg + 4 * WR * sizeof(float) + (2 * WC + 4 * WR) * row +
+         2 * WC * pd_stride<WR>() * sizeof(T);
+}
+
+// Phase A of a wide pass splits Dh between warps w and w ^ 4 (half = w >> 2),
+// each holding a 16 x 16 partial of S and dP (two n8 tiles) over its 128
+// columns.  The element pass of n8 tile `half` is the warp's own: it hands
+// the other tile to its partner through sx, takes the partner's, and adds
+// the two halves low + high, in that order, into s1 / dp1.
+__device__ __forceinline__ void wide_exchange_give(float* sx, const float (&s)[2][4],
+                                                   const float (&dp)[2][4], int half, int warp,
+                                                   int lane) {
+  float* o = sx + warp * kXchg + lane;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    o[32 * e] = half ? s[0][e] : s[1][e];
+    o[32 * (4 + e)] = half ? dp[0][e] : dp[1][e];
+  }
+}
+
+__device__ __forceinline__ void wide_exchange_take(const float* sx, const float (&s)[2][4],
+                                                   const float (&dp)[2][4], int half, int warp,
+                                                   int lane, float (&s1)[4], float (&dp1)[4]) {
+  const float* o = sx + (warp ^ 4) * kXchg + lane;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float rs = o[32 * e], rd = o[32 * (4 + e)];
+    s1[e] = half ? rs + s[1][e] : s[0][e] + rs;
+    dp1[e] = half ? rd + dp[1][e] : dp[0][e] + rd;
+  }
+}
+
+// The dQ pass of one (64-row q tile, head, batch) at Dh 256, arguments as
+// attn_bwd_dq_tile.  q and dO stay whole; key tiles of 16 stream through two
+// stages.  Per tile: warp w computes S and dP for rows 16 (w & 3) .. +15
+// over Dh half w >> 2 (phase A), the element pass of its n8 tile writes dS
+// (and kernel 4's d(bias)), and after a barrier warp w adds dS K to dQ's
+// columns 32 w .. 32 w + 31 for all 64 rows (phase C).
+template <typename T, bool kDrop, bool kBias>
+__device__ __forceinline__ void attn_bwd_dq_wide(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, Bias bias, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
+    float* __restrict__ dbias, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
+    bool vec) {
+  static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
+  constexpr int DH = kWideDh, LDW = row_stride<T, DH>(), LDS = pd_stride<WK>();
+  constexpr int TILE = WK * LDW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sX = reinterpret_cast<float*>(smem_raw);                // [warps][kXchg]
+  T* sQ = reinterpret_cast<T*>(sX + kWideWarps * kXchg);         // [WQ][LDW]
+  T* sDO = sQ + WQ * LDW;                                         // [WQ][LDW]
+  T* sK = sDO + WQ * LDW;                                         // [2][WK][LDW]
+  T* sV = sK + 2 * TILE;                                          // [2][WK][LDW]
+  T* sDS = sV + 2 * TILE;                                         // [WQ][LDS]
+
+  const int r0 = blockIdx.x * WQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int half = warp >> 2, wr = 16 * (warp & 3);  // phase A: Dh half, first row
+  const unsigned bh = (unsigned)(b * H + h);
+  const long long bh4 = (long long)b * H + h;
+  int kend = Tk;
+  if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + WQ));
+  const int n_tiles = (kend + WK - 1) / WK;
+
+  const T* qb = q + (long long)b * q_sb + (long long)h * DH;
+  const T* dob = dout + (long long)b * Tq * H * DH + (long long)h * DH;
+  const T* kb = k + (long long)b * k_sb + (long long)h * DH;
+  const T* vb = v + (long long)b * v_sb + (long long)h * DH;
+  const float* bb = nullptr;
+  if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
+
+  stage_rows<T, DH, WQ, kWideThreads>(sQ, qb, q_st, r0, Tq, vec);
+  stage_rows<T, DH, WQ, kWideThreads>(sDO, dob, (long long)H * DH, r0, Tq, vec);
+  stage_rows<T, DH, WK, kWideThreads>(sK, kb, k_st, 0, kend, vec);
+  stage_rows<T, DH, WK, kWideThreads>(sV, vb, v_st, 0, kend, vec);
+  cp_async_commit();
+
+  const int ra = r0 + wr + g, rb = ra + 8;
+  const float lse_a = ra < Tq ? lse[bh4 * Tq + ra] : 0.f;
+  const float lse_b = rb < Tq ? lse[bh4 * Tq + rb] : 0.f;
+  const float dl_a = ra < Tq ? delta[bh4 * Tq + ra] : 0.f;
+  const float dl_b = rb < Tq ? delta[bh4 * Tq + rb] : 0.f;
+
+  float acc[WQ / 16][4][4];  // dQ: the block's rows x the warp's 32 columns
+#pragma unroll
+  for (int m = 0; m < WQ / 16; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * WK, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it is in; every warp is past tile it - 1's phase C
+    if (it + 1 < n_tiles) {  // the next K / V tile loads while this one computes
+      stage_rows<T, DH, WK, kWideThreads>(sK + (st ^ 1) * TILE, kb, k_st, k0 + WK, kend, vec);
+      stage_rows<T, DH, WK, kWideThreads>(sV + (st ^ 1) * TILE, vb, v_st, k0 + WK, kend, vec);
+      cp_async_commit();
+    }
+    const T* cK = sK + st * TILE;
+    const T* cV = sV + st * TILE;
+    const int cn = k0 + 8 * half;  // the first column of the warp's element-pass tile
+    unsigned keep_a = 0xFu, keep_b = 0xFu;
+    if constexpr (kDrop) {
+      // lane L draws (row wr + L % 16, group L / 16) of this 16 x 8 tile
+      const unsigned w = philox_keep4((unsigned)(cn >> 2) + (lane >> 4),
+                                      (unsigned)(r0 + wr + (lane & 15)), bh, drop.seed,
+                                      drop.threshold);
+      keep_a = __shfl_sync(0xffffffffu, w, (t >> 1) * 16 + g) >> (2 * (t & 1));
+      keep_b = __shfl_sync(0xffffffffu, w, (t >> 1) * 16 + g + 8) >> (2 * (t & 1));
+    }
+    float add[4];  // kernel 4's biases, read before the products
+    if constexpr (kBias) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        add[e] = bias_at(bb, bias, e < 2 ? ra : rb, cn + 2 * t + (e & 1), Tq, Tk);
+    }
+
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    const int dh0 = half * kWideHalf;
+    mma_xyt<T, kWideHalf, 2, true, LDW>(s, sQ + wr * LDW + dh0, cK + dh0, lane);    // S = q k^T
+    mma_xyt<T, kWideHalf, 2, true, LDW>(dp, sDO + wr * LDW + dh0, cV + dh0, lane);  // dPd
+    wide_exchange_give(sX, s, dp, half, warp, lane);
+    __syncthreads();
+    float s1[4], dp1[4];
+    wide_exchange_take(sX, s, dp, half, warp, lane, s1, dp1);
+
+    // element pass: s1 becomes dS, rounded like T
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e < 2 ? ra : rb, c = cn + 2 * t + (e & 1);
+      const float lr = e < 2 ? lse_a : lse_b, dl = e < 2 ? dl_a : dl_b;
+      float ds;
+      if constexpr (kBias) {
+        const float x = (s1[e] + add[e]) * scale;
+        const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+        ds = (dp1[e] - dl) * p * scale;
+        if (dbias != nullptr && r < Tq && c < Tk) dbias[(bh4 * Tq + r) * Tk + c] = ds;
+      } else {
+        const float kvb = (kv_bias != nullptr && c < Tk) ? kv_bias[(long long)b * Tk + c] : 0.f;
+        const float x =
+            (c < kend && visible(r, c, Tq, Tk, prefix_s)) ? s1[e] * scale + kvb : -INFINITY;
+        const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+        float dpd = dp1[e];
+        if constexpr (kDrop) {
+          const bool keep = (((e < 2 ? keep_a : keep_b) >> (e & 1)) & 1u) != 0;
+          dpd = keep ? dpd * drop.inv_keep : 0.f;
+        }
+        ds = p * (dpd - dl);
+      }
+      s1[e] = round_like<T>(ds);
+    }
+    store_pair<T>(sDS + (wr + g) * LDS + 8 * half + 2 * t, s1[0], s1[1]);
+    store_pair<T>(sDS + (wr + g + 8) * LDS + 8 * half + 2 * t, s1[2], s1[3]);
+    __syncthreads();
+    mma_xz<T, WQ / 16, 4, WK, LDS, LDW>(acc, sDS, cK + 32 * warp, lane);  // dQ += dS k
+  }
+
+  const float post = kBias ? 1.f : scale;  // kernel 4's dS already carries the scale
+#pragma unroll
+  for (int m = 0; m < WQ / 16; ++m)
+#pragma unroll
+    for (int half2 = 0; half2 < 2; ++half2) {
+      const int r = r0 + 16 * m + g + 8 * half2;
+      if (r >= Tq) continue;
+      T* o = dq + (((long long)b * Tq + r) * H + h) * DH + 32 * warp + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        from_float(acc[m][n][2 * half2] * post, &o[8 * n]);
+        from_float(acc[m][n][2 * half2 + 1] * post, &o[8 * n + 1]);
+      }
+    }
+}
+
+// The dK/dV pass of one (32-column key tile, head, batch) at Dh 256,
+// arguments as attn_bwd_dkv_tile.  K and V stay whole; q tiles of 32 rows
+// (with dO, LSE and delta) stream through two stages.  Per tile: warp w
+// computes S^T and dP^T for keys 16 (w & 1) .. +15 and q rows 16 ((w >> 1)
+// & 1) .. +15 over Dh half w >> 2 (phase A), the element pass of its n8 tile
+// writes Pd^T and dS^T, and after a barrier warp w adds Pd^T dO and dS^T q
+// to dV's and dK's columns 32 w .. 32 w + 31 for all 32 keys (phase C).
+template <typename T, bool kDrop, bool kBias>
+__device__ __forceinline__ void attn_bwd_dkv_wide(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, Bias bias, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
+    bool vec) {
+  static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
+  constexpr int DH = kWideDh, LDW = row_stride<T, DH>(), LDP = pd_stride<WR>();
+  constexpr int TILE = WR * LDW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sX = reinterpret_cast<float*>(smem_raw);  // [warps][kXchg]
+  float* sL = sX + kWideWarps * kXchg;              // [2][WR] lse
+  float* sDl = sL + 2 * WR;                         // [2][WR] delta
+  T* sK = reinterpret_cast<T*>(sDl + 2 * WR);       // [WC][LDW]
+  T* sV = sK + WC * LDW;                            // [WC][LDW]
+  T* sQ = sV + WC * LDW;                            // [2][WR][LDW]
+  T* sDO = sQ + 2 * TILE;                           // [2][WR][LDW]
+  T* sP = sDO + 2 * TILE;                           // [WC][LDP] Pd^T
+  T* sDS = sP + WC * LDP;                           // [WC][LDP] dS^T
+
+  const int c0 = blockIdx.x * WC, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int half = warp >> 2, wc = 16 * (warp & 1), wq = 16 * ((warp >> 1) & 1);
+  const unsigned bh = (unsigned)(b * H + h);
+  const long long bh4 = (long long)b * H + h;
+  const T* qb = q + (long long)b * q_sb + (long long)h * DH;
+  const T* dob = dout + (long long)b * Tq * H * DH + (long long)h * DH;
+  const T* kb = k + (long long)b * k_sb + (long long)h * DH;
+  const T* vb = v + (long long)b * v_sb + (long long)h * DH;
+  const float* bb = nullptr;
+  if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
+
+  // In prefix mode rows < c0 see no column of this tile unless c0 < prefix_s.
+  const int rstart = (!kBias && prefix_s >= 0 && c0 >= prefix_s) ? c0 : 0;
+  const int n_tiles = (Tq - rstart + WR - 1) / WR;
+
+  // the q tile at r0 (q, dO, and its LSE and delta, zero past Tq) into stage st
+  auto stage_q_tile = [&](int st, int r0) {
+    stage_rows<T, DH, WR, kWideThreads>(sQ + st * TILE, qb, q_st, r0, Tq, vec);
+    stage_rows<T, DH, WR, kWideThreads>(sDO + st * TILE, dob, (long long)H * DH, r0, Tq, vec);
+    if (threadIdx.x < 2 * WR) {
+      const int i = threadIdx.x % WR, r = r0 + i;
+      const bool ok = r < Tq;
+      const float* src = threadIdx.x < WR ? lse : delta;
+      float* dst = (threadIdx.x < WR ? sL : sDl) + st * WR + i;
+      if (vec)
+        cp_async4(dst, ok ? src + bh4 * Tq + r : src, ok);
+      else
+        *dst = ok ? src[bh4 * Tq + r] : 0.f;
+    }
+  };
+  stage_rows<T, DH, WC, kWideThreads>(sK, kb, k_st, c0, Tk, vec);
+  stage_rows<T, DH, WC, kWideThreads>(sV, vb, v_st, c0, Tk, vec);
+  stage_q_tile(0, rstart);
+  cp_async_commit();
+
+  const int ca = c0 + wc + g, cb = ca + 8;
+  float kvb_a = 0.f, kvb_b = 0.f;
+  if constexpr (!kBias) {
+    if (kv_bias != nullptr) {
+      if (ca < Tk) kvb_a = kv_bias[(long long)b * Tk + ca];
+      if (cb < Tk) kvb_b = kv_bias[(long long)b * Tk + cb];
+    }
+  }
+
+  float acc_k[WC / 16][4][4], acc_v[WC / 16][4][4];  // the block's keys x the warp's columns
+#pragma unroll
+  for (int m = 0; m < WC / 16; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[m][n][e] = acc_v[m][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int r0 = rstart + it * WR, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it is in; every warp is past tile it - 1's phase C
+    if (it + 1 < n_tiles) {  // the next q tile loads while this one computes
+      stage_q_tile(st ^ 1, r0 + WR);
+      cp_async_commit();
+    }
+    const T* cQ = sQ + st * TILE;
+    const T* cDO = sDO + st * TILE;
+    const float* cL = sL + st * WR;
+    const float* cDl = sDl + st * WR;
+    const int rl = wq + 8 * half;  // the first q row of the warp's element-pass tile
+    unsigned keep = 0xFu;  // bits: (ca, 2t), (ca, 2t + 1), (cb, 2t), (cb, 2t + 1)
+    if constexpr (kDrop) {
+      // lane L draws (row L % 8, group L / 8) of this 8 x 16 tile
+      const unsigned w = philox_keep4((unsigned)((c0 + wc) >> 2) + (lane >> 3),
+                                      (unsigned)(r0 + rl + (lane & 7)), bh, drop.seed,
+                                      drop.threshold);
+      const int src = (g >> 2) * 8 + 2 * t, bit = g & 3;
+      keep = ((__shfl_sync(0xffffffffu, w, src) >> bit) & 1u) |
+             (((__shfl_sync(0xffffffffu, w, src + 1) >> bit) & 1u) << 1) |
+             (((__shfl_sync(0xffffffffu, w, src + 16) >> bit) & 1u) << 2) |
+             (((__shfl_sync(0xffffffffu, w, src + 17) >> bit) & 1u) << 3);
+    }
+    float add[4];  // each score's additive term (bias; -inf where masked)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + rl + 2 * t + (e & 1), c = e < 2 ? ca : cb;
+      if constexpr (kBias)
+        add[e] = bias_at(bb, bias, r, c, Tq, Tk);
+      else
+        add[e] = visible(r, c, Tq, Tk, prefix_s) ? (e < 2 ? kvb_a : kvb_b) : -INFINITY;
+    }
+
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    const int dh0 = half * kWideHalf;
+    mma_xyt<T, kWideHalf, 2, true, LDW>(s, sK + wc * LDW + dh0, cQ + wq * LDW + dh0,
+                                        lane);  // S^T = k q^T
+    mma_xyt<T, kWideHalf, 2, true, LDW>(dp, sV + wc * LDW + dh0, cDO + wq * LDW + dh0,
+                                        lane);  // dPd^T = v dO^T
+    wide_exchange_give(sX, s, dp, half, warp, lane);
+    __syncthreads();
+    float s1[4], dp1[4];
+    wide_exchange_take(sX, s, dp, half, warp, lane, s1, dp1);
+
+    // element pass: s1 becomes Pd^T and dp1 dS^T, rounded like T
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = rl + 2 * t + (e & 1);
+      const float lr = cL[i], dl = cDl[i];
+      if constexpr (kBias) {
+        const float x = (s1[e] + add[e]) * scale;
+        const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+        dp1[e] = round_like<T>((dp1[e] - dl) * p * scale);
+        s1[e] = round_like<T>(p);
+      } else {
+        const float x = s1[e] * scale + add[e];
+        const float p = (x == -INFINITY) ? 0.f : __expf(x - lr);
+        float pd = p, dpd = dp1[e];
+        if constexpr (kDrop) {
+          const bool kept = ((keep >> e) & 1u) != 0;
+          pd = kept ? p * drop.inv_keep : 0.f;
+          dpd = kept ? dpd * drop.inv_keep : 0.f;
+        }
+        dp1[e] = round_like<T>(p * (dpd - dl));
+        s1[e] = round_like<T>(pd);
+      }
+    }
+    store_pair<T>(sP + (wc + g) * LDP + rl + 2 * t, s1[0], s1[1]);
+    store_pair<T>(sP + (wc + g + 8) * LDP + rl + 2 * t, s1[2], s1[3]);
+    store_pair<T>(sDS + (wc + g) * LDP + rl + 2 * t, dp1[0], dp1[1]);
+    store_pair<T>(sDS + (wc + g + 8) * LDP + rl + 2 * t, dp1[2], dp1[3]);
+    __syncthreads();
+    mma_xz<T, WC / 16, 4, WR, LDP, LDW>(acc_v, sP, cDO + 32 * warp, lane);   // dV += Pd^T dO
+    mma_xz<T, WC / 16, 4, WR, LDP, LDW>(acc_k, sDS, cQ + 32 * warp, lane);   // dK += dS^T q
+  }
+
+  const float post = kBias ? 1.f : scale;  // kernel 4's dS already carries the scale
+#pragma unroll
+  for (int m = 0; m < WC / 16; ++m)
+#pragma unroll
+    for (int half2 = 0; half2 < 2; ++half2) {
+      const int c = c0 + 16 * m + g + 8 * half2;
+      if (c >= Tk) continue;
+      const long long off = (((long long)b * Tk + c) * H + h) * DH + 32 * warp + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        from_float(acc_k[m][n][2 * half2] * post, &dk[off + 8 * n]);
+        from_float(acc_k[m][n][2 * half2 + 1] * post, &dk[off + 8 * n + 1]);
+        from_float(acc_v[m][n][2 * half2], &dv[off + 8 * n]);
+        from_float(acc_v[m][n][2 * half2 + 1], &dv[off + 8 * n + 1]);
+      }
+    }
+}
+
+// The wide pass kernels (kernel 3's attn_bwd_*_wide_kernel, kernel 4's
+// flash_bias_bwd_*_wide_kernel), kWideThreads threads a block.
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) attn_bwd_dq_wide_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
+    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop, bool vec) {
+  attn_bwd_dq_wide<T, kDrop, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
+                                    Bias{}, dout, lse, delta, dq, nullptr, Tq, Tk, H, prefix_s,
+                                    scale, drop, vec);
+}
+
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) attn_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
+    bool vec) {
+  attn_bwd_dkv_wide<T, kDrop, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
+                                     Bias{}, dout, lse, delta, dk, dv, Tq, Tk, H, prefix_s,
+                                     scale, drop, vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) flash_bias_bwd_dq_wide_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ dbias,
+    int Tq, int Tk, int H, float scale, bool vec) {
+  attn_bwd_dq_wide<T, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr, bias,
+                                   dout, lse, delta, dq, dbias, Tq, Tk, H, -1, scale, Dropout{},
+                                   vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) flash_bias_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk,
+    int H, float scale, bool vec) {
+  attn_bwd_dkv_wide<T, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr, bias,
+                                    dout, lse, delta, dk, dv, Tq, Tk, H, -1, scale, Dropout{},
+                                    vec);
+}
+
+// Give a wide pass kernel its shared memory: the dynamic size, and the
+// largest carveout, so that two bf16 blocks fit on an SM.
+template <typename K>
+cudaError_t prepare_wide(K kern, size_t smem) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename... P, typename... A>
+cudaError_t launch_wide(void (*kern)(P...), dim3 grid, size_t smem, cudaStream_t stream,
+                        A... args) {
+  const cudaError_t err = prepare_wide(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kWideThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 // The pass kernels (kernel 3's attn_bwd_*, kernel 4's flash_bias_bwd_*),
 // defined three times, once per launch bounds of bounds_class() (fit4, fit1,
 // any_regs); each instantiation is taken from one of them.
@@ -809,9 +1318,61 @@ cudaError_t launch_split_pass(K kern, dim3 grid, size_t smem, cudaStream_t strea
     return launch_pass(kern, grid, smem, stream, args...);
 }
 
-// The three passes of kernel 4 (kBias) or kernel 3.
+// The dQ and dK/dV passes of kernel 4 (kBias) or kernel 3 at Dh 256.
+template <typename T, bool kBias>
+cudaError_t launch_wide_passes(const Args& a, Dropout drop, float scale, cudaStream_t stream,
+                               bool vec) {
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  T* dq = static_cast<T*>(a.dq);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  const dim3 gq((a.Tq + WQ - 1) / WQ, a.H, a.B), gk((a.Tk + WC - 1) / WC, a.H, a.B);
+  constexpr size_t smem_dq = wide_smem_bytes<T, true>(), smem_dkv = wide_smem_bytes<T, false>();
+  cudaError_t err;
+  if constexpr (kBias) {
+    err = launch_wide(flash_bias_bwd_dq_wide_kernel<T>, gq, smem_dq, stream, q, a.q_sb, a.q_st,
+                      k, a.k_sb, a.k_st, v, a.v_sb, a.v_st, a.bias, dout, a.lse, a.delta, dq,
+                      a.dbias, a.Tq, a.Tk, a.H, scale, vec);
+    if (err != cudaSuccess) return err;
+    return launch_wide(flash_bias_bwd_dkv_wide_kernel<T>, gk, smem_dkv, stream, q, a.q_sb,
+                       a.q_st, k, a.k_sb, a.k_st, v, a.v_sb, a.v_st, a.bias, dout, a.lse,
+                       a.delta, dk, dv, a.Tq, a.Tk, a.H, scale, vec);
+  } else {
+    auto kdq = attn_bwd_dq_wide_kernel<T, true>;
+    auto kdkv = attn_bwd_dkv_wide_kernel<T, true>;
+    if (drop.threshold == 0) {
+      kdq = attn_bwd_dq_wide_kernel<T, false>;
+      kdkv = attn_bwd_dkv_wide_kernel<T, false>;
+    }
+    err = launch_wide(kdq, gq, smem_dq, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb,
+                      a.v_st, a.kv_bias, dout, a.lse, a.delta, dq, a.Tq, a.Tk, a.H, a.prefix_s,
+                      scale, drop, vec);
+    if (err != cudaSuccess) return err;
+    return launch_wide(kdkv, gk, smem_dkv, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v,
+                       a.v_sb, a.v_st, a.kv_bias, dout, a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H,
+                       a.prefix_s, scale, drop, vec);
+  }
+}
+
+// The three passes of kernel 4 (kBias) or kernel 3: the delta pass, then
+// the dQ and dK/dV passes, at Dh 256 the wide ones, at any other head dim
+// through dispatch_dh (whole up to 128, split above it).
 template <typename T, bool kBias>
 cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, float scale, cudaStream_t stream) {
+  const size_t es = sizeof(T);
+  const bool vec = rows_aligned(a.q, a.q_sb, a.q_st, es) && rows_aligned(a.k, a.k_sb, a.k_st, es) &&
+                   rows_aligned(a.v, a.v_sb, a.v_st, es) &&
+                   rows_aligned(a.dout, (long long)a.Tq * a.H * Dh, (long long)a.H * Dh, es);
+  const int n_rows = a.B * a.Tq * a.H;
+  cudaError_t err =
+      launch(attn_bwd_delta_kernel<T>, dim3((n_rows + kThreads / 32 - 1) / (kThreads / 32)), 0,
+             stream, static_cast<const T*>(a.dout), static_cast<const T*>(a.out), a.delta, n_rows,
+             a.Tq, a.H, Dh);
+  if (err != cudaSuccess) return err;
+  if (Dh == kWideDh) return launch_wide_passes<T, kBias>(a, drop, scale, stream, vec);
   return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
     constexpr bool kSplit = decltype(split)::value;
@@ -828,17 +1389,6 @@ cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, float scale, cudaStr
     T* dv = static_cast<T*>(a.dv);
     const dim3 gq((a.Tq + BM - 1) / BM, a.H * nc, a.B);
     const dim3 gk((a.Tk + BM - 1) / BM, a.H * nc_dkv, a.B);
-    const size_t es = sizeof(T);
-    const bool vec = rows_aligned(q, a.q_sb, a.q_st, es) && rows_aligned(k, a.k_sb, a.k_st, es) &&
-                     rows_aligned(v, a.v_sb, a.v_st, es) &&
-                     rows_aligned(dout, (long long)a.Tq * a.H * Dh, (long long)a.H * Dh, es);
-
-    const int n_rows = a.B * a.Tq * a.H;
-    auto kdelta = attn_bwd_delta_kernel<T>;
-    cudaError_t err = launch(kdelta, dim3((n_rows + kThreads / 32 - 1) / (kThreads / 32)), 0,
-                             stream, dout, static_cast<const T*>(a.out), a.delta, n_rows, a.Tq,
-                             a.H, Dh);
-    if (err != cudaSuccess) return err;
     if constexpr (kBias) {
       auto kdq = bias_dq_kernel<T, DH, kSplit>();
       auto kdkv = bias_dkv_kernel<T, DKV, kSplit>();
@@ -916,5 +1466,41 @@ extern "C" int flash_attention_bwd_launch(
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)launch_bwd<float, true>(Dh, a, Dropout{}, scale, s);
   if (dtype == 1) return (int)launch_bwd<__nv_bfloat16, true>(Dh, a, Dropout{}, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The resources of one wide pass kernel (Dh 256): dtype as above, bias: kernel
+// 4 (else kernel 3), drop: kernel 3 with dropout, dkv: the dK/dV pass (else
+// dQ).  info: registers, local (spilled) bytes, dynamic shared memory bytes,
+// threads a block, resident blocks per SM.  Returns a cudaError_t.
+extern "C" int prefix_attention_bwd_wide_info(int dtype, int bias, int drop, int dkv, int* info) {
+  auto query = [&](auto kern, size_t smem) -> int {
+    cudaError_t err = prepare_wide(kern, smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kern);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kWideThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = fa.numRegs;
+    info[1] = (int)fa.localSizeBytes;
+    info[2] = (int)smem;
+    info[3] = kWideThreads;
+    info[4] = blocks;
+    return 0;
+  };
+  auto pick = [&](auto tag) -> int {
+    using T = decltype(tag);
+    const size_t sq = wide_smem_bytes<T, true>(), sk = wide_smem_bytes<T, false>();
+    if (bias) return dkv ? query(flash_bias_bwd_dkv_wide_kernel<T>, sk)
+                         : query(flash_bias_bwd_dq_wide_kernel<T>, sq);
+    if (drop) return dkv ? query(attn_bwd_dkv_wide_kernel<T, true>, sk)
+                         : query(attn_bwd_dq_wide_kernel<T, true>, sq);
+    return dkv ? query(attn_bwd_dkv_wide_kernel<T, false>, sk)
+               : query(attn_bwd_dq_wide_kernel<T, false>, sq);
+  };
+  if (dtype == 0) return pick(float{});
+  if (dtype == 1) return pick(__nv_bfloat16{});
   return (int)cudaErrorInvalidValue;
 }

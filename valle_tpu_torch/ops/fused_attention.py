@@ -21,9 +21,11 @@ only on rows whose columns are all masked, which no caller reads.
 
 Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS`` and,
 above 128, in chunks of ``SPLIT_HEAD_DIM`` (a grid dimension over the chunks
-of the output, each block recomputing the scores over the whole Dh); any
-other Dh runs zero-padded to the next of them, or to a multiple of 128,
-with the scale of the true Dh (:func:`run_padded`, shared with kernel 4).
+of the output, each block recomputing the scores over the whole Dh), but for
+the backward at Dh 256, whose wide passes compute the scores once per tile
+pair (the kernel source picks them); any other Dh runs zero-padded to the
+next of them, or to a multiple of 128, with the scale of the true Dh
+(:func:`run_padded`, shared with kernel 4).
 """
 
 from __future__ import annotations
