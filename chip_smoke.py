@@ -15,8 +15,8 @@ ends the run with a non-zero exit code):
      and per attention kernel (forward and backward) its registers, spills
      and tensor-core (HMMA) instructions: every forward kernel and backward
      pass (the split instantiations of head dims above 128 too) must use the
-     tensor cores and none may spill (the wide passes of the backward at Dh
-     256 too); per kernel 1 instantiation (split and
+     tensor cores and none may spill (the wide kernels of the forward and the
+     wide passes of the backward at Dh 256 too); per kernel 1 instantiation (split and
      combine kernels, lane layouts up to 8 chunks per lane, the strided
      layout of heads past 1024 and its combine) its registers, spills and
      I2F instructions: none may spill, and no int8-cache instantiation may
@@ -42,16 +42,20 @@ ends the run with a non-zero exit code):
      bit-equal reruns; then kernels 2, 3 and 4, forward and backward, at
      head dims 16, 32, 48, 72, 96, 128, 144, 192, 256, 512 and 1024 on a
      small shape (48, 72, 96, 144 and 192 through the wrappers' zero padding;
-     past 128 the split instantiations, but the backward's wide passes at
-     256), likewise; kernel 1 at head dims 8,
+     at 144, 192 and 256 the wide kernels of the forward and the backward,
+     past 256 the split instantiations: each case's kernels are read from
+     the profiler), likewise; kernel 1 at head dims 8,
      40, 72, 144, 192, 320, 512, 1100 and 2048 in int8 / f32 / bf16 caches
      (8, 40 and 72 in int8 through the wrapper's zero pad, its copy timed;
      1100 and 2048 through the strided layout, unpadded) and at 64 heads
      of Dh 64 in f32 (two head slices), likewise; kernels 2, 3 and 4 at 4
      heads of Dh 256 on the training shapes (dense T=880; the TTS decoder),
-     f32 and bf16, timed against their plain versions and SDPA, with the
-     backward's device time per pass and each wide pass's registers, shared
-     memory and resident warps per SM (at least 8, no spill); kernel 1's
+     kernel 2 in dense cross-attention (752 rows against 128 keys) and
+     kernel 4's forward at the TTS inference shape (B=8, T=201, a broadcast
+     (1, 1, T, T) bias), f32 and bf16, timed against their plain versions
+     and SDPA, the forward's LSE held at the f32 bar, with the backward's
+     device time per pass and each wide kernel's and pass's registers,
+     shared memory and resident warps per SM (at least 8, no spill); kernel 1's
      strided layout is timed against SDPA too;
   8. generate: full-width VALL-E (the default ModelConfig, seeded random
      weights) ``generate`` on 8 requests, with launch counts, the prefill and
@@ -342,7 +346,7 @@ _ATTN_KERNEL = re.compile(r"(attn_bwd_dq(?:_split|_wide)?_kernel|"
                           r"attn_bwd_dkv(?:_split|_wide)?_kernel|"
                           r"flash_bias_bwd_dq(?:_split|_wide)?_kernel|"
                           r"flash_bias_bwd_dkv(?:_split|_wide)?_kernel|attn_bwd_delta_kernel|"
-                          r"prefix_attention(?:_split)?_kernel|flash_bias_fwd(?:_split)?_kernel)"
+                          r"prefix_attention(?:_split|_wide)?_kernel|flash_bias_fwd(?:_split|_wide)?_kernel)"
                           r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
 
 
@@ -1005,9 +1009,28 @@ def check_flash_bias(dev, fwd_res, res):
 
 
 HEAD_DIM_CASE = (2, 4, 200, 48)  # B, H, T, prefix_s
-# kernels 2-4: the whole-row instantiations (48, 72 and 96 zero-padded), then
-# the split ones (144 and 192 padded to 256; 512 and 1024 in 4 and 8 chunks)
+# kernels 2-4: the whole-row instantiations (48, 72 and 96 zero-padded), the
+# wide kernels of Dh 256 (144 and 192 padded to it), then the split ones (512
+# and 1024 in 4 and 8 chunks)
 HEAD_DIMS = (16, 32, 48, 72, 96, 128, 144, 192, 256, 512, 1024)
+
+
+def launched_kernels(fn, calls: int = 3) -> set:
+    """The names of the CUDA kernels that ``fn()`` launches, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up (the profiler can
+    miss a call's first launches: with one call it reported a forward's
+    backward kernels without the forward's)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def check_head_dims(dev):
@@ -1018,7 +1041,9 @@ def check_head_dims(dev):
     power of two but at 16, 64, 256 and 1024), in f32 and bf16: kernels 2 /
     3 in prefix mode at rate 0.1 and in dense mode at rate 0, kernel 4 with
     a causal + padding bias, each against its plain version with a bit-equal
-    rerun."""
+    rerun.  Past 128 the kernels that each case launches are read from the
+    profiler: the wide ones where the wrapper runs Dh 256 (144, 192, 256),
+    the split ones above it."""
     import torch
 
     from valle_tpu_torch.ops import flash_attention as fl
@@ -1074,10 +1099,22 @@ def check_head_dims(dev):
                 assert all(torch.equal(g, a) for g, a in zip(got, again)), \
                     f"backward ({case}) is not bit-reproducible"
                 assert max(errs) <= TOL[dtype], f"backward ({case}) disagrees: {errs}"
+                route = {}
+                if dh > 128:
+                    tile = "wide" if fa.kernel_head_dim(dh) == 256 else "split"
+                    names = launched_kernels(lambda: (fwd(), call()))
+                    kernel4 = mode == "kernel4 decoder bias"
+                    want_names = ((f"flash_bias_fwd_{tile}_kernel",
+                                   f"flash_bias_bwd_dq_{tile}_kernel") if kernel4 else
+                                  (f"prefix_attention_{tile}_kernel", f"attn_bwd_dq_{tile}_kernel"))
+                    for name in want_names:
+                        assert any(name in n for n in names), \
+                            f"{case} launched no {name}: {sorted(names)}"
+                    route = {"tiles": tile, "kernels_seen": list(want_names)}
                 results.append({"case": case, "b": b, "h": h, "t": t, "dh": dh,
                                 "forward_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
                                 "max_abs_err": max(errs), "tol": TOL[dtype],
-                                "bit_equal_rerun": True})
+                                "bit_equal_rerun": True, **route})
     emit({"phase": "kernel2_3_4_head_dims",
           "err_is": "forward: max |kernel - plain|; backward (max_abs_err): max |kernel - plain| "
                     "/ max |plain|, worst of dq, dk, dv", "cases": results})
@@ -1110,7 +1147,7 @@ def _measure(case, call, want, rel, kernel_names, plain, library, n_bytes, n_ops
     plain_ms = cuda_time(plain, iters=1, windows=3)["ms"]
     library_ms = cuda_time(library, iters=10)["ms"]
     bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
-    return {"case": case, "dtype": dtype, "max_abs_err": max(errs),
+    return {"case": case, "dtype": dtype, "max_abs_err": max(errs), "max_abs_errs": errs,
             "err_is": "max |kernel - plain|" + (" / max |plain|" if rel else ""),
             "tol": TOL[dtype], "bit_equal_rerun": True, **timing, "plain_ms": plain_ms,
             "library_ms": library_ms, "ms_over_library": timing["ms"] / library_ms,
@@ -1119,46 +1156,70 @@ def _measure(case, call, want, rel, kernel_names, plain, library, n_bytes, n_ops
             "tflops": n_ops / timing["ms"] / 1e9}
 
 
-WIDE_MIN_WARPS = 8  # resident warps per SM that each wide backward pass must reach
+WIDE_MIN_WARPS = 8  # resident warps per SM that each wide kernel and pass must reach
 
 
-def wide_pass_resources(bwd_res, label: str, dtype: str, bias: bool, drop: bool,
-                        dkv: bool) -> dict:
-    """The build phase's registers, spills and HMMA of one wide backward
-    pass (kernels 3 and 4 at Dh 256) with, from the runtime
-    (``prefix_attention_bwd_wide_info``), its registers, local bytes,
-    dynamic shared memory, threads and resident blocks and warps per SM."""
+def wide_pass_resources(res, label: str, dtype: str, bias: bool, drop: bool,
+                        dkv=None) -> dict:
+    """The build phase's registers, spills and HMMA of one wide kernel at Dh
+    256 with, from the runtime, its registers, local bytes, dynamic shared
+    memory, threads and resident blocks and warps per SM: a backward pass of
+    kernels 3 and 4 (``dkv``: the dK/dV pass, else dQ;
+    ``prefix_attention_bwd_wide_info``) or, with ``dkv`` None, the forward of
+    kernel 2 or 4 (``prefix_attention_wide_info``)."""
     import ctypes
 
     from valle_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.load("prefix_attention_bwd").prefix_attention_bwd_wide_info
-    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    if dkv is None:
+        fn = cuda_build.load("prefix_attention").prefix_attention_wide_info
+        flags = (int(bias), int(drop))
+    else:
+        fn = cuda_build.load("prefix_attention_bwd").prefix_attention_bwd_wide_info
+        flags = (int(bias), int(drop), int(dkv))
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * (1 + len(flags)) + [ctypes.POINTER(ctypes.c_int)]
     info = (ctypes.c_int * 5)()
-    err = fn(0 if dtype == "float32" else 1, int(bias), int(drop), int(dkv), info)
+    err = fn(0 if dtype == "float32" else 1, *flags, info)
     assert err == 0, f"{label}: occupancy query failed: cudaError {err}"
     regs, local, smem, threads, blocks = info
-    res = {**bwd_res[label], "runtime_registers": regs, "local_bytes": local,
+    res = {**res[label], "runtime_registers": regs, "local_bytes": local,
            "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
            "warps_per_sm": blocks * threads // 32}
     assert res["spill_bytes"] == 0 and local == 0, f"{label} spills: {res}"
+    assert res["hmma"] > 0, f"{label} runs no tensor-core MMA: {res}"
     assert res["warps_per_sm"] >= WIDE_MIN_WARPS, f"{label}: too few resident warps: {res}"
     return res
 
 
+def _measure_forward(case, call, want, kernel_names, plain, library, n_bytes, n_ops, dtype,
+                     kernels) -> dict:
+    """:func:`_measure` of a forward that returns (out, lse): the output
+    within TOL of its plain version and the f32 LSE within TOL["float32"] of
+    the plain version's, each reported."""
+    res = _measure(case, call, want, False, kernel_names, plain, library, n_bytes, n_ops, dtype,
+                   kernels)
+    out_err, lse_err = res["max_abs_errs"]
+    assert lse_err <= TOL["float32"], f"{case}: LSE disagrees with the plain version: {lse_err}"
+    return {**res, "out_max_abs_err": out_err, "lse_max_abs_err": lse_err,
+            "lse_tol": TOL["float32"]}
+
+
 def check_dh256(dev, fwd_res, bwd_res) -> dict:
-    """Kernels 2, 3 and 4 at 4 heads of Dh 256 (kernel 2 and kernel 4's
-    forward in the split tiles, kernels 3 and 4's backward in the wide
-    passes; paths v-x) on the training shapes of phases 5-7: kernel 2's
-    forward and kernel 3 on dense self-attention at T=880 (B=4, rate 0.1;
-    the FLOPs of 16 heads of Dh 64), kernel 4's forward and backward on the
-    TTS decoder's causal + padding bias (B=4, T=938), in f32 and bf16, each
-    against its plain version with a bit-equal rerun and timed against it
-    and SDPA (forward, or its backward) on the same dense mask;
-    ``fwd_res`` / ``bwd_res``: the build phase's registers, spills and HMMA
-    per kernel, to which the wide passes add their shared memory and
-    resident warps (``wide_pass_resources``: at least ``WIDE_MIN_WARPS``, no
-    spill)."""
+    """Kernels 2, 3 and 4 at 4 heads of Dh 256 (paths v-x), all in the wide
+    kernels (the forward's ``*_wide_kernel`` and the backward's wide passes),
+    on the training shapes of phases 5-7: kernel 2's forward and kernel 3 on
+    dense self-attention at T=880 (B=4, rate 0.1; the FLOPs of 16 heads of
+    Dh 64), kernel 2 in dense cross-attention (the 752 audio rows against
+    the 128 text keys, rate 0.1), kernel 4's forward and backward on the TTS
+    decoder's causal + padding bias (B=4, T=938) and its forward at the TTS
+    inference shape (B=8, T=201, a (1, 1, T, T) causal bias broadcast over
+    batch and heads), in f32 and bf16, each against its plain version with a
+    bit-equal rerun (the forward's LSE at the f32 bar) and timed against it
+    and SDPA (forward, or its backward) on the same dense mask; ``fwd_res`` /
+    ``bwd_res``: the build phase's registers, spills and HMMA per kernel, to
+    which each wide kernel adds its shared memory and resident warps
+    (``wide_pass_resources``: at least ``WIDE_MIN_WARPS``, no spill)."""
     import torch
     from torch.nn import functional as F
 
@@ -1171,6 +1232,8 @@ def check_dh256(dev, fwd_res, bwd_res) -> dict:
     t = TRAIN_S + TRAIN_T
     kb = torch.from_numpy(_train_key_bias(rng, TRAIN_S, TRAIN_T)).to(dev)
     dec = torch.from_numpy(_decoder_bias(rng, TTS_B, TTS_T, int(0.8 * TTS_T))).to(dev)
+    n_inf = INF_STEPS + 1
+    inf_bias = torch.from_numpy(_inference_bias(n_inf, INF_STEPS // 2)).to(dev)
     results = {}
 
     def sdpa_grad(q, k, v, dout, mask, rate):
@@ -1179,24 +1242,45 @@ def check_dh256(dev, fwd_res, bwd_res) -> dict:
         return lambda: torch.autograd.grad(ol, (ql, kl, vl), dout.transpose(1, 2),
                                            retain_graph=True)
 
+    def fwd_bytes(q, k, bias):
+        """q, k, v and out once each, the f32 bias and the f32 LSE."""
+        return ((2 * q.numel() + 2 * k.numel()) * q.element_size() + bias.numel() * 4
+                + q.shape[0] * q.shape[1] * q.shape[2] * 4)
+
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         drop = ", drop"
+        k2_kernels = {f"prefix_attention_wide_kernel<{dtype}{drop}>": wide_pass_resources(
+            fwd_res, f"prefix_attention_wide_kernel<{dtype}{drop}>", dtype, False, True)}
         q, k, v, dout = (torch.from_numpy(rng.randn(TRAIN_B, t, h, dh).astype(np.float32))
                          .to(dev, dt) for _ in range(4))
         seed = int(rng.randint(0, 2**62))
         args = (q, k, v, kb, None, DROPOUT, seed)
         mask = AttnMaskSpec(kb, None).dense(t).to(dt)
         ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
-        n_bytes = (q.numel() * 4 * q.element_size() + kb.numel() * 4 + TRAIN_B * h * t * 4)
-        results[f"kernel2 dense T={t} {dtype}"] = _measure(
+        results[f"kernel2 dense T={t} {dtype}"] = _measure_forward(
             f"kernel 2 dense self T={t} H={h} Dh={dh} rate {DROPOUT} {dtype}",
             lambda: fa._forward(*args, with_lse=True), fa.attention_forward_reference(*args),
-            False, ["prefix_attention_split_kernel"], lambda: fa.attention_forward_reference(*args),
+            ["prefix_attention_wide_kernel"], lambda: fa.attention_forward_reference(*args),
             lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, dropout_p=DROPOUT),
-            n_bytes, 4.0 * TRAIN_B * h * dh * t * t, dtype,
-            {f"prefix_attention_split_kernel<{dtype}{drop}>":
-             fwd_res.get(f"prefix_attention_split_kernel<{dtype}{drop}>")})
+            fwd_bytes(q, k, kb), 4.0 * TRAIN_B * h * dh * t * t, dtype, k2_kernels)
+        # dense cross-attention: the audio rows against the text keys
+        qc = q[:, :TRAIN_T].contiguous()
+        kc, vc = (x[:, :TRAIN_S].contiguous() for x in (k, v))
+        kbc = kb[:, :TRAIN_S].contiguous()
+        cargs = (qc, kc, vc, kbc, None, DROPOUT, seed)
+        cmask = kbc[:, None, None, :].to(dt)
+        qcl, kcl, vcl = (x.transpose(1, 2) for x in (qc, kc, vc))
+        results[f"kernel2 cross {dtype}"] = _measure_forward(
+            f"kernel 2 dense cross Tq={TRAIN_T} Tk={TRAIN_S} H={h} Dh={dh} rate {DROPOUT} "
+            f"{dtype}",
+            lambda: fa._forward(*cargs, with_lse=True), fa.attention_forward_reference(*cargs),
+            ["prefix_attention_wide_kernel"], lambda: fa.attention_forward_reference(*cargs),
+            lambda: F.scaled_dot_product_attention(qcl, kcl, vcl, attn_mask=cmask,
+                                                   dropout_p=DROPOUT),
+            fwd_bytes(qc, kc, kbc), 4.0 * TRAIN_B * h * dh * TRAIN_T * TRAIN_S, dtype,
+            k2_kernels)
+        del qc, kc, vc, kbc, cmask, qcl, kcl, vcl
         out, lse = fa._forward(*args, with_lse=True)
         kw = dict(prefix_s=None, dropout_rate=DROPOUT, dropout_seed=seed)
         k3_call = lambda: fa.fused_prefix_attention_backward(  # noqa: E731
@@ -1216,21 +1300,32 @@ def check_dh256(dev, fwd_res, bwd_res) -> dict:
             name: device_ms(k3_call, [name], iters=5)
             for name in ("attn_bwd_delta", "attn_bwd_dq_wide", "attn_bwd_dkv_wide")}
         del q, k, v, dout, out, lse, mask, ql, kl, vl
+        k4_kernels = {f"flash_bias_fwd_wide_kernel<{dtype}>": wide_pass_resources(
+            fwd_res, f"flash_bias_fwd_wide_kernel<{dtype}>", dtype, True, False)}
+        # the TTS inference shape: one (1, 1, T, T) bias for every batch row and head
+        q, k, v = (torch.from_numpy(rng.randn(INF_B, n_inf, h, dh).astype(np.float32))
+                   .to(dev, dt) for _ in range(3))
+        mask = inf_bias.to(dt)
+        ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
+        results[f"kernel4 inference {dtype}"] = _measure_forward(
+            f"kernel 4 TTS inference B={INF_B} T={n_inf} H={h} Dh={dh} (1,1,T,T) bias {dtype}",
+            lambda: fl._forward(q, k, v, inf_bias, with_lse=True),
+            fl.flash_attention_forward_reference(q, k, v, inf_bias), ["flash_bias_fwd_wide_kernel"],
+            lambda: fl.flash_attention_forward_reference(q, k, v, inf_bias),
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
+            fwd_bytes(q, k, inf_bias), 4.0 * INF_B * h * dh * n_inf * n_inf, dtype, k4_kernels)
+        del q, k, v, mask, ql, kl, vl
         q, k, v, dout = (torch.from_numpy(rng.randn(TTS_B, TTS_T, h, dh).astype(np.float32))
                          .to(dev, dt) for _ in range(4))
         mask = dec.to(dt)
         ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
-        n_bytes = q.numel() * 4 * q.element_size() + dec.numel() * 4 + TTS_B * h * TTS_T * 4
-        results[f"kernel4 decoder {dtype}"] = _measure(
+        results[f"kernel4 decoder {dtype}"] = _measure_forward(
             f"kernel 4 TTS decoder B={TTS_B} T={TTS_T} H={h} Dh={dh} {dtype}",
             lambda: fl._forward(q, k, v, dec, with_lse=True),
-            fl.flash_attention_forward_reference(q, k, v, dec), False,
-            ["flash_bias_fwd_split_kernel"],
+            fl.flash_attention_forward_reference(q, k, v, dec), ["flash_bias_fwd_wide_kernel"],
             lambda: fl.flash_attention_forward_reference(q, k, v, dec),
             lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
-            n_bytes, 4.0 * TTS_B * h * dh * TTS_T * TTS_T, dtype,
-            {f"flash_bias_fwd_split_kernel<{dtype}>":
-             fwd_res.get(f"flash_bias_fwd_split_kernel<{dtype}>")})
+            fwd_bytes(q, k, dec), 4.0 * TTS_B * h * dh * TTS_T * TTS_T, dtype, k4_kernels)
         out, lse = fl._forward(q, k, v, dec, with_lse=True)
         k4_call = lambda: fl.flash_attention_biased_backward(  # noqa: E731
             q, k, v, dec, out, dout, lse)[:3]
@@ -1641,7 +1736,9 @@ def profile_breakdown(fn, extra_families=()) -> dict:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     families = dict(extra_families)
     families |= {"kernel1 (ragged_decode)": tuple(RAGGED_NAMES),
-                 "kernel2 (prefix_attention)": ("prefix_attention_kernel",),
+                 "kernel2 (prefix_attention)": ("prefix_attention_kernel",
+                                                "prefix_attention_wide_kernel",
+                                                "prefix_attention_split_kernel"),
                  "kernel3 (prefix_attention_bwd)": ("attn_bwd_",),
                  "kernel4 (flash_attention)": ("flash_bias_fwd",),
                  "kernel4 (flash_attention_bwd)": ("flash_bias_bwd_",),
@@ -1946,7 +2043,7 @@ def train_path(dev, k2d, k3):
 
 def train_dh256_path(dev, beside_step_s: float) -> dict:
     """Path w: phase 9's step (its batch: B=4, S=128, T=752, A=2; fused,
-    dropout 0.1, ScaledAdam, Eden) at 4 heads (Dh 256: the split tiles of
+    dropout 0.1, ScaledAdam, Eden) at 4 heads (Dh 256: the wide kernels of
     kernels 2 and 3), in f32 and in bf16 (the training build): launches per
     step, a bit-equal repeated step, the step's seconds beside phase 9's
     (``beside_step_s``, 16 heads, f32) and, in f32, the loss and gradients
@@ -2056,7 +2153,7 @@ def tts_train_path(dev, nhead: int = 16, beside_step_s=None):
     3 and 4, with launch counts per step, a bit-equal repeated step, and the
     loss and gradients in eval mode held against a CPU copy: phase 10 at the
     default 16 heads, path x (``tts_dh256_train``) at ``nhead=4`` (Dh 256,
-    the split tiles) with its step beside phase 10's (``beside_step_s``) and
+    the wide kernels) with its step beside phase 10's (``beside_step_s``) and
     the same gradient check."""
     import copy
     import functools
@@ -5002,9 +5099,9 @@ def main() -> int:
     assert all(r["spill_bytes"] == 0 for r in k1_res.values()), "ptxas spills in kernel 1"
     assert all(r["i2f"] == 0 for n, r in k1_res.items() if "int8" in n), \
         "an int8-cache instantiation of kernel 1 converts with I2F"
-    # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 / split x dropout or not;
-    # kernel 4 without
-    assert len(fwd) == 30, f"expected 30 forward kernels, found {sorted(fwd)}"
+    # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 / wide / split x dropout or
+    # not; kernel 4 without
+    assert len(fwd) == 36, f"expected 36 forward kernels, found {sorted(fwd)}"
     assert all(r["hmma"] > 0 for r in fwd.values()), "a forward kernel runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in fwd.values()), "ptxas spills in the forward"
     # kernels 3 / 4: 60 of Dh 16-128 and split, 12 wide passes of Dh 256
@@ -5070,7 +5167,8 @@ def main() -> int:
               [k1["generate B=8 dh 256 int8 cache"]]),
         entry("prefix_attention", "valle_tpu_torch/csrc/prefix_attention.cu",
               "valle_tpu/ops/fused_attention.py:110", k2d["dense_self"], "train_step",
-              [k234_dh256[f"kernel2 dense T={t} {d}"] for d in ("float32", "bfloat16")]),
+              [k234_dh256[f"kernel2 {c} {d}"] for c in (f"dense T={t}", "cross")
+               for d in ("float32", "bfloat16")]),
         entry("prefix_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
               "valle_tpu/ops/fused_attention.py:139", k3["dense_self float32 rate 0.1"],
               "train_step",
@@ -5078,7 +5176,8 @@ def main() -> int:
         entry("flash_attention", "valle_tpu_torch/csrc/prefix_attention.cu",
               "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["forward"],
               "tts_train_step",
-              [k234_dh256[f"kernel4 decoder {d}"] for d in ("float32", "bfloat16")]),
+              [k234_dh256[f"kernel4 {c} {d}"] for c in ("decoder", "inference")
+               for d in ("float32", "bfloat16")]),
         entry("flash_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
               "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["backward"],
               "tts_train_step",

@@ -14,7 +14,11 @@ seeded inputs and shapes as ``chip_smoke.py``:
 - kernel 4's forward: the Transformer TTS decoder's causal + padding bias
   (B=4, T=938) in f32 and bf16, and the inference shape (B=8, T=201) in f32;
 - the backward of kernel 3 (dense, f32, rate 0.1) and of kernel 4 (decoder,
-  f32), which the forward's changes must leave as they were.
+  f32), which the forward's changes must leave as they were;
+- at 4 heads of Dh 256 (``chip_smoke.DH256_H``), in f32 and bf16: kernel 2
+  dense (T=880, rate 0.1) and in dense cross-attention (752 audio rows
+  against the 128 text keys), kernel 4 on the decoder bias and at the inference shape
+  (B=8, T=201, the (1, 1, T, T) bias broadcast over batch and heads).
 
 Each time is the CUDA-event median of 5 windows of back-to-back calls and
 the device time per call from ``torch.profiler``, as ``chip_smoke.py`` takes
@@ -80,6 +84,31 @@ for label, b, t, bias, dtype in (
         calls[f"kernel4 backward {label} B={b} T={t} {dtype}"] = (
             lambda a=(q, k, v, bias, out, dout, lse): fl.flash_attention_biased_backward(*a),
             ["flash_bias_bwd_", "attn_bwd_delta"])
+h, dh = cs.DH256_H, cs.DH256_DH
+fwd2 = ["prefix_attention_split_kernel", "prefix_attention_wide_kernel"]
+for dtype in ("float32", "bfloat16"):
+    dt = getattr(torch, dtype)
+    t = cs.TRAIN_S + cs.TRAIN_T
+    kb = torch.from_numpy(cs._train_key_bias(rng, cs.TRAIN_S, cs.TRAIN_T)).to(dev)
+    q, k, v = (torch.from_numpy(rng.randn(cs.TRAIN_B, t, h, dh).astype(np.float32)).to(dev, dt)
+               for _ in range(3))
+    seed = int(rng.randint(0, 2**62))
+    calls[f"kernel2 dh256 dense T={t} rate 0.1 {dtype}"] = (
+        lambda a=(q, k, v, kb, None, cs.DROPOUT, seed): fa._forward(*a, with_lse=True), fwd2)
+    qc, kc, vc = (x[:, :n_].contiguous() for x, n_ in ((q, cs.TRAIN_T), (k, cs.TRAIN_S),
+                                                        (v, cs.TRAIN_S)))
+    calls[f"kernel2 dh256 cross Tq={cs.TRAIN_T} Tk={cs.TRAIN_S} {dtype}"] = (
+        lambda a=(qc, kc, vc, kb[:, :cs.TRAIN_S].contiguous(), None, 0.0, seed):
+        fa._forward(*a, with_lse=True), fwd2)
+    for label, b, t, bias in (
+            ("decoder", cs.TTS_B, cs.TTS_T,
+             cs._decoder_bias(rng, cs.TTS_B, cs.TTS_T, int(0.8 * cs.TTS_T))),
+            ("inference", cs.INF_B, n, cs._inference_bias(n, cs.INF_STEPS // 2))):
+        q, k, v = (torch.from_numpy(rng.randn(b, t, h, dh).astype(np.float32)).to(dev, dt)
+                   for _ in range(3))
+        bias = torch.from_numpy(bias).to(dev)
+        calls[f"kernel4 dh256 {label} B={b} T={t} {dtype}"] = (
+            lambda a=(q, k, v, bias): fl._forward(*a, with_lse=True), ["flash_bias_fwd"])
 res = {}
 for case, (fn, names) in calls.items():
     res[case] = {**cs.cuda_time(fn, iters=10), "device_ms": cs.device_ms(fn, names, iters=10)}

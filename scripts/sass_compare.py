@@ -9,8 +9,9 @@ the port's optimisation flags, disassembled with ``cuobjdump -sass``, and
 every kernel of the old build is looked up by its demangled name in the new
 build.  Prints one JSON line per source: the kernels whose SASS is
 identical, those that differ (with the number of instruction lines that
-differ, and each build's registers and stack bytes from ``cuobjdump
--res-usage``), those missing from the new build, and the new build's kernels
+differ, each build's instruction lines, the first three lines from the
+first that differs in each build, and each build's registers and stack
+bytes from ``cuobjdump -res-usage``), those missing from the new build, and the new build's kernels
 that the old one lacks.  Exits 1 if a kernel of the old build is missing or
 differs.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``); no
 card.
@@ -54,7 +55,9 @@ def sass_by_kernel(source: Path, workdir: Path):
             name = m.group(1)
             kernels[name] = []
         elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            kernels[name].append(line.strip())
+            # cuobjdump pads each line to the widest instruction of the whole
+            # file, so the spacing changes when another kernel is added
+            kernels[name].append(" ".join(line.split()))
     usage_text = subprocess.run([_tool("cuobjdump"), "-res-usage", str(cubin)], check=True,
                                 capture_output=True, text=True).stdout
     usage = {m.group(1): (int(m.group(2)), int(m.group(3))) for m in
@@ -88,7 +91,13 @@ def main() -> int:
                 else:
                     other = new[kernel]
                     n = sum(a != b for a, b in zip(lines, other)) + abs(len(lines) - len(other))
-                    differ[kernel] = {"lines": n, "regs_stack_old": old_use[kernel],
+                    first = next((i for i, (a, b) in enumerate(zip(lines, other)) if a != b),
+                                 min(len(lines), len(other)))
+                    differ[kernel] = {"lines": n, "old_lines": len(lines),
+                                      "new_lines": len(other),
+                                      "first_difference": [lines[first:first + 3],
+                                                           other[first:first + 3]],
+                                      "regs_stack_old": old_use[kernel],
                                       "regs_stack_new": new_use[kernel]}
             ok = ok and not differ and not missing
             print(json.dumps({"source": name, "old_kernels": len(old), "identical": len(same),

@@ -12,11 +12,16 @@ package on the same numpy inputs, and the models at 2 heads of Dh 256.
     summation order, as tests/test_torch_attention_grad.py), and at dropout
     0.1 against JAX's ``_xla_attention`` with the port's Philox keep mask
     injected for ``jax.random.bernoulli`` (the same bars), in prefix mode
-    and in dense cross-attention (Tq != Tk).
+    and in dense cross-attention (Tq != Tk); dense cross-attention at Dh
+    192 also against the Pallas kernel at dropout 0.
   - Kernel 4 (``flash_attention_biased``, a causal + padding bias per batch
     row and a soft bias per head) through ``run_padded`` at the same head
     dims against JAX's library flash kernel in interpret mode: output 1e-5,
-    gradients (d(bias) too) 1e-5 x the largest |gradient| of the tensor.
+    gradients (d(bias) too) 1e-5 x the largest |gradient| of the tensor;
+    likewise at Dh 256 on the mel-inference bias layout (one (1, 1, T, T)
+    bias broadcast over batch and heads, T not a multiple of the wide
+    kernel's 64-row tile) and in cross-attention (9 query rows against 21
+    keys).
   - Kernel 1's plain version, through the wrapper's zero pad to whole
     16-byte chunks with the true Dh's scale (Dh 8 and 72 in an int8 cache),
     at Dh 8, 72 and 512 and at 64 heads of Dh 64: against JAX's plain
@@ -137,6 +142,20 @@ def _cross_case(dh, tq):
     return np.ascontiguousarray(q[:, :tq]), k, v, np.ascontiguousarray(dout[:, :tq]), bias, None
 
 
+def test_kernels_2_3_match_jax_in_dense_cross_attention():
+    """9 query rows against the 24 keys of ``_prefix_case`` at Dh 192 (the
+    wide kernels' pad to 256), dropout 0, against the Pallas kernel."""
+    q, k, v, dout, bias, _ = _cross_case(192, 9)
+
+    def f(a, b_, c, d):
+        out, vjp = jax.vjp(lambda a, b_, c: jax_fused(a, b_, c, jnp.asarray(bias), prefix_s=None,
+                                                      interpret=True), a, b_, c)
+        return out, vjp(d)
+
+    want_out, want_grads = jax.jit(f)(*(jnp.asarray(x) for x in (q, k, v, dout)))
+    _check(*_padded_plain_fused(q, k, v, dout, bias, None), want_out, want_grads)
+
+
 @pytest.mark.parametrize("dh,tq", [(144, None), (192, None), (256, None), (512, None), (256, 9)],
                          ids=["144", "192", "256", "512", "256-cross-tq9"])
 def test_kernels_2_3_match_jax_on_the_injected_dropout_mask(dh, tq, monkeypatch):
@@ -168,6 +187,37 @@ def test_kernel_4_matches_jax(dh):
     bias[1, :, :, t - 4:] = -1e9  # key padding
     bias[1, :, t - 4:, :] = np.where(np.arange(t)[None, :] > np.arange(t - 4, t)[:, None],
                                      -1e9, bias[1, :, t - 4:, :])
+    _check_kernel_4(q, k, v, dout, bias)
+
+
+@pytest.mark.parametrize("layout", ["mel-inference-broadcast", "cross-tq9"])
+def test_kernel_4_matches_jax_at_head_dim_256_on_other_layouts(layout):
+    """The mel loop's bias layout: one (1, 1, T, T) bias, row r seeing
+    columns <= min(r, step), broadcast over batch and heads (T = 21, not a
+    multiple of 64); or 9 query rows against 21 keys with a (B, 1, Tq, Tk)
+    bias and key padding in batch row 1.  The visible entries are soft and
+    negative: the JAX wrapper clips the bias at 0 where it pads the keys to
+    128, which splits the gradient of an entry of exactly 0
+    (tests/test_torch_flash_bias.py)."""
+    rng = np.random.RandomState(256 + len(layout))
+    b, tk, h, dh = 2, 21, 2, 256
+    tq = tk if layout == "mel-inference-broadcast" else 9
+    q, dout = (rng.randn(b, tq, h, dh).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, tk, h, dh).astype(np.float32) for _ in range(2))
+    col = np.arange(tk)[None, :]
+    if layout == "mel-inference-broadcast":
+        masked = (col > np.arange(tq)[:, None]) | (col > 13)
+        soft = -np.abs(rng.randn(tq, tk)) - 0.01
+        bias = np.where(masked, -1e9, soft).astype(np.float32)[None, None]
+    else:
+        bias = -np.abs(rng.randn(b, 1, tq, tk)).astype(np.float32) - 0.01
+        bias[1, :, :, tk - 5:] = -1e9
+    _check_kernel_4(q, k, v, dout, bias)
+
+
+def _check_kernel_4(q, k, v, dout, bias):
+    """Kernel 4's plain forward and backward (d(bias) too) through
+    ``run_padded`` against JAX's library flash kernel in interpret mode."""
     tq_, tk_, tv_, td_, tb_ = (torch.from_numpy(a) for a in (q, k, v, dout, bias))
     out, lse = run_padded(lambda *a, scale: flash_attention_forward_reference(*a, scale=scale),
                           (tq_, tk_, tv_), tb_, n_sliced=1)
@@ -186,6 +236,8 @@ def test_kernel_4_matches_jax(dh):
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5, rtol=0)
     for name, g, w in zip(("q", "k", "v", "bias"), got, jgrads):
         w = np.asarray(w)
+        if name == "bias":  # summed over the broadcast dimensions, as the wrapper sums it
+            g = g.sum_to_size(tb_.shape)
         np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                    atol=1e-5 * max(float(np.abs(w).max()), 1.0),
                                    err_msg=f"d{name}")

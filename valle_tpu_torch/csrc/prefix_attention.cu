@@ -79,14 +79,13 @@
 //      _windows clip did.  No atomics: reruns are bit-equal.
 //   6. Registers decide the occupancy: fwd_bounds_class() gives each
 //      instantiation the launch bounds under which ptxas spills nothing.
-//   7. Head dims above 128 (the split instantiations, *_split_kernel): a
+//   7. Head dims above 256 (the split instantiations, *_split_kernel): a
 //      warp's 16 rows of O in f32 take Dh / 2 accumulator registers per
-//      thread (128 at Dh 256, over the budget beside S and the operands),
-//      and a whole-row tile at Dh 512 needs 264 KB of shared memory in f32,
-//      over the 227 KB a block may use.  So the head dim is split: the
-//      wrapper zero-pads Dh to a multiple of kSplitDh = 128, and a grid
-//      dimension takes the nc = Dh / 128 chunks of O, each block holding
-//      Dh 128's accumulators (and launch bounds) for its chunk.  S needs the
+//      thread, and a whole-row tile at Dh 512 needs 264 KB of shared memory
+//      in f32, over the 227 KB a block may use.  So the head dim is split:
+//      the wrapper zero-pads Dh to a multiple of kSplitDh = 128, and a grid
+//      dimension takes the nc = Dh / 128 chunks of O, each block holding Dh
+//      128's accumulators (and launch bounds) for its chunk.  S needs the
 //      whole Dh, so each block recomputes it: every key tile takes nc steps
 //      of the two-stage ring, step i staging chunk i of the q tile and the
 //      key tile (q is restaged per key tile: it no longer fits beside the
@@ -94,12 +93,57 @@
 //      comes with the tile's first step.  Shared memory stays that of Dh 128
 //      plus a second q stage (101.5 KB f32, 69.9 KB bf16) at any Dh.  The
 //      cost: S's products nc times, (nc + 1) / 2 times the forward's
-//      operations (1.5x at Dh 256), and q read once per key tile from L2.
-//      Every chunk sums S in the same order, so the LSE (written by chunk
-//      0) is every chunk's.
-// Later work: wgmma / TMA, skipping kernel 4's wholly masked key tiles, and
-// at Dh 256 keeping q whole in shared memory (66.6 KB in f32) instead of
-// restaging it.
+//      operations, and q read once per key tile from L2.  Every chunk sums S
+//      in the same order, so the LSE (written by chunk 0) is every chunk's.
+//   8. Head dim 256 (the wide kernels, *_wide_kernel; the wrapper zero-pads
+//      Dh 129-255 to 256), the forward sibling of the backward's wide dQ
+//      pass (prefix_attention_bwd.cu point 6; the block shape, launch
+//      bounds and exchange are in wide_tile.cuh).  The split design ran S's
+//      products twice at Dh 256 (1.5x the operations) and restaged q from L2
+//      on every key tile.  Here S is computed once per (q tile, key tile)
+//      pair and q is staged once: a block is kWideWarps = 8 warps per (64-row
+//      q tile, head, batch); q sits whole in shared memory and K and V stream
+//      through a two-stage ring of WK = 16-key tiles (kernel 2's key bias
+//      with them).  Per key tile:
+//        phase A: warp w computes a 16 x 16 tile of S for rows 16 (w & 3) ..
+//          +15 over Dh half w >> 2 (mma_xyt over 128 of the 256 columns);
+//          warps w and w ^ 4 swap both n8 tiles of their partials through
+//          shared memory and each adds low half + high half, so both hold
+//          the whole tile bit for bit.  Each then scales and masks all 16
+//          columns (kernel 4's bias read before the product) and takes the
+//          rows' running max from them in registers, the same in both warps:
+//          this costs 8 more exchanged floats a lane but no second exchange
+//          (and barrier) for the max across the two n8 halves.  The warp's
+//          own n8 tile (columns 8 (w >> 2) .. +7) then gets its Philox keep
+//          bits (counter (col / 4, row, b H + h) as at Dh <= 128) and becomes
+//          P, rounded like T against the running max, in a 64 x 16 tile of
+//          shared memory; the half-0 warps write the rows' rescale factors
+//          exp(m_old - m_new) to a 64-entry table beside it.  Each warp
+//          keeps its part of the row sums over its own columns.
+//        phase C, after one barrier: warp w owns O's columns 32 w .. 32 w +
+//          31 for all 64 rows (64 f32 accumulators a thread), rescales them
+//          by the table and adds P V (mma_xz, both operands from shared
+//          memory; in f32 each k step into a zeroed fragment added in f32).
+//      Three barriers per key tile (the ring, the exchange, P).  Epilogue:
+//      the two halves' row sums meet in shared memory (low + high), each row
+//      of out and of the LSE has one writer.  Kernel 2 stops at the tile's
+//      frontier max(prefix_s, tile end); kernel 4 walks every key tile.
+//      Shared memory: 144.9 KB in f32, one block (8 warps) per SM; 77.9 KB
+//      in bf16, launch bounds of two blocks (16 warps) per SM (at most 128
+//      registers).  The grid (Tq / 64, H, B) has half the split kernel's
+//      blocks: at B 4, T 880, H 4, 224 blocks, 1.7 waves of 132 SMs in f32
+//      and 0.85 in bf16; at the TTS inference shape (B 8, T 201) 128
+//      blocks, under one wave.  64-row tiles ship, chosen by measurement on
+//      an H100 (PERF.md, section 6): at these shapes the wide kernel runs
+//      within 4% of the Dh-64 kernel at 16 heads on the same FLOPs, or
+//      faster (the under-filled inference grid too), so 32-row tiles, which
+//      would read K and V twice as often per row, were not needed.  Reruns
+//      are bit-equal: no atomics, and every sum has a fixed order.  The row
+//      sums now add the two halves of each tile's columns apart, so the LSE
+//      agrees with the split kernel's to f32 rounding.  Registers: f32
+//      248-252 (launch bounds of one block, at most 255), bf16 126-128; no
+//      spill.
+// Later work: wgmma / TMA, and skipping kernel 4's wholly masked key tiles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,6 +154,7 @@
 #include "attention_common.cuh"
 #include "mma_tile.cuh"
 #include "philox.cuh"
+#include "wide_tile.cuh"
 
 namespace {
 
@@ -477,6 +522,274 @@ auto bias_kernel() {
   else return any_regs::flash_bias_fwd_kernel<T, DH>;
 }
 
+// ------------------------------------------------------------ Dh 256
+
+// Shared memory of a wide forward (header point 8): the exchange buffer, the
+// row table (each tile's rescale factors, at the end the row maxima), the two
+// halves' row sums, two stages of kernel 2's key bias, q whole, two stages of
+// K and V, and P.
+template <typename T>
+constexpr size_t wide_fwd_smem_bytes() {
+  constexpr size_t row = (size_t)row_stride<T, kWideDh>() * sizeof(T);
+  return (size_t)(kWideWarps * kXchg + 3 * WQ + 2 * WK) * sizeof(float) + (WQ + 4 * WK) * row +
+         (size_t)WQ * pd_stride<WK>() * sizeof(T);
+}
+
+// One (64-row q tile, head, batch) of the forward at Dh 256, arguments and
+// kBias / kDrop as attention_fwd_tile.  q stays whole; key tiles of WK = 16
+// stream through two stages.  Per tile: warp w computes S for rows 16 (w &
+// 3) .. +15 over Dh half w >> 2 and swaps it with warp w ^ 4, so that both
+// hold the whole 16 x 16 tile (phase A); both take the rows' running max
+// from it, and the warp's own n8 tile (columns 8 (w >> 2) .. +7) becomes P,
+// rounded like T, in shared memory beside the rows' rescale factors; after a
+// barrier warp w rescales O's columns 32 w .. 32 w + 31 for all 64 rows and
+// adds P V (phase C).
+template <typename T, bool kDrop, bool kBias>
+__device__ __forceinline__ void attention_fwd_wide(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, Bias bias, T* __restrict__ out,
+    float* __restrict__ lse, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
+    bool vec) {
+  static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
+  constexpr int DH = kWideDh, LDW = row_stride<T, DH>(), LDS = pd_stride<WK>();
+  constexpr int TILE = WK * LDW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sX = reinterpret_cast<float*>(smem_raw);  // [warps][kXchg]
+  float* sAl = sX + kWideWarps * kXchg;             // [WQ] rescale factors, then row maxima
+  float* sL = sAl + WQ;                             // [2][WQ] the halves' row sums
+  float* sB = sL + 2 * WQ;                          // [2][WK] kernel 2's key bias
+  T* sQ = reinterpret_cast<T*>(sB + 2 * WK);        // [WQ][LDW]
+  T* sK = sQ + WQ * LDW;                            // [2][WK][LDW]
+  T* sV = sK + 2 * TILE;                            // [2][WK][LDW]
+  T* sP = sV + 2 * TILE;                            // [WQ][LDS]
+
+  const int r0 = blockIdx.x * WQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int half = warp >> 2, wr = 16 * (warp & 3);  // phase A: Dh half, first row
+  const unsigned bh = (unsigned)(b * H + h);
+  int kend = Tk;  // structural frontier of this q tile
+  if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + WQ));
+  const int n_tiles = (kend + WK - 1) / WK;
+
+  const T* qb = q + (long long)b * q_sb + (long long)h * DH;
+  const T* kb = k + (long long)b * k_sb + (long long)h * DH;
+  const T* vb = v + (long long)b * v_sb + (long long)h * DH;
+  const float* bb = nullptr;
+  if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
+  const float* kvb = (!kBias && kv_bias != nullptr) ? kv_bias + (long long)b * Tk : nullptr;
+  // key tile c0 (K, V, and kernel 2's key bias, 0 past kend) into stage st
+  auto stage_tile = [&](int st, int c0) {
+    stage_rows<T, DH, WK, kWideThreads>(sK + st * TILE, kb, k_st, c0, kend, vec);
+    stage_rows<T, DH, WK, kWideThreads>(sV + st * TILE, vb, v_st, c0, kend, vec);
+    if constexpr (!kBias) {
+      if (kvb != nullptr && threadIdx.x < WK) {
+        const int c = c0 + threadIdx.x;
+        cp_async4(sB + st * WK + threadIdx.x, c < kend ? kvb + c : kvb, c < kend);
+      }
+    }
+  };
+  if (!kBias && kvb == nullptr && threadIdx.x < 2 * WK) sB[threadIdx.x] = 0.f;
+  stage_rows<T, DH, WQ, kWideThreads>(sQ, qb, q_st, r0, Tq, vec);
+  stage_tile(0, 0);
+  cp_async_commit();
+
+  const int ra = r0 + wr + g, rb = ra + 8;
+  // the columns each of the two rows sees are [0, lim): kernel 2's structural
+  // mask and the ragged edges, kernel 4's ragged edges
+  auto col_limit = [&](int r) {
+    if (r >= Tq) return 0;
+    if (kBias || prefix_s < 0) return Tk;
+    return min(kend, r < prefix_s ? prefix_s : max(prefix_s, r + 1));
+  };
+  const int lim_a = col_limit(ra), lim_b = col_limit(rb);
+  float m_a = -INFINITY, m_b = -INFINITY;  // running row maxima of rows ra, rb
+  float l_a = 0.f, l_b = 0.f;              // this lane's part of their sums over the warp's columns
+  float acc[WQ / 16][4][4];                // O: the block's rows x the warp's 32 columns
+#pragma unroll
+  for (int m = 0; m < WQ / 16; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * WK, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it is in; every warp is past tile it - 1's phase C
+    if (it + 1 < n_tiles) {  // the next key tile loads while this one computes
+      stage_tile(st ^ 1, k0 + WK);
+      cp_async_commit();
+    }
+    const T* cK = sK + st * TILE;
+    const T* cV = sV + st * TILE;
+    const float* cB = sB + st * WK;
+    // kernel 4's biases of both n8 tiles (-inf outside Tq x Tk), read before
+    // the product so that their latency hides behind it
+    float add[2][4];
+    if constexpr (kBias) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? ra : rb, c = k0 + 8 * n + 2 * t + (e & 1);
+          add[n][e] = c < (e < 2 ? lim_a : lim_b) ? bb[r * (int)bias.sq + c * (int)bias.sk]
+                                                  : -INFINITY;
+        }
+    }
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    const int dh0 = half * kWideHalf;
+    mma_xyt<T, kWideHalf, 2, true, LDW>(s, sQ + wr * LDW + dh0, cK + dh0, lane);  // S = q k^T
+    wide_exchange_give(sX, s, warp, lane);
+    __syncthreads();
+    float s1[2][4];
+    wide_exchange_take(sX, s, half, warp, lane, s1);
+
+    // scaled scores (-inf where masked) and the tile's row maxima over all 16
+    // columns, the same in both warps of the pair
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = 8 * n + 2 * t + (e & 1);
+        float x;
+        if constexpr (kBias)
+          x = (s1[n][e] + add[n][e]) * scale;
+        else
+          x = k0 + cl < (e < 2 ? lim_a : lim_b) ? s1[n][e] * scale + cB[cl] : -INFINITY;
+        s1[n][e] = x;
+        if (e < 2)
+          mx_a = fmaxf(mx_a, x);
+        else
+          mx_b = fmaxf(mx_b, x);
+      }
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with nothing visible yet keeps m = -inf and alpha = 1
+    const float al_a = (mn_a == -INFINITY) ? 1.f : __expf(m_a - mn_a);
+    const float al_b = (mn_b == -INFINITY) ? 1.f : __expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    l_a *= al_a;
+    l_b *= al_b;
+    if (half == 0 && t == 0) {
+      sAl[wr + g] = al_a;
+      sAl[wr + g + 8] = al_b;
+    }
+
+    // the warp's n8 tile becomes P after dropout, rounded like T
+    unsigned keep_a = 0xFu, keep_b = 0xFu;
+    if constexpr (kDrop) {
+      // lane L draws (row wr + L % 16, group L / 16) of this 16 x 8 tile
+      const unsigned w = philox_keep4((unsigned)((k0 + 8 * half) >> 2) + (lane >> 4),
+                                      (unsigned)(r0 + wr + (lane & 15)), bh, drop.seed,
+                                      drop.threshold);
+      keep_a = __shfl_sync(0xffffffffu, w, (t >> 1) * 16 + g) >> (2 * (t & 1));
+      keep_b = __shfl_sync(0xffffffffu, w, (t >> 1) * 16 + g + 8) >> (2 * (t & 1));
+    }
+    float pr[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = half ? s1[1][e] : s1[0][e];
+      const float p = (x == -INFINITY) ? 0.f : __expf(x - (e < 2 ? m_a : m_b));
+      if (e < 2)
+        l_a += p;
+      else
+        l_b += p;
+      float pd = p;
+      if constexpr (kDrop) {
+        const bool kept = (((e < 2 ? keep_a : keep_b) >> (e & 1)) & 1u) != 0;
+        pd = kept ? p * drop.inv_keep : 0.f;
+      }
+      pr[e] = round_like<T>(pd);
+    }
+    store_pair<T>(sP + (wr + g) * LDS + 8 * half + 2 * t, pr[0], pr[1]);
+    store_pair<T>(sP + (wr + g + 8) * LDS + 8 * half + 2 * t, pr[2], pr[3]);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < WQ / 16; ++m) {
+      const float a0 = sAl[16 * m + g], a1 = sAl[16 * m + g + 8];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        acc[m][n][0] *= a0;
+        acc[m][n][1] *= a0;
+        acc[m][n][2] *= a1;
+        acc[m][n][3] *= a1;
+      }
+    }
+    mma_xz<T, WQ / 16, 4, WK, LDS, LDW>(acc, sP, cV + 32 * warp, lane);  // O += P v
+  }
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  __syncthreads();  // every warp is past the last phase C's rescale factors
+  if (t == 0) {
+    sL[half * WQ + wr + g] = l_a;
+    sL[half * WQ + wr + g + 8] = l_b;
+    if (half == 0) {
+      sAl[wr + g] = m_a;
+      sAl[wr + g + 8] = m_b;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < WQ / 16; ++m)
+#pragma unroll
+    for (int half2 = 0; half2 < 2; ++half2) {
+      const int rl = 16 * m + g + 8 * half2, r = r0 + rl;
+      if (r >= Tq) continue;
+      const float l = sL[rl] + sL[WQ + rl];  // low half + high half
+      T* o = out + (((long long)b * Tq + r) * H + h) * DH + 32 * warp + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        store2(o + 8 * n, acc[m][n][2 * half2] / l, acc[m][n][2 * half2 + 1] / l);
+    }
+  if (lse != nullptr && threadIdx.x < WQ && r0 + (int)threadIdx.x < Tq)
+    lse[(long long)bh * Tq + r0 + threadIdx.x] =
+        sAl[threadIdx.x] + logf(sL[threadIdx.x] + sL[WQ + threadIdx.x]);
+}
+
+// The wide kernels (kernel 2's prefix_attention_wide_kernel, kernel 4's
+// flash_bias_fwd_wide_kernel), kWideThreads threads a block.
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) prefix_attention_wide_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, T* __restrict__ out, float* __restrict__ lse,
+    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop, bool vec) {
+  attention_fwd_wide<T, kDrop, false>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias,
+                                      Bias{}, out, lse, Tq, Tk, H, prefix_s, scale, drop, vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) flash_bias_fwd_wide_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    Bias bias, T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H,
+    float scale, bool vec) {
+  attention_fwd_wide<T, false, true>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr, bias,
+                                     out, lse, Tq, Tk, H, -1, scale, Dropout{}, vec);
+}
+
+// The grid of a wide launch: (64-row q tiles, H, B).
+inline dim3 wide_fwd_grid(int B, int Tq, int H) {
+  return dim3((Tq + WQ - 1) / WQ, H, B);
+}
+
 // The grid of a forward launch: (q tiles, H heads x nc chunks, B).
 inline dim3 fwd_grid(int B, int Tq, int H, int nc) {
   return dim3((Tq + BM - 1) / BM, H * nc, B);
@@ -497,6 +810,14 @@ cudaError_t launch_prefix(int Dh, const void* q, long long q_sb, long long q_st,
                           int Tq, int Tk, int H, int prefix_s, Dropout drop, float scale,
                           cudaStream_t stream) {
   const bool vec = qkv_aligned<T>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st);
+  if (Dh == kWideDh) {
+    auto kern = prefix_attention_wide_kernel<T, true>;
+    if (drop.threshold == 0) kern = prefix_attention_wide_kernel<T, false>;
+    return launch_wide(kern, wide_fwd_grid(B, Tq, H), wide_fwd_smem_bytes<T>(), stream,
+                       static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k), k_sb,
+                       k_st, static_cast<const T*>(v), v_sb, v_st, kv_bias, static_cast<T*>(out),
+                       lse, Tq, Tk, H, prefix_s, scale, drop, vec);
+  }
   return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
     constexpr bool kSplit = decltype(split)::value;
@@ -524,6 +845,11 @@ cudaError_t launch_bias(int Dh, const void* q, long long q_sb, long long q_st, c
                         long long v_st, Bias bias, void* out, float* lse, int B, int Tq, int Tk,
                         int H, float scale, cudaStream_t stream) {
   const bool vec = qkv_aligned<T>(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st);
+  if (Dh == kWideDh)
+    return launch_wide(flash_bias_fwd_wide_kernel<T>, wide_fwd_grid(B, Tq, H),
+                       wide_fwd_smem_bytes<T>(), stream, static_cast<const T*>(q), q_sb, q_st,
+                       static_cast<const T*>(k), k_sb, k_st, static_cast<const T*>(v), v_sb,
+                       v_st, bias, static_cast<T*>(out), lse, Tq, Tk, H, scale, vec);
   return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
     constexpr bool kSplit = decltype(split)::value;
@@ -593,5 +919,22 @@ extern "C" int flash_attention_launch(
   if (dtype == 1)
     return (int)launch_bias<__nv_bfloat16>(Dh, q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, bs,
                                            out, lse, B, Tq, Tk, H, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The resources of one wide kernel (Dh 256): dtype as above, bias: kernel 4's
+// forward (else kernel 2), drop: kernel 2 with dropout.  info: registers,
+// local (spilled) bytes, dynamic shared memory bytes, threads a block,
+// resident blocks per SM.  Returns a cudaError_t.
+extern "C" int prefix_attention_wide_info(int dtype, int bias, int drop, int* info) {
+  auto pick = [&](auto tag) -> int {
+    using T = decltype(tag);
+    constexpr size_t smem = wide_fwd_smem_bytes<T>();
+    if (bias) return wide_kernel_info(flash_bias_fwd_wide_kernel<T>, smem, info);
+    if (drop) return wide_kernel_info(prefix_attention_wide_kernel<T, true>, smem, info);
+    return wide_kernel_info(prefix_attention_wide_kernel<T, false>, smem, info);
+  };
+  if (dtype == 0) return pick(float{});
+  if (dtype == 1) return pick(__nv_bfloat16{});
   return (int)cudaErrorInvalidValue;
 }

@@ -85,7 +85,9 @@
 //      P is recomputed in both passes.  S no longer follows the forward's
 //      FMA order, so P agrees with the forward's to f32 rounding.
 //   6. Head dim 256 (the wide passes, *_wide_kernel; the wrapper zero-pads Dh
-//      129-255 to 256).  The bound is the one above, 10 B H Dh operations
+//      129-255 to 256; the block shape, launch bounds and the Dh-half
+//      exchange are in wide_tile.cuh, shared with the forward's wide
+//      kernels, prefix_attention.cu point 8).  The bound is the one above, 10 B H Dh operations
 //      per visible pair (dense B 4, T 880, H 4: 31.7 G a call, the Dh-64
 //      kernel's at 16 heads), and as at Dh <= 128 each pass computes S and
 //      dP once per (q tile, key tile) pair: no grid dimension over chunks of
@@ -152,6 +154,7 @@
 #include "attention_common.cuh"
 #include "mma_tile.cuh"
 #include "philox.cuh"
+#include "wide_tile.cuh"
 
 namespace {
 
@@ -654,29 +657,10 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
 // ------------------------------------------------------------ Dh 256
 
 // The wide passes (header point 6): Dh = kWideDh whole, kWideWarps warps a
-// block, S and dP computed once per (q tile, key tile) pair.
-constexpr int kWideDh = 256;
-constexpr int kWideHalf = kWideDh / 2;  // the Dh columns of a phase-A warp
-constexpr int kWideWarps = 8;
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int WQ = 64;  // dQ pass: q rows of a block (4 m16 tiles)
-constexpr int WK = 16;  // dQ pass: keys of a streamed tile
+// block, S and dP computed once per (q tile, key tile) pair (the block shape,
+// launch bounds and exchange are in wide_tile.cuh).
 constexpr int WC = 32;  // dK/dV pass: keys of a block (2 m16 tiles)
 constexpr int WR = 32;  // dK/dV pass: q rows of a streamed tile
-constexpr int kXchg = 8 * 32;  // floats a warp hands its partner: 2 x 4 per lane
-
-// Blocks per SM that the launch bounds ask ptxas to fit: f32 takes one
-// (shared memory holds one block), bf16 two (at most 128 registers, no
-// spill; with one block of more registers both bf16 passes ran slower).
-template <typename T>
-constexpr int kWideMinBlocks = kF32<T> ? 1 : 2;
-
-// Row stride of the Pd^T / dS^T tiles (W columns): 8 elements past W, 8 mod
-// 32 words in f32 (W = 16, 32) and an odd number of 16-byte units in bf16.
-template <int W>
-__host__ __device__ constexpr int pd_stride() {
-  return W + 8;
-}
 
 // Shared memory of a wide pass: the exchange buffer, then the dQ pass's q
 // and dO (whole), two stages of K and V, and dS; or the dK/dV pass's K and V
@@ -689,34 +673,6 @@ constexpr size_t wide_smem_bytes() {
   if constexpr (kDq) return xchg + (2 * WQ + 4 * WK) * row + WQ * pd_stride<WK>() * sizeof(T);
   return xchg + 4 * WR * sizeof(float) + (2 * WC + 4 * WR) * row +
          2 * WC * pd_stride<WR>() * sizeof(T);
-}
-
-// Phase A of a wide pass splits Dh between warps w and w ^ 4 (half = w >> 2),
-// each holding a 16 x 16 partial of S and dP (two n8 tiles) over its 128
-// columns.  The element pass of n8 tile `half` is the warp's own: it hands
-// the other tile to its partner through sx, takes the partner's, and adds
-// the two halves low + high, in that order, into s1 / dp1.
-__device__ __forceinline__ void wide_exchange_give(float* sx, const float (&s)[2][4],
-                                                   const float (&dp)[2][4], int half, int warp,
-                                                   int lane) {
-  float* o = sx + warp * kXchg + lane;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    o[32 * e] = half ? s[0][e] : s[1][e];
-    o[32 * (4 + e)] = half ? dp[0][e] : dp[1][e];
-  }
-}
-
-__device__ __forceinline__ void wide_exchange_take(const float* sx, const float (&s)[2][4],
-                                                   const float (&dp)[2][4], int half, int warp,
-                                                   int lane, float (&s1)[4], float (&dp1)[4]) {
-  const float* o = sx + (warp ^ 4) * kXchg + lane;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float rs = o[32 * e], rd = o[32 * (4 + e)];
-    s1[e] = half ? rs + s[1][e] : s[0][e] + rs;
-    dp1[e] = half ? rd + dp[1][e] : dp[0][e] + rd;
-  }
 }
 
 // The dQ pass of one (64-row q tile, head, batch) at Dh 256, arguments as
@@ -1107,26 +1063,6 @@ __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) flash_bias_bw
                                     vec);
 }
 
-// Give a wide pass kernel its shared memory: the dynamic size, and the
-// largest carveout, so that two bf16 blocks fit on an SM.
-template <typename K>
-cudaError_t prepare_wide(K kern, size_t smem) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
-template <typename... P, typename... A>
-cudaError_t launch_wide(void (*kern)(P...), dim3 grid, size_t smem, cudaStream_t stream,
-                        A... args) {
-  const cudaError_t err = prepare_wide(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, kWideThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 // The pass kernels (kernel 3's attn_bwd_*, kernel 4's flash_bias_bwd_*),
 // defined three times, once per launch bounds of bounds_class() (fit4, fit1,
 // any_regs); each instantiation is taken from one of them.
@@ -1474,22 +1410,7 @@ extern "C" int flash_attention_bwd_launch(
 // dQ).  info: registers, local (spilled) bytes, dynamic shared memory bytes,
 // threads a block, resident blocks per SM.  Returns a cudaError_t.
 extern "C" int prefix_attention_bwd_wide_info(int dtype, int bias, int drop, int dkv, int* info) {
-  auto query = [&](auto kern, size_t smem) -> int {
-    cudaError_t err = prepare_wide(kern, smem);
-    if (err != cudaSuccess) return (int)err;
-    cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, kern);
-    if (err != cudaSuccess) return (int)err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kWideThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    info[0] = fa.numRegs;
-    info[1] = (int)fa.localSizeBytes;
-    info[2] = (int)smem;
-    info[3] = kWideThreads;
-    info[4] = blocks;
-    return 0;
-  };
+  auto query = [&](auto kern, size_t smem) { return wide_kernel_info(kern, smem, info); };
   auto pick = [&](auto tag) -> int {
     using T = decltype(tag);
     const size_t sq = wide_smem_bytes<T, true>(), sk = wide_smem_bytes<T, false>();

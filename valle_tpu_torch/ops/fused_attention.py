@@ -19,13 +19,14 @@ is added.  On every row that sees at least one visible column this equals the
 JAX kernel, which adds -1e9 for the structural mask instead; the two differ
 only on rows whose columns are all masked, which no caller reads.
 
-Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS`` and,
-above 128, in chunks of ``SPLIT_HEAD_DIM`` (a grid dimension over the chunks
-of the output, each block recomputing the scores over the whole Dh), but for
-the backward at Dh 256, whose wide passes compute the scores once per tile
-pair (the kernel source picks them); any other Dh runs zero-padded to the
-next of them, or to a multiple of 128, with the scale of the true Dh
-(:func:`run_padded`, shared with kernel 4).
+Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS``, at
+Dh 256 as wide kernels that compute the scores once per tile pair (the
+forward's and the backward's; the kernel sources pick them), and above 256
+in chunks of ``SPLIT_HEAD_DIM`` (a grid dimension over the chunks of the
+output, each block recomputing the scores over the whole Dh); any other Dh
+runs zero-padded to the next of them (129-255 to the wide kernels' 256), or
+to a multiple of 128, with the scale of the true Dh (:func:`run_padded`,
+shared with kernel 4).
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ SPLIT_HEAD_DIM = 128  # the chunk of the split instantiations (csrc: kSplitDh)
 def kernel_head_dim(dh: int) -> int:
     """The head dim that kernels 2-4 run a head dim of ``dh`` at: the next
     of ``KERNEL_HEAD_DIMS``, or above 128 the next multiple of
-    ``SPLIT_HEAD_DIM`` (the split instantiations)."""
+    ``SPLIT_HEAD_DIM`` (256: the wide kernels; above it the split
+    instantiations)."""
     if dh < 1:
         raise ValueError(f"head dim {dh}: must be positive")
     for n in KERNEL_HEAD_DIMS:
