@@ -17,8 +17,9 @@ ends the run with a non-zero exit code):
      pass (the split instantiations of head dims above 128 too) must use the
      tensor cores and none may spill (the wide kernels of the forward and the
      wide passes of the backward at Dh 256 too); per kernel 1 instantiation (split and
-     combine kernels, lane layouts up to 8 chunks per lane, the strided
-     layout of heads past 1024 and its combine) its registers, spills and
+     combine kernels, lane layouts up to 8 chunks per lane, for whole-chunk
+     heads and for heads staged into slots, the strided layout of heads
+     past 1024 and its combine) its registers, spills and
      I2F instructions: none may spill, and no int8-cache instantiation may
      hold an I2F;
   3. kernel 1 (ragged decode attention, split-K and combine) against its
@@ -45,9 +46,11 @@ ends the run with a non-zero exit code):
      at 144, 192 and 256 the wide kernels of the forward and the backward,
      past 256 the split instantiations: each case's kernels are read from
      the profiler), likewise; kernel 1 at head dims 8,
-     40, 72, 144, 192, 320, 512, 1100 and 2048 in int8 / f32 / bf16 caches
-     (8, 40 and 72 in int8 through the wrapper's zero pad, its copy timed;
-     1100 and 2048 through the strided layout, unpadded) and at 64 heads
+     40, 50, 72, 144, 192, 320, 512, 1025, 1100 and 2048 in int8 / f32 /
+     bf16 caches (8, 40, 50 and 72 in int8 and 50 in bf16 staged into slots
+     of whole 16-byte chunks, the profiler showing no pad or copy of the
+     cache and no kernel but kernel 1's; 1025, 1100 and 2048 through the
+     redesigned strided layout, read from the profiler) and at 64 heads
      of Dh 64 in f32 (two head slices), likewise; kernels 2, 3 and 4 at 4
      heads of Dh 256 on the training shapes (dense T=880; the TTS decoder),
      kernel 2 in dense cross-attention (752 rows against 128 keys) and
@@ -318,16 +321,12 @@ def device_ms(fn, kernel_names, iters: int = 20):
     over 5 calls of a one-kernel wrapper has come out at a fifth to four
     fifths of the event time.  None when it records no device time.  Unlike :func:`cuda_time` this leaves out the host's launch
     overhead between calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    return named_device_ms(profiled_ops(fn, iters)[2], kernel_names)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_launch = [e.self_device_time_total / e.count for e in prof.key_averages()
+
+def named_device_ms(events, kernel_names):
+    """:func:`device_ms` from a profile's ``key_averages()``."""
+    per_launch = [e.self_device_time_total / e.count for e in events
                   if e.count and e.self_device_time_total > 0
                   and any(n in e.key for n in kernel_names)]
     return sum(per_launch) / 1e3 if per_launch else None
@@ -365,29 +364,40 @@ def kernel_label(mangled: str):
 
 
 _RAGGED_KERNEL = re.compile(r"ragged_decode_split_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
+                            r"Lb([01])E"
                             r"|ragged_decode_combine_kernelILi(\d+)E"
-                            r"|ragged_decode_strided_kernelI(a|f|13__nv_bfloat16)E"
-                            r"|(ragged_decode_combine_strided_kernel)")
+                            r"|ragged_decode_strided_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELb([01])E"
+                            r"|(ragged_decode_combine_strided_kernel)"
+                            r"|ragged_decode_scores_kernelI(a|f|13__nv_bfloat16)E")
 _KV_NAMES = {"a": "int8", "f": "float32"}
 
 
 def ragged_label(mangled: str):
     """``ragged_decode_split_kernel<int8, 4, 1>`` (cache type, lanes per
-    head, chunks per lane), ``ragged_decode_combine_kernel<256>`` (threads),
-    ``ragged_decode_strided_kernel<int8>`` or
-    ``ragged_decode_combine_strided_kernel`` for a mangled kernel 1 name, or
-    None for another kernel."""
+    head, chunks per lane; ``, slots`` for the instantiation that stages
+    heads that are not whole 16-byte chunks into slots),
+    ``ragged_decode_combine_kernel<256>`` (threads),
+    ``ragged_decode_strided_kernel<int8, 1>`` (cache type, chunks per
+    thread; ``, scored`` for the instantiation that sums V slices of heads
+    scored by ``ragged_decode_scores_kernel<int8>``),
+    ``ragged_decode_combine_strided_kernel`` or the scores kernel for a
+    mangled kernel 1 name, or None for another kernel."""
     m = _RAGGED_KERNEL.search(mangled)
     if m is None:
         return None
-    if m.group(4) is not None:
-        return f"ragged_decode_combine_kernel<{m.group(4)}>"
     if m.group(5) is not None:
-        return f"ragged_decode_strided_kernel<{_KV_NAMES.get(m.group(5), 'bfloat16')}>"
+        return f"ragged_decode_combine_kernel<{m.group(5)}>"
     if m.group(6) is not None:
-        return m.group(6)
+        kv = _KV_NAMES.get(m.group(6), "bfloat16")
+        scored = ", scored" if m.group(8) == "1" else ""
+        return f"ragged_decode_strided_kernel<{kv}, {m.group(7)}{scored}>"
+    if m.group(9) is not None:
+        return m.group(9)
+    if m.group(10) is not None:
+        return f"ragged_decode_scores_kernel<{_KV_NAMES.get(m.group(10), 'bfloat16')}>"
     kv = _KV_NAMES.get(m.group(1), "bfloat16")
-    return f"ragged_decode_split_kernel<{kv}, {m.group(2)}, {m.group(3)}>"
+    slots = ", slots" if m.group(4) == "1" else ""
+    return f"ragged_decode_split_kernel<{kv}, {m.group(2)}, {m.group(3)}{slots}>"
 
 
 def kernel_resources(lib_path, log_path, label=kernel_label, opcodes=(("hmma", "HMMA"),)) -> dict:
@@ -464,7 +474,8 @@ def bound(n_bytes: float, n_ops: float, op_type: str):
 
 
 RAGGED_NAMES = ["ragged_decode_split_kernel", "ragged_decode_combine_kernel",
-                "ragged_decode_strided_kernel", "ragged_decode_combine_strided_kernel"]
+                "ragged_decode_strided_kernel", "ragged_decode_combine_strided_kernel",
+                "ragged_decode_scores_kernel"]
 PHASE3_LENS = [0, 1024, 517, 300, 1, 777, 64, 900]  # B=8, C=1024: 3,583 live columns
 GENERATE_LENS = [673, 0, 673, 673, 0, 673, 673, 673]  # B=8, C=768: two finished slots
 
@@ -486,16 +497,24 @@ def ragged_cases():
 
 def ragged_inputs(dev, rng, b, c, h, dh, lens, cache):
     """(args of ragged_decode_attention, dequantized k and v in q's dtype)
-    on the card: f32 q, K and V from ``rng``, 10% bias holes; int8 caches
-    quantized per (token, head), others cast."""
+    on the card: f32 q, K and V from ``rng`` (a numpy RandomState, or a
+    torch Generator on the card, which makes them there), 10% bias holes;
+    int8 caches quantized per (token, head), others cast."""
     import torch
 
     from valle_tpu_torch.nn.attention import quantize_kv
 
-    qf = torch.from_numpy(rng.randn(b, 1, h, dh).astype(np.float32)).to(dev)
-    kf = torch.from_numpy(rng.randn(b, c, h, dh).astype(np.float32)).to(dev)
-    vf = torch.from_numpy(rng.randn(b, c, h, dh).astype(np.float32)).to(dev)
-    bias = torch.from_numpy(np.where(rng.rand(b, c) < 0.1, -1e9, 0.0).astype(np.float32)).to(dev)
+    if isinstance(rng, torch.Generator):
+        qf, kf, vf = (torch.randn(shape, generator=rng, device=dev)
+                      for shape in ((b, 1, h, dh), (b, c, h, dh), (b, c, h, dh)))
+        holes = torch.rand((b, c), generator=rng, device=dev) < 0.1
+        bias = torch.where(holes, -1e9, 0.0)
+    else:
+        qf = torch.from_numpy(rng.randn(b, 1, h, dh).astype(np.float32)).to(dev)
+        kf = torch.from_numpy(rng.randn(b, c, h, dh).astype(np.float32)).to(dev)
+        vf = torch.from_numpy(rng.randn(b, c, h, dh).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(np.where(rng.rand(b, c) < 0.1, -1e9, 0.0).astype(np.float32))
+        bias = bias.to(dev)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     if cache == "int8":
         k, ks = quantize_kv(kf)
@@ -533,7 +552,7 @@ def check_ragged_decode(dev):
     from valle_tpu_torch.ops.ragged_decode import (
         _cached_plan, ragged_decode_attention, ragged_decode_attention_reference)
 
-    rng = np.random.RandomState(SEED)
+    rng = torch.Generator(device=dev).manual_seed(SEED)  # inputs made on the card
     results = []
     for name, b, c, h, dh, lens, caches in ragged_cases():
         for cache in caches:
@@ -1020,17 +1039,31 @@ def launched_kernels(fn, calls: int = 3) -> set:
     ``torch.profiler`` over ``calls`` calls after a warm-up (the profiler can
     miss a call's first launches: with one call it reported a forward's
     backward kernels without the forward's)."""
+    return profiled_ops(fn, calls)[0]
+
+
+def profiled_ops(fn, calls: int = 3, tries: int = 3):
+    """(CUDA kernel names, CPU op names, the profile's ``key_averages()``)
+    of ``calls`` calls of ``fn()``, from ``torch.profiler`` after a warm-up
+    call.  Now and then a profile records no kernel at all (every ``fn``
+    here launches some): such a profile is taken again, up to ``tries``
+    times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = {e.key for e in events if e.device_type == DeviceType.CUDA}
+        if kernels:
+            break
+    return kernels, {e.key for e in events if e.device_type == DeviceType.CPU}, events
 
 
 def check_head_dims(dev):
@@ -1349,38 +1382,58 @@ def check_dh256(dev, fwd_res, bwd_res) -> dict:
 
 
 # kernel 1 at head dims and head counts beyond phase 3's: (name, b, c, h, dh)
-# at rows of about 1,024 elements (Dh 8, 40 and 72 are not whole 16-byte
-# chunks in int8 and run zero-padded; 320 and 512 take 2-4 chunks per lane),
-# and rows of many head groups: 64 heads of Dh 64 in f32 (32 groups, two
-# slices) beside Dh 8's 128 heads (in int8 padded to 16: 4 groups of 32)
+# at rows of about 1,024 elements (Dh 8, 40, 50 and 72 are not whole 16-byte
+# chunks in int8, 50 in bf16 either: the kernel stages them into slots of
+# whole chunks, 50 in int8 two bytes a copy; 320 and 512 take 2-4 chunks per
+# lane), and rows of many head groups: 64 heads of Dh 64 in f32 (32 groups,
+# two slices) beside Dh 8's 128 heads (in int8 slots of 16: 4 groups of 32)
+# and 1,024 heads (32 groups, two slices of unpadded heads);
+# past 1024 the strided layout (1025 in int8 and bf16 a byte / two bytes a
+# copy), and past the chunks a strided thread holds in every cache type
+# (Dh 16388: int8 4, bf16 8 bytes a copy, f32 bulk copies) the scores
+# kernel and V slices, at a smaller B and C
 RAGGED_HEAD_DIM_LENS = [0, 512, 259, 150, 1, 388, 32, 450]  # B=8, C=512
-RAGGED_HEAD_DIM_CASES = [(f"dh {dh}", 8, 512, h, dh) for dh, h in
-                         ((8, 128), (40, 25), (72, 14), (144, 7), (192, 5), (320, 3), (512, 2),
-                          (1100, 1), (2048, 2))]  # past 1024: the strided layout, unpadded
-RAGGED_HEAD_COUNT_CASES = [("64 heads of dh 64", 8, 512, 64, 64, ("float32",))]
+ALL3 = ("int8", "float32", "bfloat16")
+# (name, b, c, h, dh, lengths, caches, scored)
+RAGGED_HEAD_DIM_CASES = [(f"dh {dh}", 8, 512, h, dh, RAGGED_HEAD_DIM_LENS, ALL3, False)
+                         for dh, h in ((8, 128), (40, 25), (50, 20), (72, 14), (144, 7),
+                                       (192, 5), (320, 3), (512, 2), (1025, 1), (1100, 1),
+                                       (2048, 2))]
+RAGGED_HEAD_DIM_CASES += [
+    ("dh 16388", 4, 256, 1, 16388, [0, 256, 131, 7], ALL3, True),
+    ("64 heads of dh 64", 8, 512, 64, 64, RAGGED_HEAD_DIM_LENS, ("float32",), False),
+    # 32 head groups of Dh 8 in 16-byte slots: two slices
+    ("1024 heads of dh 8", 8, 512, 1024, 8, RAGGED_HEAD_DIM_LENS, ("int8",), False)]
+# the redesigned strided kernel (its chunks per thread and the V-slice flag
+# as template arguments), as the profiler names it demangled or mangled
+_STRIDED_KERNEL = re.compile(r"ragged_decode_strided_kernel"
+                             r"(?:<[^<>]*, \d+, (?:true|false)>"
+                             r"|I(?:a|f|13__nv_bfloat16)Li\d+ELb[01]E)")
 
 
 def check_ragged_head_dims(dev):
     """Kernel 1 (split and combine) at the head dims and head counts phase 3
-    does not reach (``RAGGED_HEAD_DIM_CASES`` in int8, f32 and bf16 caches,
-    ``RAGGED_HEAD_COUNT_CASES``), each against its plain version with a
-    bit-equal rerun and exact zeros for finished slots, with the plan; where
-    the head is not a whole number of 16-byte chunks, the wrapper's zero pad
-    of q, k and v (a copy of the cache at every call) timed beside the call.
-    (Path v's Dh 256 at the generate shape is a case of phase 3.)"""
+    does not reach (``RAGGED_HEAD_DIM_CASES``), each against its plain
+    version with a bit-equal rerun and exact zeros for finished slots, with
+    the plan, the event ms and the bound.  From one profile (taken again
+    only where it misses one of them): each call launches kernel 1's two
+    kernels (past Dh 1024 the redesigned strided kernel and its combine,
+    and the scores kernel where the case says so) and nothing else, no pad
+    or copy of the cache where the head is not whole 16-byte chunks either.
+    Past 1024 and where the head is not whole chunks, the call's event ms
+    beside its plain version's and SDPA's; past 1024 its device ms too
+    (the unpadded heads' device ms: ``scripts/ragged_ab.py``).  (Path v's
+    Dh 256 at the generate shape is a case of phase 3.)"""
     import torch
-    from torch.nn import functional as F
 
     from valle_tpu_torch.ops.ragged_decode import (
         _cached_plan, padded_head_dim, ragged_decode_attention, ragged_decode_attention_reference)
 
-    rng = np.random.RandomState(SEED + 13)
-    all3 = ("int8", "float32", "bfloat16")
-    cases = [(*c, all3) for c in RAGGED_HEAD_DIM_CASES] + RAGGED_HEAD_COUNT_CASES
+    rng = torch.Generator(device=dev).manual_seed(SEED + 13)  # inputs made on the card
     results = []
-    for name, b, c, h, dh, caches in cases:
+    for name, b, c, h, dh, lens, caches, scored in RAGGED_HEAD_DIM_CASES:
         for cache in caches:
-            args, kv_lib = ragged_inputs(dev, rng, b, c, h, dh, RAGGED_HEAD_DIM_LENS, cache)
+            args, kv_lib = ragged_inputs(dev, rng, b, c, h, dh, lens, cache)
             tol = TOL["bfloat16" if cache == "bfloat16" else "float32"]
             got = ragged_decode_attention(*args)
             again = ragged_decode_attention(*args)
@@ -1390,32 +1443,46 @@ def check_ragged_head_dims(dev):
             err = float((got - want).abs().max())
             assert got.shape == want.shape and torch.isfinite(got).all(), case
             assert torch.equal(got, again), f"kernel 1 ({case}) is not bit-reproducible"
-            dead = [i for i, n in enumerate(RAGGED_HEAD_DIM_LENS) if n == 0]
+            dead = [i for i, n in enumerate(lens) if n == 0]
             assert all(float(got[i].abs().max()) == 0.0 for i in dead), \
                 "a length-0 slot must give exact zeros"
             assert err <= tol, f"kernel 1 ({case}) disagrees with its plain version: {err}"
+            call = lambda: ragged_decode_attention(*args)  # noqa: E731
+            # a profile that misses one of kernel 1's kernels is taken again
+            want = ((_STRIDED_KERNEL, re.compile("ragged_decode_combine_strided_kernel"))
+                    if dh > 1024 else (re.compile("ragged_decode_split_kernel"),
+                                       re.compile(r"ragged_decode_combine_kernel\b")))
+            if scored:
+                want += (re.compile("ragged_decode_scores_kernel"),)
+            for _ in range(3):  # past 1024 the same profile gives the device ms
+                kernels, cpu_ops, events = profiled_ops(call, 20 if dh > 1024 else 3)
+                if all(any(w.search(k) for k in kernels) for w in want):
+                    break
+            assert all(any(w.search(k) for k in kernels) for w in want), \
+                f"{case}: no profile showed kernel 1's kernels {want}: {sorted(kernels)}"
+            strays = sorted(k for k in kernels if not any(n in k for n in RAGGED_NAMES))
+            assert not strays, f"kernel 1 ({case}) launched other kernels: {strays}"
+            copies = sorted(o for o in cpu_ops if o.startswith("aten::")
+                            and any(w in o for w in ("pad", "copy", "cat")))
+            assert not copies, f"kernel 1 ({case}) copies the cache: {copies}"
             elem = args[1].element_size()
             dhp = padded_head_dim(dh, elem)
-            live = int(sum(min(max(n, 0), c) for n in RAGGED_HEAD_DIM_LENS))
+            live = int(sum(min(max(n, 0), c) for n in lens))
             n_bytes = (live * h * dh * 2 * elem + (live * h * 8 if cache == "int8" else 0)
                        + live * 4 + b * 4 + b * h * dh * (args[0].element_size() + 4))
             bound_ms, bound_by = bound(n_bytes, 4.0 * live * h * dh, cache)
-            res = {"case": case, "b": b, "c": c, "h": h, "dh": dh, "kernel_dh": dhp,
-                   "plan": _cached_plan(b, c, h, dhp, elem, torch.cuda.current_device())._asdict(),
+            res = {"case": case, "b": b, "c": c, "h": h, "dh": dh, "slot_dh": dhp,
+                   "plan": _cached_plan(b, c, h, dh, elem, torch.cuda.current_device())._asdict(),
                    "max_abs_err": err, "tol": tol, "bit_equal_rerun": True,
-                   "ms": cuda_time(lambda: ragged_decode_attention(*args), iters=10,
-                                   windows=3)["ms"], "bound_ms": bound_ms, "bound_by": bound_by}
-            if dh > 1024:  # the strided layout: device time, the plain version's, SDPA's
-                res["device_ms"] = device_ms(lambda: ragged_decode_attention(*args),
-                                             RAGGED_NAMES)
+                   "kernels_seen": sorted(kernels),
+                   "ms": cuda_time(call, iters=10, windows=3)["ms"], "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            if dh > 1024:
+                res["device_ms"] = named_device_ms(events, RAGGED_NAMES)
+            if dh > 1024 or dhp != dh:  # the plain version's and SDPA's event ms
                 res["plain_ms"] = cuda_time(lambda: ragged_decode_attention_reference(*args),
                                             iters=10, windows=3)["ms"]
-                res["library_ms"] = ragged_library_ms(args, kv_lib, RAGGED_HEAD_DIM_LENS,
-                                                      iters=10, windows=3)
-            if dhp != dh:
-                res["pad_copy_ms"] = cuda_time(lambda: [F.pad(x, (0, dhp - dh))
-                                                        for x in args[:3]], iters=10,
-                                               windows=3)["ms"]
+                res["library_ms"] = ragged_library_ms(args, kv_lib, lens, iters=10, windows=3)
             results.append(res)
             del args, kv_lib
     emit({"phase": "kernel1_head_dims", "cases": results})
@@ -5092,10 +5159,12 @@ def main() -> int:
           "kernel1_kernels": k1_res, "forward_kernels": fwd, "backward_kernels": bwd,
           "note": "seconds: until the last source was built and scanned, before any kernel "
                   "ran"})
-    # kernel 1: seven / eight / nine lane layouts (int8 / bf16 / f32), the
-    # combine kernel in two sizes, the strided layout in three cache types
-    # and its combine
-    assert len(k1_res) == 30, f"expected 30 kernel 1 kernels, found {sorted(k1_res)}"
+    # kernel 1: seven / eight / nine lane layouts (int8 / bf16 / f32), each
+    # for whole-chunk heads and for heads staged into slots, the combine
+    # kernel in two sizes, the strided layout at three / four / three chunk
+    # counts a thread and its combine, and for the widest heads the scores
+    # kernel and the V-slice instantiation in each cache type
+    assert len(k1_res) == 67, f"expected 67 kernel 1 kernels, found {sorted(k1_res)}"
     assert all(r["spill_bytes"] == 0 for r in k1_res.values()), "ptxas spills in kernel 1"
     assert all(r["i2f"] == 0 for n, r in k1_res.items() if "int8" in n), \
         "an int8-cache instantiation of kernel 1 converts with I2F"

@@ -249,9 +249,9 @@ def _check_kernel_4(q, k, v, dout, bias):
 @pytest.mark.parametrize("cache,h,dh", [("int8", 4, 8), ("int8", 3, 72), ("float32", 2, 512),
                                         ("bfloat16", 2, 512), ("float32", 64, 64)])
 def test_kernel_1_matches_jax(cache, h, dh):
-    """Through the wrapper's zero pad where the int8 head is not a whole
-    number of 16-byte chunks; the padded columns of the output are exactly
-    zero."""
+    """Through the zero pad of the kernel's shared-memory slot where the
+    int8 head is not a whole number of 16-byte chunks; the padded columns of
+    the output are exactly zero."""
     rng = np.random.RandomState(dh + h)
     b, cap = 3, 40
     lengths = np.array([0, 40, 17], np.int32)

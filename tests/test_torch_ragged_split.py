@@ -8,6 +8,15 @@
   only) and to the JAX reference on the same numpy inputs, at Dh 48 and 96,
   with int8, f32 and bf16 caches, on lengths 0, 1, on a split edge and past
   C, a split made only of -1e9 holes and a slot made only of holes.
+- A mirror of the strided layout (Dh above 1024): chunk ownership by 256
+  threads, tiles, the warps' partial scores summed in the kernel's order,
+  the online softmax per tile, the combine skipping dead splits; at Dh 1040
+  and 2080, and past the chunks a thread holds (the scores kernel and V
+  slices), within 1e-5.
+- A mirror of the staging of heads that are not whole 16-byte chunks (int8
+  Dh 8, 40, 72, f32 Dh 30, bf16 Dh 100): the row's bytes in pieces of the
+  copy unit into slots of ``padded_head_dim`` with zero pad bytes, then the
+  split-K mirror on the slots, within 2e-6 of the plain version and JAX.
 - The pad-and-slice path of kernels 2-4 (``run_padded``) driven through the
   plain versions at Dh 48 and 96: forward, LSE and backward (and kernel 4's
   d(bias)) equal to the plain version at the true Dh within 1e-6, the padded
@@ -51,7 +60,7 @@ from tests.test_torch_stall_guard import stall_guard
 INIT_MAX = -2e9
 KV_BYTES = {"int8": 1, "bfloat16": 2, "float32": 4}
 
-_stall_guard = stall_guard(150)  # about 5x the file's time in the parallel tier-1 run
+_stall_guard = stall_guard(150)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,15 +74,16 @@ def _one_thread():
 # ----------------------------------------------------------- kernel 1 mirror
 
 
-def split_k_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan):
+def split_k_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan, scale=None):
     """(B, 1, H, Dh) f32 by the split kernel's and the combine kernel's
-    arithmetic: q pre-scaled by the f32 1 / sqrt(Dh); per split, per warp
-    ``wc`` of a head group, its ``cols_per_warp`` columns of every stage of
-    ``stage_cols`` columns in one online-softmax step; the warps merged in
-    order of wc; the live splits combined in order."""
+    arithmetic: q pre-scaled by ``scale`` (the f32 1 / sqrt(Dh) by
+    default); per split, per warp ``wc`` of a head group, its
+    ``cols_per_warp`` columns of every stage of ``stage_cols`` columns in
+    one online-softmax step; the warps merged in order of wc; the live
+    splits combined in order."""
     b, cap, h, dh = k.shape
     kf, vf = k.float(), v.float()
-    scale = np.float32(1.0) / np.sqrt(np.float32(dh))
+    scale = np.float32(1.0) / np.sqrt(np.float32(dh)) if scale is None else np.float32(scale)
     qs = q.reshape(b, h, dh).float() * torch.tensor(scale)
     out = torch.zeros(b, 1, h, dh)
     for bi in range(b):
@@ -130,16 +140,56 @@ def split_k_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan):
     return out
 
 
+def _tree(x, dim):
+    """Sum ``x`` over ``dim`` (a power of two long) as an xor-shuffle
+    reduction leaves it in lane 0: element i plus element i + n / 2, then
+    again over the first half, and so on."""
+    while x.shape[dim] > 1:
+        lo, hi = x.chunk(2, dim)
+        x = lo + hi
+    return x.squeeze(dim)
+
+
+def _chunks(x, dh, ept):
+    """(..., Dh) -> (..., G, EPT): a head cut into its 16-byte chunks, zero
+    past Dh (a slot's pad bytes, q's lanes past Dh)."""
+    g = -(-dh // ept)
+    return torch.nn.functional.pad(x, (0, g * ept - dh)).reshape(*x.shape[:-1], g, ept)
+
+
+STRIDED_THREADS = 256
+# 16-byte chunks a thread of the strided kernel holds, at most, times its
+# 256 threads (ragged_decode.cu's strided_max_cpt): a wider head is scored
+# by the scores kernel first and its V summed in slices of this many chunks
+STRIDED_SLICE_CHUNKS = {1: 1024, 2: 2048, 4: 2048}
+
+
 def strided_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan):
     """(B, 1, H, Dh) f32 by the strided layout's arithmetic (Dh above
-    1024): per split and head, tiles of ``stage_cols`` columns, each column's
-    score a whole-head dot product times the f32 1 / sqrt(Dh), one online-
-    softmax step per tile with acc updated column by column in order; the
-    combine's weights e^(m_s - M) over the splits in order."""
+    1024): per split and head, tiles of ``stage_cols`` columns; thread t of
+    256 owns the 16-byte chunks t, t + 256, ... of the head, with q
+    pre-scaled by the f32 1 / sqrt(Dh); a column's score is each thread's
+    four partial sums, added in pairs, summed over the warp as the
+    xor-shuffle does and over the 8 warps in pairs, then times the k scale
+    plus the bias; per tile m_new = max(m, the tile's max), l = l * alpha +
+    the shuffle-sum of p, acc = acc * alpha (when m moved) then + w_j v_j
+    column by column; the combine's weights e^(m_s - M) over the live
+    splits, the denominator and each element's numerator in order of s.
+    A head of more than ``STRIDED_SLICE_CHUNKS`` chunks runs the same
+    arithmetic: the scores kernel sums its chunks per thread in the same
+    order, and each element's acc is its own chain whichever block holds
+    it."""
     b, cap, h, dh = k.shape
-    kf, vf = k.float(), v.float()
+    ept = 16 // k.element_size()
     scale = torch.tensor(np.float32(1.0) / np.sqrt(np.float32(dh)))
-    qf = q.reshape(b, h, dh).float()
+    qc = _chunks(q.reshape(b, h, dh).float() * scale, dh, ept)  # (B, H, G, EPT)
+    g = qc.shape[-2]
+    cpt = -(-g // STRIDED_THREADS)
+    own = cpt * STRIDED_THREADS
+    # chunk ci = t + 256 i -> [i, t]; (B, H, CPT, 256, EPT / 4, 4)
+    qt = torch.nn.functional.pad(qc, (0, 0, 0, own - g)).reshape(
+        b, h, cpt, STRIDED_THREADS, ept // 4, 4)
+    kf, vf = k.float(), v.float()
     out = torch.zeros(b, 1, h, dh)
     for bi in range(b):
         n = min(max(int(lengths[bi]), 0), cap)
@@ -147,24 +197,33 @@ def strided_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan):
         for s in range(plan.n_splits):
             c_begin = s * plan.split_cols
             if c_begin >= n:
-                continue  # an empty partial: weight e^(-2e9 - M) = 0
+                continue  # a dead split: weight 0, skipped
             n_cols = min(plan.split_cols, n - c_begin)
             m, l, acc = torch.full((h,), INIT_MAX), torch.zeros(h), torch.zeros(h, dh)
             for t0 in range(c_begin, c_begin + n_cols, plan.stage_cols):
-                cols = range(t0, min(t0 + plan.stage_cols, c_begin + n_cols))
-                sc = (qf[bi][None] * kf[bi, cols.start:cols.stop]).sum(-1) * scale  # (nc, H)
+                cols = slice(t0, min(t0 + plan.stage_cols, c_begin + n_cols))
+                kc = torch.nn.functional.pad(_chunks(kf[bi, cols], dh, ept),
+                                             (0, 0, 0, own - g))  # (nc, H, own, EPT)
+                prod = qt[bi][None] * kc.reshape(-1, h, cpt, STRIDED_THREADS, ept // 4, 4)
+                part = prod.sum(dim=(2, 4))  # (nc, H, 256, 4): each thread's four sums
+                thread = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+                warps = _tree(thread.reshape(-1, h, 8, 32), -1)  # (nc, H, 8)
+                pairs = warps.reshape(-1, h, 4, 2).sum(-1)
+                sc = (pairs[..., 0] + pairs[..., 1]) + (pairs[..., 2] + pairs[..., 3])  # (nc, H)
                 if k_scale is not None:
-                    sc = sc * k_scale[bi, cols.start:cols.stop]
+                    sc = sc * k_scale[bi, cols]
                 if bias is not None:
-                    sc = sc + bias[bi, cols.start:cols.stop, None]
+                    sc = sc + bias[bi, cols, None]
                 m_new = torch.maximum(m, sc.amax(0))
                 alpha = torch.exp(m - m_new)
                 p = torch.exp(sc - m_new)
-                w = p * v_scale[bi, cols.start:cols.stop] if v_scale is not None else p
-                l = l * alpha + p.sum(0)
-                acc = acc * alpha[:, None] if t0 > c_begin else torch.zeros(h, dh)
-                for j, c in enumerate(cols):
-                    acc = acc + w[j][:, None] * vf[bi, c]
+                lanes = torch.nn.functional.pad(p, (0, 0, 0, 32 - p.shape[0]))  # lanes past nc: 0
+                l = l * alpha + _tree(lanes, 0)
+                w = p * v_scale[bi, cols] if v_scale is not None else p
+                acc = torch.where((m_new != m)[:, None], acc * alpha[:, None], acc)
+                # + w_j v_j column by column: f32 sums in order of j
+                terms = torch.cat([acc[None], w[..., None] * vf[bi, cols]]).numpy()
+                acc = torch.from_numpy(np.add.accumulate(terms, axis=0)[-1])
                 m = m_new
             parts.append((m, l, acc))
         if not parts:
@@ -173,30 +232,112 @@ def strided_mirror(q, k, v, lengths, bias, k_scale, v_scale, plan):
         num, den = torch.zeros(h, dh), torch.zeros(h)
         for m, l, acc in parts:
             w = torch.exp(m - big)
-            num = num + w[:, None] * acc
             den = den + w * l
+            num = num + w[:, None] * acc
         out[bi, 0] = num / den[:, None]
     return out
 
 
-@pytest.mark.parametrize("h,sms", [(1, 7), (2, 21)])
-@pytest.mark.parametrize("cache", ["int8", "float32", "bfloat16"])
-def test_strided_mirror_matches_plain_and_jax(cache, h, sms):
+@pytest.mark.parametrize("cache,h,dh,sms", [
+    (cache, h, dh, sms) for cache in ("int8", "float32", "bfloat16")
+    for h, dh, sms in ((1, 1040, 7), (2, 1040, 21), (1, 2080, 7))
+] + [("float32", 1, 8200, 7)])
+def test_strided_mirror_matches_plain_and_jax(cache, h, dh, sms):
     """The strided layout at Dh 1040 (d = 1040 at one head, or 2080 at two)
-    on the split-edge lengths of ``_mirror_case``: several splits, and
-    splits of more than one 32-column tile (h = 1: 35 columns), against
-    the plain version and JAX's plain reference within 1e-5."""
-    plan, args = _mirror_case(cache, h, 1040, sms)
+    and at Dh 2080 (past 2048: two chunks a thread in bf16, three in f32),
+    and past the chunks a thread holds (f32 Dh 8200: 2,050 chunks), where
+    the scores kernel scores and two V slices sum,
+    on the split-edge lengths of ``_mirror_case``: several splits, at the
+    plan's tiles and at three tiles a split, against the plain version and
+    JAX's plain reference within 1e-5."""
+    plan, args = _mirror_case(cache, h, dh, sms)
     assert plan.n_slices == h and plan.n_splits >= 2
+    if dh > 4096:
+        g, sliced = -(-dh * KV_BYTES[cache] // 16), STRIDED_SLICE_CHUNKS[KV_BYTES[cache]]
+        assert sliced < g <= 2 * sliced
     targs = _torch_args(args, cache)
-    got = strided_mirror(*targs, plan)
     plain = ragged_decode_attention_reference(*targs)
     want = np.asarray(jax_reference(*(None if a is None else jnp.asarray(a) for a in args)))
-    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
-    assert np.all(got.numpy()[0] == 0.0)  # length 0
     vf = targs[2].float() * (targs[6][..., None] if targs[6] is not None else 1.0)
-    np.testing.assert_allclose(got[6, 0].numpy(), vf[6, :20].mean(0).numpy(), atol=1e-5)
+    # the plan's tiles, and tiles of a third of a split (several a split,
+    # whichever tile the plan picks for this cache type)
+    third = -(-plan.split_cols // 3)
+    for tiles in (plan, plan._replace(stage_cols=third, cols_per_warp=third)):
+        got = strided_mirror(*targs, tiles)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+        assert np.all(got.numpy()[0] == 0.0)  # length 0
+        np.testing.assert_allclose(got[6, 0].numpy(), vf[6, :20].mean(0).numpy(), atol=1e-5)
+
+
+def copy_unit(head_bytes):
+    """The kernel's copy unit for a head of ``head_bytes`` bytes
+    (``set_head_copy``): the largest of 16, 8, 4, 2 and 1 bytes that divides
+    it, so that every head of every row starts on a multiple of it."""
+    u = 16
+    while head_bytes % u:
+        u //= 2
+    return u
+
+
+def stage_slots(x):
+    """The shared-memory image of (B, C, H, Dh) cache rows as kernel 1's
+    lane layouts stage a head that is not whole 16-byte chunks: the row's
+    bytes in pieces of ``copy_unit`` bytes, piece i of the row to head hd =
+    (i * ceil(2^32 / pieces)) >> 32 (the kernel's division-free i / pieces)
+    at byte hd * SB + (i - hd * pieces) * u, into slots of SB =
+    ``padded_head_dim`` bytes whose pad bytes were zeroed first.  Starts
+    from 0xFF bytes (a NaN in f32 and bf16) and checks that every byte is
+    written once.  Returns (B, C, H, padded Dh) in x's dtype."""
+    b, cap, h, dh = x.shape
+    size = x.element_size()
+    hb, sb = dh * size, padded_head_dim(dh, size) * size
+    rows = x.contiguous().view(torch.uint8).numpy().reshape(b * cap, h * hb)
+    u = copy_unit(hb)
+    pieces = hb // u
+    inv = ((1 << 32) + pieces - 1) // pieces
+    i = np.arange(h * pieces, dtype=np.uint64)
+    hd = (i * np.uint64(inv)) >> np.uint64(32)
+    assert np.array_equal(hd, i // np.uint64(pieces))  # exact at these sizes
+    dst = (hd * np.uint64(sb) + (i - hd * np.uint64(pieces)) * np.uint64(u)).astype(np.int64)
+    src = (i * np.uint64(u)).astype(np.int64)
+    image = np.full((b * cap, h * sb), 0xFF, np.uint8)
+    written = np.zeros(h * sb, np.int64)
+    pad = (np.arange(h * sb) % sb) >= hb  # the pad bytes, zeroed once per block
+    image[:, pad] = 0
+    written[pad] += 1
+    for o in range(u):
+        image[:, dst + o] = rows[:, src + o]
+        written[dst + o] += 1
+    assert np.all(written == 1)
+    return torch.from_numpy(image).view(x.dtype).reshape(b, cap, h, sb // size)
+
+
+@pytest.mark.parametrize("cache,h,dh", [("int8", 16, 8), ("int8", 5, 40), ("int8", 3, 72),
+                                        ("float32", 4, 30), ("bfloat16", 2, 100)])
+def test_unpadded_staging_mirror_matches_plain_and_jax(cache, h, dh):
+    """Heads that are not whole 16-byte chunks, read where they lie in the
+    cache: each head's bytes land in its slot unchanged, the pad bytes are
+    zero, and the split-K mirror on the staged slots (q zero past Dh, the
+    true Dh's scale, the plan of the true Dh) gives the plain version's
+    and JAX's output within 2e-6."""
+    plan, args = _mirror_case(cache, h, dh, 21, seed=dh)
+    targs = _torch_args(args, cache)
+    q, k, v = targs[:3]
+    dhp = padded_head_dim(dh, k.element_size())
+    sk, sv = stage_slots(k), stage_slots(v)
+    for staged, orig in ((sk, k), (sv, v)):
+        assert torch.equal(staged[..., :dh], orig)
+        assert torch.all(staged[..., dh:].float() == 0)
+    qp = torch.nn.functional.pad(q, (0, dhp - dh))
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    got = split_k_mirror(qp, sk, sv, *targs[3:], plan, scale=scale)[..., :dh]
+    plain = ragged_decode_attention_reference(*targs)
+    want = np.asarray(jax_reference(*(None if a is None else jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=0)
+    assert np.all(got.numpy()[0] == 0.0)  # length 0
+    assert plan == split_plan(7, 70, h, dhp, k.element_size(), 21)
 
 
 def _mirror_case(cache, h, dh, sms, seed=0):
@@ -271,13 +412,13 @@ def test_split_plan_fills_the_card_at_the_generate_shapes():
         assert block <= 232448 and (plan.cols_per_warp == 1 or per_sm * block <= 232448)
     for dh in (16, 48, 80, 96, 112, 256):
         split_plan(8, 768, 4, dh, 4, 132)
-    # int8 heads of Dh 8, 40 and 264 are not whole 16-byte chunks: the
-    # wrapper pads them to the next chunk, and the plan takes the padded Dh
+    # int8 heads of Dh 8, 40 and 264 are not whole 16-byte chunks: the plan
+    # takes the true Dh and lays the row out in slots of the padded width,
+    # as the kernel stages it
     for dh, want in ((8, 16), (40, 48), (264, 272)):
         assert padded_head_dim(dh, 1) == want
-        _assert_plan_covers(split_plan(8, 768, 4, want, 1, 132), 8, 768, 4, want, 1, 132)
-        with pytest.raises(ValueError, match="whole 16-byte chunks"):
-            split_plan(8, 768, 4, dh, 1, 132)
+        assert split_plan(8, 768, 4, dh, 1, 132) == split_plan(8, 768, 4, want, 1, 132)
+        _assert_plan_covers(split_plan(8, 768, 4, dh, 1, 132), 8, 768, 4, dh, 1, 132)
     # 64 heads of Dh 64 in f32 are 32 head groups: two slices of 16
     plan = split_plan(8, 768, 64, 64, 4, 132)
     assert (plan.n_slices, plan.n_groups) == (2, 16)
@@ -287,8 +428,10 @@ def test_split_plan_fills_the_card_at_the_generate_shapes():
 def _assert_plan_covers(plan, b, cap, h, dh, kv_bytes, sms):
     """Every head of the row in some slice's head group, at most 16 warps
     a block (8 where a lane holds 32 accumulator floats), and each block's
-    ring and merge buffer in the shared memory a block may use."""
-    g = dh * kv_bytes // 16
+    ring and merge buffer in the shared memory a block may use, with each
+    head in a slot of ``padded_head_dim`` elements."""
+    slot = padded_head_dim(dh, kv_bytes) * kv_bytes
+    g = slot // 16
     lanes = min(32, 1 << (g - 1).bit_length())
     per_lane = 1 << (-(-g // lanes) - 1).bit_length()
     ns = per_lane * 16 // kv_bytes
@@ -297,12 +440,32 @@ def _assert_plan_covers(plan, b, cap, h, dh, kv_bytes, sms):
     assert (plan.n_slices - 1) * plan.n_groups * (32 // lanes) < h  # no empty slice
     assert plan.n_groups * plan.warps_per_group <= (8 if ns > 16 else 16)
     slice_heads = h if plan.n_slices == 1 else plan.n_groups * (32 // lanes)
-    col = 2 * slice_heads * dh * kv_bytes + (8 * h if kv_bytes == 1 else 0) + 4
+    col = 2 * slice_heads * slot + (8 * h if kv_bytes == 1 else 0) + 4
     stages = min(2, -(-plan.split_cols // plan.stage_cols))
     ring = stages * (plan.stage_cols * col + 48)
     merge = 32 * plan.n_groups * plan.warps_per_group * (ns + 2) * 4
     assert max(ring, merge) <= 232448
     assert plan.split_cols * plan.n_splits >= cap > plan.split_cols * (plan.n_splits - 1)
+
+
+@pytest.mark.parametrize("dh,kv_bytes", [(8, 1), (40, 1), (72, 1), (30, 4), (100, 2),
+                                         (50, 1), (33, 2)])
+def test_split_plan_takes_unpadded_head_dims(dh, kv_bytes):
+    """Heads that are not whole 16-byte chunks (int8 Dh 8, 40, 72 and 50,
+    f32 Dh 30, bf16 Dh 100 and 33): the plan at the true Dh is the plan of
+    the padded width, covering every head at the generate shapes, at B = 1
+    and on a long cache, at the head counts of rows of about 1,024
+    elements; the copy unit is the largest of 16, 8, 4, 2, 1 bytes that
+    divides the head's bytes."""
+    dhp = padded_head_dim(dh, kv_bytes)
+    assert dhp * kv_bytes % 16 == 0 and dh < dhp < dh + 16 // kv_bytes
+    h = max(1, 1024 // dh)
+    for b, cap in ((8, 768), (1, 768), (8, 40000)):
+        plan = split_plan(b, cap, h, dh, kv_bytes, 132)
+        assert plan == split_plan(b, cap, h, dhp, kv_bytes, 132)
+        _assert_plan_covers(plan, b, cap, h, dh, kv_bytes, 132)
+    unit = copy_unit(dh * kv_bytes)
+    assert dh * kv_bytes % unit == 0 and (unit == 16 or dh * kv_bytes % (2 * unit))
 
 
 @pytest.mark.parametrize("h,dh,kv_bytes", [(4, 512, 4), (4, 512, 2), (4, 512, 1),
@@ -317,38 +480,59 @@ def test_split_plan_covers_wide_heads_and_many_heads(h, dh, kv_bytes):
     for b, cap in ((8, 768), (1, 768), (8, 40000)):
         _assert_plan_covers(split_plan(b, cap, h, dh, kv_bytes, 132), b, cap, h, dh, kv_bytes,
                             132)
-        _assert_strided_plan(split_plan(b, cap, h, 1040, kv_bytes, 132), b, cap, h, 132)
+        _assert_strided_plan(split_plan(b, cap, h, 1040, kv_bytes, 132), b, cap, h, 132, 1040,
+                             kv_bytes)
 
 
-def _assert_strided_plan(plan, b, cap, h, sms):
+def _assert_strided_plan(plan, b, cap, h, sms, dh=1040, kv_bytes=4):
     """The strided layout's plan: one head per block (grid z = H), one head
-    group of 8 warps taking 4 columns each of a 32-column tile, splits that
-    cover the cache and fill the card (about one block per SM at B = 1, two
-    at B > 1) unless the splits reach their 4-column floor."""
+    group of 8 warps, each taking every column of a tile of at most 32
+    columns and about 72 KB of K and V (at least one column), tiles even
+    over the split; three stages of the ring, the warps' partial scores and
+    the stages' mbarriers in a block's shared memory; splits that cover the
+    cache and fill the card (about one block per SM at B = 1, two at B > 1)
+    unless the splits reach their 4-column floor."""
     assert plan.n_slices == h and (plan.n_groups, plan.warps_per_group) == (1, 8)
-    assert (plan.stage_cols, plan.cols_per_warp) == (32, 4)
+    assert 1 <= plan.stage_cols == plan.cols_per_warp <= min(32, plan.split_cols)
+    slot = padded_head_dim(dh, kv_bytes) * kv_bytes
+    stage = 2 * plan.stage_cols * slot + -(-12 * plan.stage_cols // 16) * 16
+    assert plan.stage_cols == 1 or stage <= 72 * 1024 + 64
+    if slot > 16 * STRIDED_SLICE_CHUNKS[kv_bytes]:  # the kernel stages a slice of V alone
+        stage = plan.stage_cols * 16 * STRIDED_SLICE_CHUNKS[kv_bytes] + -(-12 * plan.stage_cols
+                                                                          // 16) * 16
+    tiles = -(-plan.split_cols // plan.stage_cols)
+    assert -(-plan.split_cols // tiles) == plan.stage_cols  # even tiles
+    assert min(tiles, 3) * stage + 8 * 32 * 4 + 3 * 8 <= 232448
     assert plan.split_cols * plan.n_splits >= cap > plan.split_cols * (plan.n_splits - 1)
     per_sm = 1 if b == 1 else 2
     assert plan.split_cols == 4 or b * h * plan.n_splits >= per_sm * sms
-    assert (plan.n_splits + 8) * 4 <= 232448  # the combine's maxima and weights in shared memory
+    assert (2 * plan.n_splits + 8) * 4 <= 232448  # the combine's weights in shared memory
 
 
 @pytest.mark.parametrize("dh,kv_bytes", [(1028, 1), (1100, 2), (2048, 4), (4096, 1)])
 def test_kernel_1_strided_layout_takes_heads_past_1024(dh, kv_bytes):
-    """A head past Dh 1024 runs unpadded (the strided layout reads single
-    elements), at one head (d = Dh, nhead 1) and at 16, on the generate
-    shapes, at B = 1 and on a long cache."""
-    assert padded_head_dim(dh, kv_bytes) == dh
+    """A head past Dh 1024 runs unpadded in device memory (the kernel
+    stages it into a slot of whole 16-byte chunks), at one head (d = Dh,
+    nhead 1) and at 16, on the generate shapes, at B = 1 and on a long
+    cache; and so does any wider head: at the widest a thread's registers
+    hold, one element past it (the scores kernel and V slices) and far
+    past it."""
+    assert padded_head_dim(dh, kv_bytes) * kv_bytes == -(-dh * kv_bytes // 16) * 16
     for b, cap, h in ((8, 768, 1), (8, 768, 16), (1, 768, 1), (1, 40000, 2)):
-        _assert_strided_plan(split_plan(b, cap, h, dh, kv_bytes, 132), b, cap, h, 132)
+        _assert_strided_plan(split_plan(b, cap, h, dh, kv_bytes, 132), b, cap, h, 132, dh,
+                             kv_bytes)
+    widest = STRIDED_SLICE_CHUNKS[kv_bytes] * 16 // kv_bytes
+    for wide in (widest, widest + 1, 50 * widest + 3):
+        _assert_strided_plan(split_plan(8, 768, 2, wide, kv_bytes, 132), 8, 768, 2, 132, wide,
+                             kv_bytes)
 
 
 @pytest.mark.parametrize("dh", [8, 40, 72])
 def test_kernel_1_padded_head_dim(dh):
-    """The int8 cache's zero-padded head dim (what the wrapper launches at
-    Dh 8, 40, 72): through the plain version with the true Dh's scale, the
-    first Dh outputs equal the unpadded call's within f32 rounding and the
-    padded outputs are exactly 0."""
+    """The int8 head's width in the kernel's shared-memory slot (at Dh 8,
+    40, 72), zero past Dh: through the plain version with the true Dh's
+    scale, the first Dh outputs equal the unpadded call's within f32
+    rounding and the padded outputs are exactly 0."""
     _, args = _mirror_case("float32", 4, dh, 21, seed=dh)
     q, k, v, lengths, bias, _, _ = _torch_args(args, "float32")
     k8, ks = (torch.from_numpy(np.array(a)) for a in jax_quantize_kv(jnp.asarray(args[1])))

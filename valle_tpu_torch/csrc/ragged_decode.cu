@@ -11,10 +11,11 @@
 // column, and a row made only of holes averages over them (the running max
 // starts at -2e9, as in the TPU kernel).  A slot of length 0 (a finished
 // request) yields exact zeros.  The cache is int8 with per-(token, head) f32
-// scales, or f32 / bf16; q is f32 or bf16; any Dh up to 1024 whose head is a
-// whole number of 16-byte chunks (the wrapper zero-pads another Dh, and
-// passes the true Dh's scale), any Dh above 1024 (the strided layout,
-// below), and any number of heads.
+// scales, or f32 / bf16; q is f32 or bf16; any Dh: up to 1024 in the lane
+// layouts, above it in the strided layout (below); and any number of
+// heads.  No Dh is padded: a head that is not a whole number of 16-byte
+// chunks is staged into a slot of whole chunks in shared memory whose pad
+// bytes are zero.
 //
 // What bounds it on the H100: bytes.  Each live column is read once for K and
 // once for V (sum_b len_b * H * Dh * 2 * element bytes, plus the scales and
@@ -69,14 +70,50 @@
 //   takes slice z's heads, whose bytes of each row the block stages row by
 //   row (a warp per row, a lane per 16 bytes); the combine is per head
 //   already.  A row of one slice is staged in one contiguous sweep of the
-//   slab.  A head above 1024 elements takes the strided layout
-//   (ragged_decode_strided_kernel): a block per (split, slot, head) whose
-//   warps score columns with lane-strided dot products over the whole head
-//   and whose threads keep the head's acc in the split's partial row in
-//   device memory, so no register or shared-memory size grows with Dh; its
-//   combine keeps one weight per split in shared memory.  Simple, not fast:
-//   K and V are read once, in element loads, and acc makes a round trip to
-//   L1 / L2 per tile of 32 columns.
+//   slab.
+// - Heads that are not whole 16-byte chunks (int8 Dh 8, 40, 72; f32 Dh not a
+//   multiple of 4; bf16 Dh not a multiple of 8) are read where they lie in
+//   the (B, C, H, Dh) cache: the stage puts each head of a row into a slot
+//   of G = ceil(Dh * size / 16) chunks (padded_head_dim on the host), so the
+//   lane layouts' reads stay as above.  A head's bytes start at a multiple
+//   of u = min(16, the lowest set bit of Dh * size) bytes in every row, so
+//   the copy goes in pieces of u bytes (cp.async of 16, 8 or 4 bytes; a
+//   plain load and store of 2 or 1); the piece's head is i / pieces per
+//   head, a multiply-high by a reciprocal from the host (no division).  Each
+//   slot's pad bytes are zeroed once per block and no copy writes them, and
+//   q's lanes past Dh hold 0, so the pad adds nothing to a score; the
+//   partial row and the output hold the true Dh.  Nothing copies the cache.
+// - A head above 1024 elements takes the strided layout
+//   (ragged_decode_strided_kernel): a block of 8 warps per (split, slot,
+//   head).  Thread t owns the 16-byte chunks t, t + 256, ... of the head
+//   (CPT of them, a template argument): their pre-scaled q and their acc
+//   stay in registers for the whole split, and the partial row is written
+//   once at the end.  A ring of kStridedStages = 3 stages of about 72 KB
+//   (stage_cols columns of K and V in slots of whole chunks, their scales
+//   and the bias) keeps two stages in flight while one is computed: each
+//   column's head goes in one 1-D bulk copy (cp.async.bulk, completing on
+//   the stage's mbarrier) where its bytes are whole 16-byte chunks, else in
+//   cp.async pieces of u bytes as above.  Per tile: every thread's partial
+//   dot products over its chunks, summed by an xor-shuffle over the warp and
+//   over the 8 warps in a fixed order through shared memory; then each
+//   warp, lane j on column j, takes the tile's online-softmax step (max and
+//   sum by xor-shuffle, the same in every lane and warp, so m and l agree in
+//   every thread) and broadcasts the weights lane by lane for acc += w_j
+//   v_j.  Two barriers a tile.  What bounds it: bytes, K and V read once.
+//   In probes at 2 heads of Dh 2048, 72 KB stages ran faster than 36 KB
+//   ones (fewer tiles; the live blocks are about one per SM), bulk copies
+//   faster than 16-byte cp.async in f32 and bf16 and no slower in int8, and
+//   more splits (four blocks per SM) no faster.  A thread holds at most 64
+//   floats of q and of acc (strided_max_cpt: int8 4 chunks, bf16 and f32
+//   8, so a stage's column is at most 32 KB): a wider head (int8 and bf16
+//   Dh above 16384, f32 above 8192) first has its scores computed by
+//   ragged_decode_scores_kernel (a block per 8 columns, K read once from
+//   device memory, summed in the same order, so the scores are the same
+//   bits), and then its V is cut into slices of that many chunks, a block
+//   each, which stage and sum only their slice: any Dh runs, acc in
+//   registers, K and V still read once.  Its combine spreads the head over
+//   blocks of 256 elements and skips dead splits, whose split blocks write
+//   only (m, l).
 // - int8 -> f32 without I2F.  A byte x is flipped to x + 128 (one LOP per
 //   word), moved by PRMT into the mantissa of 2^23 (0x4B0000xx) and turned
 //   into x by one FADD of -(2^23 + 128): exact for every int8, on the
@@ -117,9 +154,28 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+// u bytes (16, 8, 4, 2 or 1; both addresses multiples of u) from device to
+// shared memory: cp.async from 4 bytes up, a plain load and store below.
+__device__ __forceinline__ void copy_piece(unsigned char* dst, const unsigned char* src, int u) {
+  if (u == 16) {
+    cp_async16(dst, src);
+  } else if (u == 8) {
+    cp_async8(dst, src);
+  } else if (u == 4) {
+    cp_async4(dst, src);
+  } else if (u == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
+  } else {
+    *dst = *src;
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -127,6 +183,37 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 1-D bulk copies (the TMA unit) that complete on an mbarrier, one per ring
+// stage: the issuing thread arms it with the stage's bytes, every thread
+// waits on its phase parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// n bytes (a multiple of 16, both addresses 16-byte aligned)
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned n, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(n), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // Four int8 of one word to f32, exactly, without I2F.
@@ -160,6 +247,13 @@ __device__ __forceinline__ void load_chunk(const float* p, float* out) {
   out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
 }
 
+// One cache element to f32 (int8 as in widen_s8x4, without I2F).
+__device__ __forceinline__ float elem_to_float(int8_t x) {
+  return __uint_as_float(0x4B000000u | ((uint32_t)(uint8_t)x ^ 0x80u)) - 8388736.f;
+}
+__device__ __forceinline__ float elem_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float elem_to_float(float x) { return x; }
+
 __host__ __device__ __forceinline__ int align16(int n) { return (n + 15) & ~15; }
 
 struct SplitArgs {
@@ -175,12 +269,20 @@ struct SplitArgs {
   const int* lengths;
   float* part_acc;  // (B, S, H, Dh)
   float* part_ml;   // (B, S, H, 2): running max, running sum
-  int C, H, Dh, G;  // G: 16-byte chunks per head
+  float* scores;    // (B, H, C): the scores of the strided layout's widest heads, or null
+  int n_vslices;    // the strided layout: blocks a head's V is cut into (grid x / n_splits)
+  int C, H, Dh, G;  // G: 16-byte chunks per head slot in shared memory
   int split_cols, n_splits, stage_cols, cols_per_warp, n_groups, warps_per_group;
   int n_slices, slice_heads;  // head slices of a row (grid z), heads per slice
   int row_bytes;    // a cache row (H * Dh elements) in device memory
-  int srow_bytes;   // a row's slice in shared memory: slice_heads * Dh elements
-  int stage_bytes, scale_bytes;
+  int srow_bytes;   // a row's slice in shared memory: slice_heads slots of 16 * G bytes
+                    // (the strided layout: one column's slot)
+  int head_bytes;   // Dh * element size, of which a slot's first bytes hold the head
+  int unit, pieces;  // copy unit u (bytes) and pieces per head (head_bytes / u)
+  unsigned long long pieces_inv;  // ceil(2^32 / pieces): i / pieces = (i * pieces_inv) >> 32
+  int stage_bytes, scale_bytes, ring_bytes;
+  int slots;  // the lane layouts stage heads that are not whole chunks into slots
+  int bulk;   // the strided layout copies each column's head in one bulk copy
   int vec_scales;  // scales copied in 16-byte pieces (H % 4 == 0, aligned)
   float scale;
 };
@@ -191,8 +293,11 @@ __host__ __device__ constexpr int layout_warps(int ns) { return ns > 16 ? kWideW
 // LPH lanes per head (a power of two <= 32), CPH 16-byte chunks per lane and
 // head: G <= LPH * CPH.  One warp per (head group, column phase); the launch
 // bounds leave ptxas the registers of one block of layout_warps() warps (with
-// the default bound it spilled in two f32 layouts).
-template <typename TKV, int LPH, int CPH>
+// the default bound it spilled in two f32 layouts).  kSlots: the head is not
+// whole chunks, and the stage puts each head into its slot; a template
+// argument, because the untaken slot code cost the whole-chunk kernels 3-7%
+// in f32 and bf16 caches (PERF.md section 6).
+template <typename TKV, int LPH, int CPH, bool kSlots>
 __global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
     ragged_decode_split_kernel(const SplitArgs a) {
   constexpr bool kQuant = sizeof(TKV) == 1;
@@ -223,11 +328,25 @@ __global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
   }
   const int n_cols = min(a.split_cols, len - c_begin);
   const int W = a.stage_cols, R = a.row_bytes, RS = a.srow_bytes;
+  const int HB = a.head_bytes, SB = 16 * a.G;  // a head's bytes and its slot's
   const long long first = (long long)b * a.C + c_begin;  // first column of the slab
-  const long long slice_off = (long long)h0 * Dh * (int)sizeof(TKV);
+  const long long slice_off = (long long)h0 * HB;
   const unsigned char* gk = static_cast<const unsigned char*>(a.k) + first * R + slice_off;
   const unsigned char* gv = static_cast<const unsigned char*>(a.v) + first * R + slice_off;
   const float* gbias = a.bias != nullptr ? a.bias + first : nullptr;
+
+  if constexpr (kSlots) {  // zero the slots' pad bytes of the stages in use, once
+    const int n_stages = a.split_cols > W ? kStages : 1;
+#pragma unroll 1
+    for (int s = 0; s < n_stages; ++s) {
+#pragma unroll 1
+      for (int i = tid; i < 2 * W * a.slice_heads; i += nthreads) {
+        unsigned char* slot = smem + s * a.stage_bytes + i * SB;
+#pragma unroll 1
+        for (int x = HB; x < SB; ++x) slot[x] = 0;
+      }
+    }
+  }
 
   // Stage layout: K (W rows of RS bytes), V (W rows), k scales, v scales
   // (all H heads), bias.
@@ -236,7 +355,20 @@ __global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
     const int c0 = t * W, nc = min(W, n_cols - c0);
     const unsigned char* sk = gk + (long long)c0 * R;
     const unsigned char* sv = gv + (long long)c0 * R;
-    if (a.n_slices == 1) {  // the stage's rows are one contiguous run
+    if constexpr (kSlots) {  // each head's bytes to its slot, u bytes a piece, a warp per row
+      const int u = a.unit, ppr = n_heads * a.pieces;  // pieces of the row's slice
+#pragma unroll 1
+      for (int r = warp; r < nc; r += nthreads >> 5) {
+#pragma unroll 1
+        for (int i = lane; i < ppr; i += 32) {
+          const int hd = (int)(((unsigned long long)i * a.pieces_inv) >> 32);  // i / pieces
+          const int dst = r * RS + hd * SB + (i - hd * a.pieces) * u;
+          const long long src = (long long)r * R + i * u;
+          copy_piece(st + dst, sk + src, u);
+          copy_piece(st + W * RS + dst, sv + src, u);
+        }
+      }
+    } else if (a.n_slices == 1) {  // the stage's rows are one contiguous run
       const int n16 = nc * R / 16;
 #pragma unroll 1
       for (int i = tid; i < n16; i += nthreads) {
@@ -244,7 +376,7 @@ __global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
         cp_async16(st + W * R + 16 * i, sv + 16 * i);
       }
     } else {  // the slice's bytes of each row: a warp per row, a lane per 16 bytes
-      const int n16 = n_heads * Dh * (int)sizeof(TKV) / 16;
+      const int n16 = n_heads * a.G;
 #pragma unroll 1
       for (int r = warp; r < nc; r += nthreads >> 5) {
 #pragma unroll 1
@@ -306,31 +438,34 @@ __global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
   for (int c = 0; c < CPH; ++c) {
     const int ci = c * LPH + cl;
     ok[c] = head_ok && ci < a.G;
-    off[c] = hl * Dh * (int)sizeof(TKV) + ci * 16;
-    // the lane's own EPT elements of q: 16-byte loads where q is f32 and
-    // aligned (generate's q); a lane's scalar loads are 64 bytes apart and
-    // lengthened a short block's chain in probes
+    off[c] = hl * 16 * a.G + ci * 16;
+    // the lane's own EPT elements of q (0 past Dh): 16-byte loads where q is
+    // f32 and aligned (generate's q); a lane's scalar loads are 64 bytes
+    // apart and lengthened a short block's chain in probes
     const long long qi = (long long)b * a.q_sb + (long long)head * Dh + ci * EPT;
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       q[c][e] = 0.f;
       acc[c][e] = 0.f;
     }
-    if (ok[c] && a.q_vec) {
+    if (ok[c] && a.q_vec) {  // Dh % 4 == 0: a piece of 4 lies wholly inside or past Dh
       const float4* q4 = reinterpret_cast<const float4*>(static_cast<const float*>(a.q) + qi);
 #pragma unroll
       for (int j = 0; j < EPT / 4; ++j) {
-        const float4 x = q4[j];
-        q[c][4 * j] = x.x;
-        q[c][4 * j + 1] = x.y;
-        q[c][4 * j + 2] = x.z;
-        q[c][4 * j + 3] = x.w;
+        if (!kSlots || ci * EPT + 4 * j < Dh) {
+          const float4 x = q4[j];
+          q[c][4 * j] = x.x;
+          q[c][4 * j + 1] = x.y;
+          q[c][4 * j + 2] = x.z;
+          q[c][4 * j + 3] = x.w;
+        }
       }
     } else if (ok[c]) {
 #pragma unroll
       for (int e = 0; e < EPT; ++e)
-        q[c][e] = a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qi + e])
-                           : static_cast<const float*>(a.q)[qi + e];
+        if (!kSlots || ci * EPT + e < Dh)
+          q[c][e] = a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qi + e])
+                             : static_cast<const float*>(a.q)[qi + e];
     }
 #pragma unroll
     for (int e = 0; e < EPT; ++e) q[c][e] *= a.scale;
@@ -448,11 +583,18 @@ __global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
 #pragma unroll
     for (int c = 0; c < CPH; ++c) {
       if (ok[c]) {
-        float4* dst = reinterpret_cast<float4*>(pa + (c * LPH + cl) * EPT);
+        const int d0 = (c * LPH + cl) * EPT;  // the chunk's first element
+        if (!kSlots || (Dh & 3) == 0) {  // 16-byte stores, each wholly inside or past Dh
 #pragma unroll
-        for (int j = 0; j < EPT / 4; ++j)
-          dst[j] = make_float4(acc[c][4 * j], acc[c][4 * j + 1], acc[c][4 * j + 2],
-                               acc[c][4 * j + 3]);
+          for (int j = 0; j < EPT / 4; ++j)
+            if (!kSlots || d0 + 4 * j < Dh)
+              *reinterpret_cast<float4*>(pa + d0 + 4 * j) = make_float4(
+                  acc[c][4 * j], acc[c][4 * j + 1], acc[c][4 * j + 2], acc[c][4 * j + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPT; ++e)
+            if (d0 + e < Dh) pa[d0 + e] = acc[c][e];
+        }
       }
     }
     if (cl == 0) {
@@ -462,116 +604,380 @@ __global__ void __launch_bounds__(layout_warps(CPH * 16 / sizeof(TKV)) * 32, 1)
   }
 }
 
-// One element of the cache (or of q) to f32: int8 without I2F, as widen_s8x4.
-__device__ __forceinline__ float load_elem(const int8_t* p) {
-  const uint32_t x = (uint32_t)(*reinterpret_cast<const uint8_t*>(p)) ^ 0x80u;
-  return __uint_as_float(0x4B000000u | x) - 8388736.f;
-}
-__device__ __forceinline__ float load_elem(const __nv_bfloat16* p) {
-  return __uint_as_float((uint32_t)(*reinterpret_cast<const uint16_t*>(p)) << 16);
-}
-__device__ __forceinline__ float load_elem(const float* p) { return *p; }
-
-// A head wider than a lane layout holds (Dh above 1024): grid (n_splits, B,
-// H), one block of kWideWarps warps per (split, slot, head), any Dh (no pad).
-// Per tile of kStridedCols columns, warp w scores columns w, w + 8, ... (a
-// lane-strided dot product over the whole head, q read from device memory
-// and L1, then the xor-shuffle sum); every thread then takes the tile's
-// online-softmax step from the scores in shared memory (the same arithmetic
-// in the same order, so m and l agree in every thread), and thread t updates
-// elements t, t + 256, ... of the head's acc, which lives in the split's
-// partial row in device memory: no register or shared-memory size grows
-// with Dh.  K and V are read once, in coalesced element loads.
-constexpr int kStridedCols = 32;  // columns per tile
+// The strided layout (Dh above 1024): grid (n_splits * n_vslices, B, H),
+// one block of kWideWarps warps per (split, V slice, slot, head).  Thread t
+// owns the head's 16-byte chunks t + 256 i (i < CPT) of its slice: their q
+// (pre-scaled, f32, 0 past Dh) and acc live in registers.  A head of at
+// most strided_max_cpt() * 256 chunks is one slice and its block scores
+// the columns itself (kScored false).  A wider head has its scores from
+// ragged_decode_scores_kernel, in the same arithmetic, and is cut into
+// slices of strided_max_cpt() * 256 chunks, each a block that stages and
+// sums only its slice of V (kScored true): so any Dh runs, with acc in
+// registers.  Stage layout: K (W slots of SB bytes, one a column; none when
+// kScored), V (W slots), k scales, v scales, bias (W floats each); after the
+// ring, the warps' partial scores (kWideWarps x kStridedMaxCols floats),
+// then one mbarrier per stage.
 constexpr int kStridedThreads = kWideWarps * 32;
+constexpr int kStridedStages = 3;     // ring depth: two stages in flight
+constexpr int kStridedMaxCols = 32;   // columns of a tile, at most: a lane each
+constexpr int kStridedPartBytes = kWideWarps * kStridedMaxCols * (int)sizeof(float);
+constexpr int kScoreCols = 8;         // columns of a ragged_decode_scores_kernel block
 
-template <typename TKV>
-__global__ void __launch_bounds__(kStridedThreads)
+// Chunks a thread of the strided layout holds, at most: 64 floats of q and
+// 64 of acc (int8 4, bf16 8), and a 32 KB column (f32 8).
+__host__ __device__ constexpr int strided_max_cpt(int elem) {
+  return 64 / (16 / elem) < 8 ? 64 / (16 / elem) : 8;
+}
+
+// The registers of two blocks per SM (for a ring of one or two stages)
+// while a thread holds at most 32 floats of q and acc.
+__host__ __device__ constexpr int strided_min_blocks(int floats) { return floats <= 32 ? 2 : 1; }
+
+template <typename TKV, int CPT, bool kScored>
+__global__ void __launch_bounds__(kStridedThreads,
+                                  strided_min_blocks((kScored ? 1 : 2) * CPT * 16 / sizeof(TKV)))
     ragged_decode_strided_kernel(const SplitArgs a) {
   constexpr bool kQuant = sizeof(TKV) == 1;
-  __shared__ float s_sc[kStridedCols];  // the tile's scores
-  __shared__ float s_p[kStridedCols];   // e^(s - m_new)
-  __shared__ float s_w[kStridedCols];   // the same times the V scale
-  const int split = blockIdx.x, b = blockIdx.y, h = blockIdx.z;
+  constexpr int EPT = 16 / sizeof(TKV);  // elements per 16-byte chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  int split = blockIdx.x, vs = 0;  // the V slice: blockIdx.x / n_splits, by subtraction
+  if constexpr (kScored) {
+#pragma unroll 1
+    while (split >= a.n_splits) {
+      split -= a.n_splits;
+      ++vs;
+    }
+  }
+  const int b = blockIdx.y, h = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int H = a.H, Dh = a.Dh;
+  const int H = a.H, Dh = a.Dh, G = a.G;
   const int len = min(max(a.lengths[b], 0), a.C);
   const int c_begin = split * a.split_cols;
   const long long prow = ((long long)b * a.n_splits + split) * H + h;  // the partial row
-  float* acc = a.part_acc + prow * Dh;
-  if (c_begin >= len) {  // an empty partial: zero weight in any merge
-#pragma unroll 1
-    for (int d = tid; d < Dh; d += kStridedThreads) acc[d] = 0.f;
-    if (tid == 0) {
+  if (c_begin >= len) {  // an empty partial: weight 0, so the combine skips its acc
+    if (tid == 0 && vs == 0) {
       a.part_ml[2 * prow] = kInitMax;
       a.part_ml[2 * prow + 1] = 0.f;
     }
     return;
   }
   const int n_cols = min(a.split_cols, len - c_begin);
+  const int W = a.stage_cols, HB = a.head_bytes, SB = a.srow_bytes, u = a.unit;
+  const int cbase = vs * CPT * kStridedThreads;  // the slice's first chunk
+  const int vb = kScored ? min(HB - 16 * cbase, SB) : HB;  // V bytes a column of the slice
+  const int ph = vb >> (__ffs(u) - 1);                     // its pieces of u bytes
+  const int v_off = kScored ? 0 : W * SB, sc_off = v_off + W * SB;  // V slots, scales
+  const long long R = (long long)H * HB;                 // column stride in bytes
   const long long first = (long long)b * a.C + c_begin;  // first column of the run
-  const TKV* gk = static_cast<const TKV*>(a.k) + (first * H + h) * Dh;
-  const TKV* gv = static_cast<const TKV*>(a.v) + (first * H + h) * Dh;
-  const long long col_stride = (long long)H * Dh;
-  const long long qi = (long long)b * a.q_sb + (long long)h * Dh;
-  const float* qf = static_cast<const float*>(a.q) + qi;
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + qi;
-  float m = kInitMax, l = 0.f;
-
-#pragma unroll 1
-  for (int c0 = 0; c0 < n_cols; c0 += kStridedCols) {
-    const int nc = min(kStridedCols, n_cols - c0);
-#pragma unroll 1
-    for (int j = warp; j < nc; j += kWideWarps) {
-      const TKV* kr = gk + (c0 + j) * col_stride;
-      auto qd = [&](int d) { return a.q_bf16 ? load_elem(qb + d) : qf[d]; };
-      float part[4] = {0.f, 0.f, 0.f, 0.f};  // four sums keep the FMA chains short
-      int d = lane;
-#pragma unroll 1
-      for (; d + 96 < Dh; d += 128) {
+  const unsigned char* gk = static_cast<const unsigned char*>(a.k) + first * R + (long long)h * HB;
+  const unsigned char* gv = static_cast<const unsigned char*>(a.v) + first * R +
+                            (long long)h * HB + 16 * cbase;
+  float* s_part = reinterpret_cast<float*>(smem + a.ring_bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + a.ring_bytes + kStridedPartBytes);
+  const bool bulk = a.bulk;
+  if (bulk) {  // one mbarrier per stage, armed by warp 0's lane 0 at each issue
+    if (tid == 0) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          part[u] = fmaf(qd(d + 32 * u), load_elem(kr + d + 32 * u), part[u]);
-      }
-#pragma unroll 1
-      for (; d < Dh; d += 32) part[0] = fmaf(qd(d), load_elem(kr + d), part[0]);
-      float s = (part[0] + part[1]) + (part[2] + part[3]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) {
-        s *= a.scale;
-        const long long c = first + c0 + j;
-        if (kQuant) s *= a.k_scale[c * H + h];
-        if (a.bias != nullptr) s += a.bias[c];
-        s_sc[j] = s;
-      }
+      for (int s = 0; s < kStridedStages; ++s) mbar_init(bars + s);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    float m_new = m;
-    for (int j = 0; j < nc; ++j) m_new = fmaxf(m_new, s_sc[j]);
-    const float alpha = expf(m - m_new);
-    if (tid < nc) {
-      const float p = expf(s_sc[tid] - m_new);
-      s_p[tid] = p;
-      s_w[tid] = kQuant ? p * a.v_scale[(first + c0 + tid) * H + h] : p;
-    }
-    __syncthreads();
-    l *= alpha;
-    for (int j = 0; j < nc; ++j) l += s_p[j];
-    m = m_new;
-#pragma unroll 1
-    for (int d = tid; d < Dh; d += kStridedThreads) {
-      float x = c0 == 0 ? 0.f : acc[d] * alpha;
-      const TKV* vr = gv + (long long)c0 * col_stride + d;
-#pragma unroll 1
-      for (int j = 0; j < nc; ++j) x = fmaf(s_w[j], load_elem(vr + j * col_stride), x);
-      acc[d] = x;
-    }
-    __syncthreads();  // the tile's scores and weights are rewritten by the next tile
   }
-  if (tid == 0) {
+
+  // zero the pad bytes of the slots (K and V, or V) of the stages in use, once
+  if (vb != align16(vb) && tid < (kScored ? 1 : 2) * W) {
+    const int n_stages = n_cols > 2 * W ? 3 : n_cols > W ? 2 : 1;
+#pragma unroll 1
+    for (int s = 0; s < n_stages; ++s) {
+      unsigned char* slot = smem + s * a.stage_bytes + tid * SB;
+#pragma unroll 1
+      for (int x = vb; x < align16(vb); ++x) slot[x] = 0;
+    }
+  }
+
+  // Tile t's columns: a bulk copy of each column's head (K and V, or the
+  // slice of V), issued by warp 0, lane j on column j; else piece p of
+  // column j to byte j * SB + p * u of the slots, the block's threads spread
+  // over (j, p) in order.
+  auto issue = [&](int t) {
+    const int s = t % kStridedStages;
+    unsigned char* st = smem + s * a.stage_bytes;
+    const int c0 = t * W, nc = min(W, n_cols - c0);
+    const unsigned char* sk = gk + c0 * R;
+    const unsigned char* sv = gv + c0 * R;
+    if (bulk) {
+      if (warp == 0) {
+        if (lane == 0) mbar_expect_tx(bars + s, (kScored ? 1u : 2u) * nc * vb);
+        __syncwarp();
+        if (lane < nc) {
+          if (!kScored) bulk_copy(st + lane * SB, sk + lane * R, HB, bars + s);
+          bulk_copy(st + v_off + lane * SB, sv + lane * R, vb, bars + s);
+        }
+      }
+    } else {
+      int j = 0, p = tid;
+      while (p >= ph) {  // ph > 64: a few steps
+        p -= ph;
+        ++j;
+      }
+      while (j < nc) {
+        if (!kScored) copy_piece(st + j * SB + p * u, sk + j * R + p * u, u);
+        copy_piece(st + v_off + j * SB + p * u, sv + j * R + p * u, u);
+        p += kStridedThreads;
+        while (p >= ph) {
+          p -= ph;
+          ++j;
+        }
+      }
+    }
+    float* sc = reinterpret_cast<float*>(st + sc_off);
+    if (tid < nc) {
+      const long long c = first + c0 + tid;
+      if (kQuant) {
+        cp_async4(sc + tid, a.k_scale + c * H + h);
+        cp_async4(sc + W + tid, a.v_scale + c * H + h);
+      }
+      if (a.bias != nullptr) cp_async4(sc + 2 * W + tid, a.bias + c);
+    }
+  };
+
+  // The first stages' copies go out before q's loads.
+#pragma unroll
+  for (int t = 0; t < kStridedStages - 1; ++t) {
+    if (t * W < n_cols) issue(t);
+    cp_async_commit();
+  }
+
+  bool own[CPT];
+  float q[CPT][EPT], acc[CPT][EPT];
+  const long long qi = (long long)b * a.q_sb + (long long)h * Dh;
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int ci = cbase + tid + i * kStridedThreads;
+    own[i] = ci < G;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int d = ci * EPT + e;
+      float x = 0.f;
+      if (!kScored && d < Dh)
+        x = a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qi + d])
+                     : static_cast<const float*>(a.q)[qi + d];
+      q[i][e] = x * a.scale;
+      acc[i][e] = 0.f;
+    }
+  }
+  const bool warp_owns = cbase + warp * 32 < G;  // the warp holds a chunk
+  const float* scores = kScored ? a.scores + ((long long)b * H + h) * a.C + c_begin : nullptr;
+  float m = kInitMax, l = 0.f;
+  unsigned parity = 0;  // bit s: the phase of stage s's next use
+
+  for (int t = 0; t * W < n_cols; ++t) {
+    cp_async_wait<kStridedStages - 2>();
+    if (bulk) {
+      const int s = t % kStridedStages;
+      mbar_wait(bars + s, (parity >> s) & 1u);
+      parity ^= 1u << s;
+    }
+    __syncthreads();  // tile t has landed; every thread is done with tile t - 1
+    if ((t + kStridedStages - 1) * W < n_cols) issue(t + kStridedStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + t % kStridedStages * a.stage_bytes;
+    const float* sc = reinterpret_cast<const float*>(st + sc_off);
+    const int nc = min(W, n_cols - t * W);
+
+    // The warp's share of each column's score: its threads' partial dot
+    // products (four sums each), then the xor-shuffle sum over the warp.
+    if constexpr (!kScored) {
+      if (warp_owns) {
+#pragma unroll 1
+        for (int j0 = 0; j0 < nc; j0 += 4) {
+          float s[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            if (j0 + jj < nc) {
+#pragma unroll
+              for (int i = 0; i < CPT; ++i) {
+                if (own[i]) {
+                  float x[EPT];
+                  load_chunk(reinterpret_cast<const TKV*>(
+                                 st + (j0 + jj) * SB + (tid + i * kStridedThreads) * 16), x);
+#pragma unroll
+                  for (int e = 0; e < EPT; ++e) part[e & 3] = fmaf(q[i][e], x[e], part[e & 3]);
+                }
+              }
+            }
+            s[jj] = (part[0] + part[1]) + (part[2] + part[3]);
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) s[jj] += __shfl_xor_sync(0xffffffffu, s[jj], o);
+          if (lane < 4 && j0 + lane < nc) {
+            float mine = s[0];
+#pragma unroll
+            for (int jj = 1; jj < 4; ++jj)
+              if (lane == jj) mine = s[jj];
+            s_part[warp * kStridedMaxCols + j0 + lane] = mine;
+          }
+        }
+      } else if (lane < nc) {
+        s_part[warp * kStridedMaxCols + lane] = 0.f;
+      }
+      __syncthreads();  // the partial scores are in
+    }
+
+    // The tile's online-softmax step, in every warp alike: lane j holds
+    // column j's score (the warps' shares summed in a fixed order).
+    float s = kInitMax;
+    if (lane < nc) {
+      if constexpr (kScored) {
+        s = scores[t * W + lane];
+      } else {
+        const float* sp = s_part + lane;
+        s = ((sp[0] + sp[32]) + (sp[64] + sp[96])) + ((sp[128] + sp[160]) + (sp[192] + sp[224]));
+      }
+      if (kQuant) s *= sc[lane];
+      if (a.bias != nullptr) s += sc[2 * W + lane];
+    }
+    float mt = s;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+    const float m_new = fmaxf(m, mt);
+    const float alpha = expf(m - m_new);
+    const float p = lane < nc ? expf(s - m_new) : 0.f;
+    float ps = p;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+    l = l * alpha + ps;
+    const float w = lane < nc && kQuant ? p * sc[W + lane] : p;  // the V scale folds in
+    if (m_new != m) {  // else alpha is exactly 1
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) acc[i][e] *= alpha;
+    }
+    m = m_new;
+    if (warp_owns) {
+#pragma unroll 1
+      for (int j = 0; j < nc; ++j) {
+        const float wj = __shfl_sync(0xffffffffu, w, j);
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+          if (own[i]) {
+            float x[EPT];
+            load_chunk(reinterpret_cast<const TKV*>(
+                           st + v_off + j * SB + (tid + i * kStridedThreads) * 16), x);
+#pragma unroll
+            for (int e = 0; e < EPT; ++e) acc[i][e] = fmaf(wj, x[e], acc[i][e]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* pa = a.part_acc + prow * Dh;
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    if (own[i]) {
+      const int d0 = (cbase + tid + i * kStridedThreads) * EPT;
+      if ((Dh & 3) == 0) {  // 16-byte stores, each wholly inside or past Dh
+#pragma unroll
+        for (int j = 0; j < EPT / 4; ++j)
+          if (d0 + 4 * j < Dh)
+            *reinterpret_cast<float4*>(pa + d0 + 4 * j) = make_float4(
+                acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPT; ++e)
+          if (d0 + e < Dh) pa[d0 + e] = acc[i][e];
+      }
+    }
+  }
+  if (tid == 0 && vs == 0) {
     a.part_ml[2 * prow] = m;
     a.part_ml[2 * prow + 1] = l;
+  }
+}
+
+// The scores of the strided layout's heads of more than strided_max_cpt() *
+// 256 chunks: grid (ceil(C / kScoreCols), B, H), 256 threads, a block per
+// run of kScoreCols columns of one slot and head; scores[b, h, c] = q . k_c
+// (q pre-scaled) for the columns below the slot's length.  Thread t takes
+// the head's chunks t, t + 256, ... in order (q's chunk once, then the
+// run's K chunks from device memory: 16-byte loads where the head is whole
+// chunks, else element loads), with four partial sums a column, summed as
+// ragged_decode_strided_kernel sums them (in pairs, the warp by
+// xor-shuffle, the 8 warps in pairs): the same scores as that kernel's,
+// bit for bit.  What bounds it: bytes, K read once.
+template <typename TKV>
+__global__ void __launch_bounds__(kStridedThreads) ragged_decode_scores_kernel(const SplitArgs a) {
+  constexpr int EPT = 16 / sizeof(TKV);
+  __shared__ float s_part[kWideWarps][kScoreCols];
+  const int b = blockIdx.y, h = blockIdx.z, c0 = blockIdx.x * kScoreCols;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = a.H, Dh = a.Dh, G = a.G, HB = a.head_bytes;
+  const int len = min(max(a.lengths[b], 0), a.C);
+  if (c0 >= len) return;  // the strided kernel reads no score at or past the length
+  const int nc = min(kScoreCols, len - c0);
+  const long long R = (long long)H * HB;
+  const unsigned char* gk =
+      static_cast<const unsigned char*>(a.k) + ((long long)b * a.C + c0) * R + (long long)h * HB;
+  const long long qi = (long long)b * a.q_sb + (long long)h * Dh;
+  const bool whole = a.unit == 16;
+  float part[kScoreCols][4];
+#pragma unroll
+  for (int j = 0; j < kScoreCols; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll 1
+  for (int ci = tid; ci < G; ci += kStridedThreads) {
+    float q[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int d = ci * EPT + e;
+      float x = 0.f;
+      if (d < Dh)
+        x = a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qi + d])
+                     : static_cast<const float*>(a.q)[qi + d];
+      q[e] = x * a.scale;
+    }
+#pragma unroll
+    for (int j = 0; j < kScoreCols; ++j) {
+      if (j < nc) {
+        const unsigned char* col = gk + j * R;
+        float x[EPT];
+        if (whole) {
+          load_chunk(reinterpret_cast<const TKV*>(col + 16 * ci), x);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPT; ++e) {
+            const int d = ci * EPT + e;
+            x[e] = d < Dh ? elem_to_float(reinterpret_cast<const TKV*>(col)[d]) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) part[j][e & 3] = fmaf(q[e], x[e], part[j][e & 3]);
+      }
+    }
+  }
+  float s[kScoreCols];
+#pragma unroll
+  for (int j = 0; j < kScoreCols; ++j) s[j] = (part[j][0] + part[j][1]) + (part[j][2] + part[j][3]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < kScoreCols; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kScoreCols; ++j) s_part[warp][j] = s[j];
+  }
+  __syncthreads();
+  if (tid < nc) {
+    const float x = ((s_part[0][tid] + s_part[1][tid]) + (s_part[2][tid] + s_part[3][tid])) +
+                    ((s_part[4][tid] + s_part[5][tid]) + (s_part[6][tid] + s_part[7][tid]));
+    a.scores[((long long)b * H + h) * a.C + c0 + tid] = x;
   }
 }
 
@@ -665,19 +1071,22 @@ __global__ void __launch_bounds__(kThreads) ragged_decode_combine_kernel(
   }
 }
 
-// The combine of the strided layout (Dh above 1024): grid (H, B), 256 threads.
-// Each split's weight e^(m_s - M) is computed once into shared memory (one
-// float per split), every thread sums the denominator in order of s, and
-// thread t sums elements t, t + 256, ... over the splits in order of s.
-// All its shared memory is dynamic: kWideWarps warp maxima, then the
-// n_splits weights.
+// The combine of the strided layout (Dh above 1024): grid (ceil(Dh / 256),
+// H, B), 256 threads, thread t on element 256 blockIdx.x + t.  Each block
+// takes M over the splits, puts each split's weight e^(m_s - M) and l_s in
+// shared memory, sums the denominator in order of s, and its element's
+// numerator in order of s, eight loads ahead; a split of weight 0 (a dead
+// split, whose acc was never written) is skipped.  All its shared memory is
+// dynamic: kWideWarps warp maxima, then n_splits weights, then n_splits l.
 __global__ void __launch_bounds__(kStridedThreads) ragged_decode_combine_strided_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     float* __restrict__ out, int H, int Dh, int n_splits) {
   extern __shared__ float s_dyn[];
   float* s_max = s_dyn;
   float* s_weight = s_dyn + kWideWarps;
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  float* s_l = s_weight + n_splits;
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int d = blockIdx.x * kStridedThreads + tid;
   const long long row0 = (long long)b * n_splits * H + h;  // split s at row0 + s * H
   float mx = kInitMax;
 #pragma unroll 1
@@ -691,27 +1100,39 @@ __global__ void __launch_bounds__(kStridedThreads) ragged_decode_combine_strided
 #pragma unroll
   for (int w = 1; w < kWideWarps; ++w) M = fmaxf(M, s_max[w]);
   float* o = out + ((long long)b * H + h) * Dh;
-  if (M == kInitMax) {
-#pragma unroll 1
-    for (int d = tid; d < Dh; d += kStridedThreads) o[d] = 0.f;
+  if (M == kInitMax) {  // no live split: a slot of length 0
+    if (d < Dh) o[d] = 0.f;
     return;
   }
 #pragma unroll 1
-  for (int s = tid; s < n_splits; s += kStridedThreads)
-    s_weight[s] = expf(part_ml[2 * (row0 + (long long)s * H)] - M);
-  __syncthreads();
-  float den = 0.f;
-#pragma unroll 1
-  for (int s = 0; s < n_splits; ++s)
-    den = fmaf(s_weight[s], part_ml[2 * (row0 + (long long)s * H) + 1], den);
-#pragma unroll 1
-  for (int d = tid; d < Dh; d += kStridedThreads) {
-    float num = 0.f;
-#pragma unroll 1
-    for (int s = 0; s < n_splits; ++s)
-      num = fmaf(s_weight[s], part_acc[(row0 + (long long)s * H) * Dh + d], num);
-    o[d] = num / den;
+  for (int s = tid; s < n_splits; s += kStridedThreads) {
+    const long long r = row0 + (long long)s * H;
+    s_weight[s] = expf(part_ml[2 * r] - M);
+    s_l[s] = part_ml[2 * r + 1];
   }
+  __syncthreads();
+  if (d >= Dh) return;
+  float den = 0.f, num = 0.f;
+  const float* pa = part_acc + row0 * Dh + d;
+  const long long stride = (long long)H * Dh;  // between splits
+  int s = 0;
+#pragma unroll 1
+  for (; s + 8 <= n_splits; s += 8) {
+    float x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = s_weight[s + k] != 0.f ? pa[(s + k) * stride] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      den = fmaf(s_weight[s + k], s_l[s + k], den);
+      num = fmaf(s_weight[s + k], x[k], num);
+    }
+  }
+#pragma unroll 1
+  for (; s < n_splits; ++s) {
+    den = fmaf(s_weight[s], s_l[s], den);
+    if (s_weight[s] != 0.f) num = fmaf(s_weight[s], pa[s * stride], num);
+  }
+  o[d] = num / den;
 }
 
 // Split groups of a combine block of `threads`: threads / Dh, at most
@@ -747,10 +1168,15 @@ cudaError_t launch_layout(const SplitArgs& a, dim3 grid, int threads, size_t sme
       a.n_slices != (groups + a.n_groups - 1) / a.n_groups ||
       a.slice_heads != (a.n_slices == 1 ? a.H : a.n_groups * HPP))
     return cudaErrorInvalidValue;
-  auto kern = ragged_decode_split_kernel<TKV, LPH, CPH>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-  if (attr != cudaSuccess) return attr;
+  auto kern = a.slots ? ragged_decode_split_kernel<TKV, LPH, CPH, true>
+                      : ragged_decode_split_kernel<TKV, LPH, CPH, false>;
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(ragged_decode_split_kernel<TKV, LPH, CPH, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes),
+      cudaFuncSetAttribute(ragged_decode_split_kernel<TKV, LPH, CPH, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes)};
+  if (attr[0] != cudaSuccess) return attr[0];
+  if (attr[1] != cudaSuccess) return attr[1];
   kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -780,37 +1206,77 @@ cudaError_t launch_split(const SplitArgs& a, dim3 grid, int threads, size_t smem
   return cudaErrorInvalidValue;
 }
 
-// The strided layout: its split kernel, then its combine.
+// One strided instantiation, raising its dynamic shared-memory limit once.
+template <typename TKV, int CPT, bool kScored>
+cudaError_t launch_strided_cpt(const SplitArgs& a, int B, size_t smem, cudaStream_t s) {
+  auto kern = ragged_decode_strided_kernel<TKV, CPT, kScored>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  kern<<<dim3(a.n_splits * a.n_vslices, B, a.H), kStridedThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// The strided layout: its split kernel (CPT = G / 256 rounded up to a power
+// of two: three instantiations in int8 and f32, four in bf16; past
+// strided_max_cpt() * 256 chunks the scores kernel, then the split kernel
+// on slices of V), then its combine.
 template <typename TKV>
-cudaError_t launch_strided(const SplitArgs& a, int B, float* out, cudaStream_t s) {
-  const dim3 grid(a.n_splits, B, a.H);
-  ragged_decode_strided_kernel<TKV><<<grid, kStridedThreads, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch_strided(const SplitArgs& a, int B, float* out, size_t smem, cudaStream_t s) {
+  constexpr int kMaxCpt = strided_max_cpt(sizeof(TKV));
+  const int G = a.G;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (G <= 256) {
+    if constexpr (sizeof(TKV) < 4) err = launch_strided_cpt<TKV, 1, false>(a, B, smem, s);
+  } else if (G <= 512) {
+    err = launch_strided_cpt<TKV, 2, false>(a, B, smem, s);
+  } else if (G <= 1024) {
+    err = launch_strided_cpt<TKV, 4, false>(a, B, smem, s);
+  } else if (G <= kMaxCpt * kStridedThreads) {
+    if constexpr (kMaxCpt >= 8) err = launch_strided_cpt<TKV, 8, false>(a, B, smem, s);
+  } else {
+    ragged_decode_scores_kernel<TKV>
+        <<<dim3((a.C + kScoreCols - 1) / kScoreCols, B, a.H), kStridedThreads, 0, s>>>(a);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = launch_strided_cpt<TKV, kMaxCpt, true>(a, B, smem, s);
+  }
   if (err != cudaSuccess) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       ragged_decode_combine_strided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmemBytes);
   if (attr != cudaSuccess) return attr;
-  ragged_decode_combine_strided_kernel<<<dim3(a.H, B), kStridedThreads,
-                                         (a.n_splits + kWideWarps) * sizeof(float), s>>>(
+  const dim3 grid((a.Dh + kStridedThreads - 1) / kStridedThreads, a.H, B);
+  ragged_decode_combine_strided_kernel<<<grid, kStridedThreads,
+                                         (2 * a.n_splits + kWideWarps) * sizeof(float), s>>>(
       a.part_acc, a.part_ml, out, a.H, a.Dh, a.n_splits);
   return cudaGetLastError();
+}
+
+// The copy of a head: Dh * elem bytes that start at a multiple of u bytes in
+// every row (the cache is 16-byte aligned), in pieces of u bytes.
+void set_head_copy(SplitArgs& a, int elem) {
+  a.head_bytes = a.Dh * elem;
+  a.G = (a.head_bytes + 15) / 16;
+  a.unit = 16;
+  while (a.head_bytes % a.unit != 0) a.unit /= 2;
+  a.pieces = a.head_bytes / a.unit;
+  a.pieces_inv = ((1ull << 32) + a.pieces - 1) / a.pieces;
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (cache only).
 // q: (B, [1,] H, Dh) with batch stride q_sb elements, (H, Dh) contiguous;
-// k, v: (B, C, H, Dh) contiguous and 16-byte aligned, Dh * element size a
-// multiple of 16 bytes where Dh <= 1024 (any Dh above: the strided layout,
-// whose plan is n_groups 1, warps_per_group 8, stage_cols 32, cols_per_warp 4
-// and n_slices = H); k_scale, v_scale: (B, C, H) f32 or null
-// (required iff int8); bias: (B, C) f32 or null; lengths: (B,) int32;
-// partials: B * n_splits * H * (Dh + 2) f32 of scratch; out: (B, H, Dh) f32.
-// split_cols, n_splits, stage_cols, cols_per_warp, n_groups,
+// k, v: (B, C, H, Dh) contiguous and 16-byte aligned, any Dh: up to 1024
+// the lane layouts, above it the strided layout, whose plan is n_groups 1,
+// warps_per_group 8, stage_cols = cols_per_warp <= 32 and n_slices = H;
+// k_scale, v_scale: (B, C, H) f32 or null (required iff int8); bias: (B, C)
+// f32 or null; lengths: (B,) int32; partials: B * n_splits * H * (Dh + 2)
+// f32 of scratch, and B * H * C more above Dh 1024 (the widest heads'
+// scores); out: (B, H, Dh) f32.  split_cols, n_splits, stage_cols, cols_per_warp, n_groups,
 // warps_per_group and n_slices are the host's plan
 // (ops/ragged_decode.py::split_plan); scale multiplies q . k (the wrapper's
-// 1 / sqrt of the true head dim, which a zero-padded Dh exceeds).
+// 1 / sqrt(Dh) in f32).
 // Launches the split kernel, then the combine kernel, and returns the first
 // cudaError_t.
 extern "C" int ragged_decode_attention_launch(
@@ -821,12 +1287,12 @@ extern "C" int ragged_decode_attention_launch(
     float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int elem = kv_dtype == 2 ? 1 : kv_dtype == 1 ? 2 : kv_dtype == 0 ? 4 : 0;
-  if (Dh > 1024) {  // the strided layout: any Dh, one block per (split, slot, head)
+  if (Dh > 1024) {  // the strided layout: one block per (split, slot, head)
     if (elem == 0 || (q_dtype != 0 && q_dtype != 1) || B < 1 || B > 65535 || C < 1 ||
         H < 1 || H > 65535 || split_cols < 1 || n_splits != (C + split_cols - 1) / split_cols ||
-        (n_splits + kWideWarps) * sizeof(float) > (size_t)kMaxSmemBytes || n_groups != 1 ||
-        warps_per_group != kWideWarps || stage_cols != kStridedCols ||
-        cols_per_warp * kWideWarps != kStridedCols || n_slices != H)
+        (2 * n_splits + kWideWarps) * sizeof(float) > (size_t)kMaxSmemBytes || n_groups != 1 ||
+        warps_per_group != kWideWarps || stage_cols < 1 || stage_cols > kStridedMaxCols ||
+        cols_per_warp != stage_cols || n_slices != H)
       return (int)cudaErrorInvalidValue;
     SplitArgs a = {};
     a.q = q;
@@ -843,17 +1309,33 @@ extern "C" int ragged_decode_attention_launch(
     a.C = C;
     a.H = H;
     a.Dh = Dh;
+    set_head_copy(a, elem);
     a.split_cols = split_cols;
     a.n_splits = n_splits;
+    a.stage_cols = stage_cols;
+    a.cols_per_warp = cols_per_warp;
+    // a head of more chunks than a thread holds: scores first, V in slices
+    const int slice = strided_max_cpt(elem) * kStridedThreads;
+    const bool scored = a.G > slice;
+    a.n_vslices = (a.G + slice - 1) / slice;
+    if ((long long)n_splits * a.n_vslices > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    a.scores = scored ? partials + (long long)B * n_splits * H * (Dh + 2) : nullptr;
+    a.srow_bytes = 16 * (scored ? slice : a.G);
+    a.stage_bytes = (scored ? 1 : 2) * stage_cols * a.srow_bytes + align16(3 * stage_cols * 4);
+    const int tiles = (split_cols + stage_cols - 1) / stage_cols;
+    a.ring_bytes = (tiles < kStridedStages ? tiles : kStridedStages) * a.stage_bytes;
     a.scale = scale;
+    a.bulk = a.unit == 16 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+    const size_t smem = (size_t)a.ring_bytes + kStridedPartBytes + kStridedStages * 8;
+    if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaErrorInvalidValue;
-    if (kv_dtype == 0) err = launch_strided<float>(a, B, out, s);
-    if (kv_dtype == 1) err = launch_strided<__nv_bfloat16>(a, B, out, s);
-    if (kv_dtype == 2) err = launch_strided<int8_t>(a, B, out, s);
+    if (kv_dtype == 0) err = launch_strided<float>(a, B, out, smem, s);
+    if (kv_dtype == 1) err = launch_strided<__nv_bfloat16>(a, B, out, smem, s);
+    if (kv_dtype == 2) err = launch_strided<int8_t>(a, B, out, smem, s);
     return (int)err;
   }
-  if (elem == 0 || (q_dtype != 0 && q_dtype != 1) || Dh < 1 || Dh * elem % 16 != 0 ||
-      Dh > 1024 || Dh * elem / 16 > kMaxG || B < 1 || C < 1 || H < 1 || split_cols < 1 ||
+  if (elem == 0 || (q_dtype != 0 && q_dtype != 1) || Dh < 1 || Dh > 1024 ||
+      (Dh * elem + 15) / 16 > kMaxG || B < 1 || C < 1 || H < 1 || split_cols < 1 ||
       n_splits != (C + split_cols - 1) / split_cols || n_groups < 1 || warps_per_group < 1 ||
       n_groups * warps_per_group > kMaxWarps || cols_per_warp < 1 || n_slices < 1 ||
       n_slices > 65535 || cols_per_warp > kMaxColsPerWarp ||
@@ -863,7 +1345,7 @@ extern "C" int ragged_decode_attention_launch(
   a.q = q;
   a.q_sb = q_sb;
   a.q_bf16 = q_dtype == 1;
-  a.q_vec = q_dtype == 0 && (uintptr_t)q % 16 == 0 && q_sb % 4 == 0;
+  a.q_vec = q_dtype == 0 && (uintptr_t)q % 16 == 0 && q_sb % 4 == 0 && Dh % 4 == 0;
   a.k = k;
   a.v = v;
   a.k_scale = k_scale;
@@ -875,7 +1357,7 @@ extern "C" int ragged_decode_attention_launch(
   a.C = C;
   a.H = H;
   a.Dh = Dh;
-  a.G = Dh * elem / 16;
+  set_head_copy(a, elem);
   a.split_cols = split_cols;
   a.n_splits = n_splits;
   a.stage_cols = stage_cols;
@@ -887,7 +1369,8 @@ extern "C" int ragged_decode_attention_launch(
   while (lph < a.G && lph < 32) lph *= 2;
   a.slice_heads = n_slices == 1 ? H : n_groups * (32 / lph);
   a.row_bytes = H * Dh * elem;
-  a.srow_bytes = a.slice_heads * Dh * elem;
+  a.srow_bytes = a.slice_heads * 16 * a.G;
+  a.slots = a.head_bytes != 16 * a.G;
   a.scale_bytes = elem == 1 ? align16(stage_cols * H * 4) : 0;
   a.stage_bytes = 2 * stage_cols * a.srow_bytes + 2 * a.scale_bytes + align16(stage_cols * 4);
   a.vec_scales = elem == 1 && H % 4 == 0 && (uintptr_t)k_scale % 16 == 0 &&

@@ -12,15 +12,15 @@ PyTorch version.
 The JAX kernel rounds q and K to bf16 for the TPU's matrix unit; the CUDA
 kernel computes in f32 from the stored type, like the reference.
 
-Head dims: the kernel's lane layouts take heads of whole 16-byte chunks up
-to Dh 1024 (``MAX_HEAD_DIM``) and any number of heads (a row of more head
-groups than a block has warps is cut into head slices); a head above 1024
-elements takes the strided layout, one block per (split, slot, head), at
-any Dh and unpadded.  A head dim up to 1024 whose head is not a whole
-number of chunks (Dh 8 or 72 in an int8 cache) runs with q, k and v
-zero-padded to the next whole chunk (:func:`padded_head_dim`) and the true
-Dh's scale: zero columns change no score, and the padded output columns are
-sliced off.  That pad copies the cache at every call.
+Head dims: the kernel's lane layouts take any head up to Dh 1024
+(``MAX_HEAD_DIM``) and any number of heads (a row of more head groups than
+a block has warps is cut into head slices); a head above 1024 elements takes
+the strided layout, one block per (split, slot, head), at any Dh (past 16384
+elements in int8 and bf16, 8192 in f32, the scores come first from a kernel
+of their own, and V is summed in slices of the head, a block each).  No head
+is padded in device memory: the kernel stages each head into a slot of whole 16-byte chunks
+in shared memory (:func:`padded_head_dim`) whose pad bytes are zero, so a
+call copies nothing of the cache.
 """
 
 from __future__ import annotations
@@ -47,8 +47,9 @@ _ARGTYPES = (
 MAX_HEAD_GROUPS = 16  # warps of a block, one per 512-byte head group (kMaxWarps)
 WIDE_HEAD_GROUPS = 8  # the same for a layout of 32 accumulator floats per lane (kWideWarps)
 MAX_HEAD_DIM = 1024  # the lane layouts': 32 lanes x 8 chunks of 16 bytes in f32 (kMaxG)
-STRIDED_WARPS = 8  # warps of a strided-layout block (kWideWarps), one head each
-STRIDED_COLS = 32  # columns of a strided-layout tile (kStridedCols)
+STRIDED_WARPS = 8  # warps of a strided-layout block (kWideWarps)
+STRIDED_MAX_COLS = 32  # columns of a strided-layout tile, at most: a lane each (kStridedMaxCols)
+STRIDED_STAGE_BYTES = 72 * 1024  # its ring's stage, about: three fit a block (kStridedStages)
 MAX_GRID_Z = 65535  # the grid's z dimension (head slices), at most
 BLOCKS_PER_SM = 2  # the split-K grid's target size over the card's SMs at B > 1 (1 at B = 1)
 MIN_SPLIT_COLS = 4
@@ -76,29 +77,32 @@ class SplitPlan(NamedTuple):
 
 
 def padded_head_dim(dh: int, kv_bytes: int) -> int:
-    """The head dim kernel 1 runs ``dh`` at: the next whole number of
-    16-byte chunks of ``kv_bytes``-byte elements where that is a lane
-    layout's (at most ``MAX_HEAD_DIM``), else ``dh`` itself (the strided
-    layout reads single elements)."""
+    """The width of a head of ``dh`` elements of ``kv_bytes`` bytes in
+    kernel 1's shared memory: the next whole number of 16-byte chunks.  The
+    kernel stages each head into a slot of that width and zeroes the slot's
+    pad bytes; the cache and the output keep ``dh``."""
     per_chunk = 16 // kv_bytes
-    padded = -(-dh // per_chunk) * per_chunk
-    return padded if padded <= MAX_HEAD_DIM else dh
+    return -(-dh // per_chunk) * per_chunk
 
 
 def split_plan(b: int, cap: int, h: int, dh: int, kv_bytes: int, sms: int) -> SplitPlan:
     """The kernel's plan for a (B, C, H, Dh) cache of ``kv_bytes``-byte
-    elements on a card with ``sms`` SMs (Dh already padded: a whole number
-    of 16-byte chunks, or any Dh above ``MAX_HEAD_DIM``).  It depends on
-    the shapes only, never on the lengths, so a launch needs no host read.
+    elements on a card with ``sms`` SMs, at the true Dh (the layout is that
+    of the head's slot in shared memory, :func:`padded_head_dim`).  It
+    depends on the shapes only, never on the lengths, so a launch needs no
+    host read.
 
     Above ``MAX_HEAD_DIM`` the plan is the strided layout's: a block of
-    ``STRIDED_WARPS`` warps per (split, slot, head), so ``n_slices = h``,
-    one head group, tiles of ``STRIDED_COLS`` columns and no ring in shared
-    memory; the splits are cut as below with the heads in place of slices.
+    ``STRIDED_WARPS`` warps per (split, slot, head), so ``n_slices = h`` and
+    one head group; the splits are cut as below with the heads in place of
+    slices.  A tile holds ``stage_cols`` columns (at least one, at most
+    ``STRIDED_MAX_COLS``, about ``STRIDED_STAGE_BYTES`` of K and V), which
+    every warp takes (``cols_per_warp = stage_cols``), evened out over the
+    split's tiles; the ring holds up to three of them.
 
-    A head of Dh elements is G = Dh * kv_bytes / 16 chunks of 16 bytes; it
-    takes LPH lanes (G rounded up to a power of two, at most 32), each CPH
-    chunks (1, or G / 32 rounded up to a power of two), so a 512-byte head
+    A head of Dh elements takes G = ceil(Dh * kv_bytes / 16) chunks of 16
+    bytes; it takes LPH lanes (G rounded up to a power of two, at most 32),
+    each CPH chunks (1, or G / 32 rounded up to a power of two), so a 512-byte head
     group holds 32 / LPH heads.  A block takes at most ``MAX_HEAD_GROUPS``
     head groups (``WIDE_HEAD_GROUPS`` where a lane holds 32 accumulator
     floats); a row of more is cut into ``n_slices`` slices of equal groups.
@@ -110,17 +114,20 @@ def split_plan(b: int, cap: int, h: int, dh: int, kv_bytes: int, sms: int) -> Sp
     to ``COLS_PER_WARP`` columns of each stage: a whole split in one stage
     where that fits, else as many as let the ``STAGES`` stages of every
     block of the grid fit the SMs' shared memory at once."""
+    if dh < 1:
+        raise ValueError(f"head dim {dh}: kernel 1 needs at least one element")
     per_sm = 1 if b == 1 else BLOCKS_PER_SM
+    slot = padded_head_dim(dh, kv_bytes) * kv_bytes  # a head's bytes in shared memory
     if dh > MAX_HEAD_DIM:  # the strided layout
         if h > MAX_GRID_Z:  # d above 67 M: no card holds such a model
             raise ValueError(f"{h} heads of Dh {dh}: kernel 1 takes at most {MAX_GRID_Z}")
         split_cols = max(MIN_SPLIT_COLS, cap // -(-per_sm * sms // (b * h)))
-        return SplitPlan(split_cols, -(-cap // split_cols), STRIDED_COLS,
-                         STRIDED_COLS // STRIDED_WARPS, 1, STRIDED_WARPS, h)
-    if dh < 1 or dh * kv_bytes % 16:
-        raise ValueError(f"head dim {dh}: kernel 1's lane layouts take whole 16-byte chunks "
-                         "per head (pad with padded_head_dim first)")
-    g = dh * kv_bytes // 16
+        widest = max(1, min(STRIDED_MAX_COLS, split_cols,
+                            STRIDED_STAGE_BYTES // (2 * slot + 12)))
+        stage_cols = -(-split_cols // -(-split_cols // widest))  # even tiles
+        return SplitPlan(split_cols, -(-cap // split_cols), stage_cols, stage_cols, 1,
+                         STRIDED_WARPS, h)
+    g = slot // 16
     lanes_per_head = min(32, 1 << (g - 1).bit_length())
     per_lane = 1 << (-(-g // lanes_per_head) - 1).bit_length()
     max_groups = WIDE_HEAD_GROUPS if per_lane * 16 // kv_bytes > 16 else MAX_HEAD_GROUPS
@@ -131,7 +138,7 @@ def split_plan(b: int, cap: int, h: int, dh: int, kv_bytes: int, sms: int) -> Sp
     slice_heads = h if n_slices == 1 else n_groups * heads_per_group
     warps_per_group = max(1, 8 // n_groups)
     # K and V of the slice's heads, the scales of all H heads, the bias
-    col_bytes = 2 * slice_heads * dh * kv_bytes + (8 * h if kv_bytes == 1 else 0) + 4
+    col_bytes = 2 * slice_heads * slot + (8 * h if kv_bytes == 1 else 0) + 4
     split_cols = max(MIN_SPLIT_COLS, cap // -(-per_sm * sms // (b * n_slices)))
     n_splits = -(-cap // split_cols)
     # the rings of the whole grid in one wave of the SMs' shared memory; 64 and
@@ -157,8 +164,8 @@ def _cached_plan(b, cap, h, dh, kv_bytes, device_index) -> SplitPlan:
 
 @functools.lru_cache(maxsize=None)
 def _f32_scale(dh: int) -> float:
-    """1 / sqrt(dh) in f32 arithmetic: the logits' scale of the true head
-    dim, which a zero-padded launch passes to the kernel."""
+    """1 / sqrt(dh) in f32 arithmetic: the logits' scale, as the plain
+    version's division by sqrt(dh) gives it."""
     return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
 
 
@@ -236,12 +243,8 @@ def ragged_decode_attention(
     if kv_code is None or v.dtype != k.dtype:
         raise ValueError(f"k, v must share int8, float32 or bfloat16, got {k.dtype} {v.dtype}")
     device = q.device
-    scale = _f32_scale(dh)
-    dhp = padded_head_dim(dh, k.element_size())
-    if dhp != dh:  # zero columns: the scores and the first dh outputs do not change
-        q, k, v = (torch.nn.functional.pad(x, (0, dhp - dh)) for x in (q, k, v))
-    plan = _cached_plan(b, cap, h, dhp, k.element_size(), device.index)
-    if q.stride(-1) != 1 or q.stride(-2) != dhp:
+    plan = _cached_plan(b, cap, h, dh, k.element_size(), device.index)
+    if q.stride(-1) != 1 or q.stride(-2) != dh:
         raise ValueError(f"q: the (H, Dh) axes must be contiguous, got strides {q.stride()}")
     k_ptr, v_ptr = k.data_ptr(), v.data_ptr()
     if not (k.is_contiguous() and v.is_contiguous()) or (k_ptr | v_ptr) % 16:
@@ -257,20 +260,22 @@ def ragged_decode_attention(
     if k.device != device or v.device != device or lengths.device != device:
         raise ValueError(f"all inputs must be on {device}")
 
-    out = torch.empty((b, 1, h, dhp), dtype=torch.float32, device=device)
-    partials = torch.empty(b * plan.n_splits * h * (dhp + 2), dtype=torch.float32, device=device)
+    out = torch.empty((b, 1, h, dh), dtype=torch.float32, device=device)
+    # (acc, m, l) per split, and past MAX_HEAD_DIM room for the widest heads' scores
+    scratch = b * plan.n_splits * h * (dh + 2) + (b * h * cap if dh > MAX_HEAD_DIM else 0)
+    partials = torch.empty(scratch, dtype=torch.float32, device=device)
     err = _launcher()(
         q.data_ptr(), q.stride(0), q_code, k_ptr, v_ptr, kv_code,
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         None if bias is None else bias.data_ptr(), lengths.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), b, cap, h, dhp, *plan, scale,
+        out.data_ptr(), b, cap, h, dh, *plan, _f32_scale(dh),
         torch._C._cuda_getCurrentRawStream(device.index),
     )
     if err != 0:
         raise RuntimeError(f"ragged_decode kernel launch failed: cudaError {err}")
     ragged_decode_attention.launches += 1
-    return out if dhp == dh else out[..., :dh].contiguous()
+    return out
 
 
 ragged_decode_attention.launches = 0
