@@ -341,10 +341,10 @@ def ptxas_summary(log_path) -> dict:
     return {"max_registers": max(regs, default=0), "spill_bytes": sum(spills)}
 
 
-_ATTN_KERNEL = re.compile(r"(attn_bwd_dq(?:_split|_wide)?_kernel|"
-                          r"attn_bwd_dkv(?:_split|_wide)?_kernel|"
-                          r"flash_bias_bwd_dq(?:_split|_wide)?_kernel|"
-                          r"flash_bias_bwd_dkv(?:_split|_wide)?_kernel|attn_bwd_delta_kernel|"
+_ATTN_KERNEL = re.compile(r"(attn_bwd_dq(?:_split|_wide|_cluster)?_kernel|"
+                          r"attn_bwd_dkv(?:_split|_wide|_cluster)?_kernel|"
+                          r"flash_bias_bwd_dq(?:_split|_wide|_cluster)?_kernel|"
+                          r"flash_bias_bwd_dkv(?:_split|_wide|_cluster)?_kernel|attn_bwd_delta_kernel|"
                           r"prefix_attention(?:_split|_wide)?_kernel|flash_bias_fwd(?:_split|_wide)?_kernel)"
                           r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
 
@@ -1029,9 +1029,11 @@ def check_flash_bias(dev, fwd_res, res):
 
 HEAD_DIM_CASE = (2, 4, 200, 48)  # B, H, T, prefix_s
 # kernels 2-4: the whole-row instantiations (48, 72 and 96 zero-padded), the
-# wide kernels of Dh 256 (144 and 192 padded to it), then the split ones (512
-# and 1024 in 4 and 8 chunks)
-HEAD_DIMS = (16, 32, 48, 72, 96, 128, 144, 192, 256, 512, 1024)
+# wide kernels of Dh 256 (144 and 192 padded to it), then above it the split
+# forward (384, 512, 1024 and 1152 in 3, 4, 8 and 9 chunks) and the cluster
+# backward (3, 4 and 8 blocks), and past the clusters' reach at 1152 the
+# split backward
+HEAD_DIMS = (16, 32, 48, 72, 96, 128, 144, 192, 256, 384, 512, 1024, 1152)
 
 
 def launched_kernels(fn, calls: int = 3) -> set:
@@ -1042,21 +1044,26 @@ def launched_kernels(fn, calls: int = 3) -> set:
     return profiled_ops(fn, calls)[0]
 
 
-def profiled_ops(fn, calls: int = 3, tries: int = 3):
+def profiled_ops(fn, calls: int = 3, tries: int = 6):
     """(CUDA kernel names, CPU op names, the profile's ``key_averages()``)
     of ``calls`` calls of ``fn()``, from ``torch.profiler`` after a warm-up
     call.  Now and then a profile records no kernel at all (every ``fn``
-    here launches some): such a profile is taken again, up to ``tries``
-    times."""
+    here launches some), and three profiles in a row have come back empty:
+    such a profile is taken again, up to ``tries`` times, each after a
+    pause a little longer than the last and over twice the calls, and each
+    retry is reported on stderr."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            print(f"profiled_ops: empty profile, retry {attempt}", file=sys.stderr, flush=True)
+            time.sleep(0.5 * attempt)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(calls * (2 if attempt else 1)):
                 fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
@@ -1066,17 +1073,23 @@ def profiled_ops(fn, calls: int = 3, tries: int = 3):
     return kernels, {e.key for e in events if e.device_type == DeviceType.CPU}, events
 
 
-def check_head_dims(dev):
+def check_head_dims(dev, bwd_res):
     """Kernels 2, 3 and 4, forward and backward, at the head dims the
-    training shapes do not reach (``HEAD_DIMS``: 16, 32, 128 and the split
-    instantiations' 256, 512 and 1024, and 48, 72, 96, 144 and 192, which
-    the wrappers zero-pad to 64, 128, 128, 256 and 256; the scale is not a
-    power of two but at 16, 64, 256 and 1024), in f32 and bf16: kernels 2 /
-    3 in prefix mode at rate 0.1 and in dense mode at rate 0, kernel 4 with
-    a causal + padding bias, each against its plain version with a bit-equal
-    rerun.  Past 128 the kernels that each case launches are read from the
-    profiler: the wide ones where the wrapper runs Dh 256 (144, 192, 256),
-    the split ones above it."""
+    training shapes do not reach (``HEAD_DIMS``: 16, 32, 128, the wide
+    kernels' 256, above it 384, 512, 1024 and 1152, and 48, 72, 96, 144 and
+    192, which the wrappers zero-pad to 64, 128, 128, 256 and 256; the scale is
+    not a power of two but at 16, 64, 256 and 1024), in f32 and bf16:
+    kernels 2 / 3 in prefix mode at rate 0.1 and in dense mode at rate 0,
+    kernel 4 with a causal + padding bias, each against its plain version
+    with a bit-equal rerun.  Past 128 the kernels that each case launches
+    are read from the profiler, per direction: the forward's wide kernel
+    where the wrapper runs Dh 256 (144, 192, 256), its split kernel above
+    it; the backward's passes on the route of ``backward_plan`` (wide at
+    256, cluster from 384 to 1024 with no split backward kernel, split at
+    1152).  Each cluster pass kernel that a case launches reports its
+    registers, spills, HMMA, shared memory, resident blocks and
+    ``cudaOccupancyMaxActiveClusters`` at its cluster size
+    (``cluster_pass_resources``; ``bwd_res``: the build phase's)."""
     import torch
 
     from valle_tpu_torch.ops import flash_attention as fl
@@ -1088,7 +1101,7 @@ def check_head_dims(dev):
                         -1e9, 0.0).astype(np.float32)
     kb = torch.from_numpy(key_bias).to(dev)
     dec = torch.from_numpy(_decoder_bias(rng, b, t, 3 * t // 4)).to(dev)
-    results = []
+    results, cluster_kernels = [], {}
     for dh in HEAD_DIMS:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
@@ -1135,22 +1148,39 @@ def check_head_dims(dev):
                 route = {}
                 if dh > 128:
                     tile = "wide" if fa.kernel_head_dim(dh) == 256 else "split"
+                    plan = fa.backward_plan(dh, dt)
                     names = launched_kernels(lambda: (fwd(), call()))
                     kernel4 = mode == "kernel4 decoder bias"
-                    want_names = ((f"flash_bias_fwd_{tile}_kernel",
-                                   f"flash_bias_bwd_dq_{tile}_kernel") if kernel4 else
-                                  (f"prefix_attention_{tile}_kernel", f"attn_bwd_dq_{tile}_kernel"))
+                    prefix = "flash_bias_bwd" if kernel4 else "attn_bwd"
+                    want_names = [f"flash_bias_fwd_{tile}_kernel" if kernel4 else
+                                  f"prefix_attention_{tile}_kernel"] + [
+                        f"{prefix}_{p}_{plan.route}_kernel" for p in ("dq", "dkv")]
                     for name in want_names:
                         assert any(name in n for n in names), \
                             f"{case} launched no {name}: {sorted(names)}"
-                    route = {"tiles": tile, "kernels_seen": list(want_names)}
+                    split_bwd = sorted(n for n in names if "_bwd_" in n and "_split_kernel" in n)
+                    assert plan.route == "split" or not split_bwd, \
+                        f"{case} launched split backward kernels: {split_bwd}"
+                    route = {"tiles": {"forward": tile, "backward": plan.route},
+                             "kernels_seen": want_names}
+                    if plan.route == "cluster":
+                        route["cluster"] = {"dq": plan.cluster, "dkv": plan.dkv_cluster}
+                        drop = ", drop" if rate > 0 else ""
+                        for p, nc in (("dq", plan.cluster), ("dkv", plan.dkv_cluster)):
+                            label = f"{prefix}_{p}_cluster_kernel<{dtype}{drop}>"
+                            key = f"{label} x {nc}"
+                            if key not in cluster_kernels:
+                                cluster_kernels[key] = cluster_pass_resources(
+                                    bwd_res, label, dtype, kernel4, rate > 0, p == "dkv",
+                                    plan.padded_dh)
                 results.append({"case": case, "b": b, "h": h, "t": t, "dh": dh,
                                 "forward_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
                                 "max_abs_err": max(errs), "tol": TOL[dtype],
                                 "bit_equal_rerun": True, **route})
     emit({"phase": "kernel2_3_4_head_dims",
           "err_is": "forward: max |kernel - plain|; backward (max_abs_err): max |kernel - plain| "
-                    "/ max |plain|, worst of dq, dk, dv", "cases": results})
+                    "/ max |plain|, worst of dq, dk, dv", "cases": results,
+          "cluster_kernels": cluster_kernels})
     return results
 
 
@@ -1222,6 +1252,35 @@ def wide_pass_resources(res, label: str, dtype: str, bias: bool, drop: bool,
     assert res["spill_bytes"] == 0 and local == 0, f"{label} spills: {res}"
     assert res["hmma"] > 0, f"{label} runs no tensor-core MMA: {res}"
     assert res["warps_per_sm"] >= WIDE_MIN_WARPS, f"{label}: too few resident warps: {res}"
+    return res
+
+
+def cluster_pass_resources(res, label: str, dtype: str, bias: bool, drop: bool, dkv: bool,
+                           dh: int) -> dict:
+    """The build phase's registers, spills and HMMA of one cluster pass
+    kernel of kernels 3 and 4 (Dh above 256) with, from the runtime
+    (``prefix_attention_bwd_cluster_info``), its registers, local bytes,
+    dynamic shared memory, threads, resident blocks and warps per SM, and
+    the clusters of the size that head dim ``dh`` launches that can be
+    resident at once (``cudaOccupancyMaxActiveClusters``): no spill, and at
+    least one."""
+    import ctypes
+
+    from valle_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("prefix_attention_bwd").prefix_attention_bwd_cluster_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 7)()
+    err = fn(0 if dtype == "float32" else 1, int(bias), int(drop), int(dkv), dh, info)
+    assert err == 0, f"{label}: occupancy query failed: cudaError {err}"
+    regs, local, smem, threads, blocks, clusters, nc = info
+    res = {**res[label], "cluster": nc, "runtime_registers": regs, "local_bytes": local,
+           "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
+           "warps_per_sm": blocks * threads // 32, "max_active_clusters": clusters}
+    assert res["spill_bytes"] == 0 and local == 0, f"{label} spills: {res}"
+    assert res["hmma"] > 0, f"{label} runs no tensor-core MMA: {res}"
+    assert clusters > 0, f"{label}: no cluster of {nc} blocks fits the card: {res}"
     return res
 
 
@@ -5173,9 +5232,10 @@ def main() -> int:
     assert len(fwd) == 36, f"expected 36 forward kernels, found {sorted(fwd)}"
     assert all(r["hmma"] > 0 for r in fwd.values()), "a forward kernel runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in fwd.values()), "ptxas spills in the forward"
-    # kernels 3 / 4: 60 of Dh 16-128 and split, 12 wide passes of Dh 256
+    # kernels 3 / 4: 60 of Dh 16-128 and split, 12 wide passes of Dh 256, 12
+    # cluster passes above it
     passes = {n: r for n, r in bwd.items() if "delta" not in n}
-    assert len(passes) == 72, f"expected 72 backward pass kernels, found {sorted(passes)}"
+    assert len(passes) == 84, f"expected 84 backward pass kernels, found {sorted(passes)}"
     assert all(r["hmma"] > 0 for r in passes.values()), "a backward pass runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in bwd.values()), "ptxas spills in the backward"
     k1 = check_ragged_decode(dev)
@@ -5184,7 +5244,7 @@ def main() -> int:
     k2d = check_dropout_forward(dev, fwd)
     k3 = check_backward(dev, bwd)
     k4 = check_flash_bias(dev, fwd, bwd)
-    check_head_dims(dev)
+    check_head_dims(dev, bwd)
     k234_dh256 = check_dh256(dev, fwd, bwd)
     paths = {}
     paths["generate"], generate_line = main_path(dev)

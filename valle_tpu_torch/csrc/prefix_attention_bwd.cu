@@ -121,27 +121,51 @@
 //      halves low + high; k steps in order, in f32 each into a zeroed
 //      fragment), no atomics, one writer per element of dq, dk, dv and
 //      d(bias).
-//   7. Head dims above 256 (384, 512, 1024: no shipped configuration) run
-//      the split instantiations (*_split_kernel), as in the forward
-//      (prefix_attention.cu, point 7): whole-row tiles take 396 KB
-//      of shared memory in f32 at Dh 512.  dQ, dK and dV are separable over
-//      Dh, S and dP are not: a grid dimension takes the nc = Dh / 128
-//      chunks (the wrapper zero-pads Dh to a multiple of 128), each block
-//      keeps Dh 128's accumulators and launch bounds, and every streamed
-//      tile takes nc steps of the ring, step i staging chunk i of both the
-//      block's own tiles (q and dO, or K and V, now two stages) and the
-//      streamed ones and adding its part of S and dP.  The tile's first
-//      step also stages the block's own chunk of the second products'
-//      operand (K for dQ; q and dO for dK / dV).  The dK/dV pass streams q
-//      tiles of dkv_rows() rows so that S^T and dP^T stay whole across the
-//      steps.  In f32 its chunk is 64 columns (dkv_split_dh(): at 128, dK
-//      and dV's 128 accumulator registers beside the ring's staging
-//      spilled), so its nc is Dh / 64 and its tiles are Dh 64's (16 q
-//      rows).  Shared memory: 185.9 / 104.7 KB (dQ / dK-dV) in f32, 95.7 /
-//      104.7 KB in bf16, at any Dh.  S and dP's products run nc times: (2
-//      nc + 1) / 3 of the dQ pass's operations and (2 nc + 2) / 4 of the
-//      dK/dV pass's (nc of 64 columns in f32).  Only chunk 0 writes kernel
-//      4's d(bias); every chunk sums S and dP in the same order.
+//   7. Head dims above 256 (no shipped configuration) run the cluster passes
+//      (*_cluster_kernel; tile bodies attn_bwd_*_tile with kCluster) up to
+//      Dh 1024.  Whole-row f32 tiles take 396 KB of shared memory at Dh
+//      512, more than a block may use, and dQ, dK and dV are separable over
+//      Dh where S and dP are not.  So a thread-block cluster covers each
+//      tile of the output, one block per slice of the head (the wrapper
+//      zero-pads Dh to a multiple of 128): block j, the cluster's rank j,
+//      is the whole-row pass on slice j.  Slices are 128 columns, so the dQ
+//      pass's clusters are Dh / 128 blocks (at most 8, the portable size);
+//      the f32 dK/dV pass takes slices of 64 (cluster_slice_dh(): Dh 128's
+//      128 accumulator registers beside the exchange spilled), so its
+//      clusters are Dh / 64 blocks, 16 at Dh 1024, above the portable size
+//      (cudaFuncAttributeNonPortableClusterSizeAllowed; the H100 schedules
+//      them).  The dQ pass stages its slice of q and dO and streams its
+//      slice of K and V; the dK/dV pass stages its slice of K and V and
+//      streams its slice of q and dO.  For each streamed tile the block
+//      computes its partials of S and dP (S^T and dP^T) over its slice,
+//      each k step into a zeroed fragment added in f32; the partials are
+//      summed across the cluster through distributed shared memory in the
+//      fixed order slice 0 + slice 1 + ... (cluster_tile.cuh: a
+//      reduce-scatter, then an all-gather), so every block holds the same S
+//      and dP, bit for bit; each block then runs the element pass of point
+//      3 on them in registers and adds its slice of dQ (dK and dV).  S and
+//      dP are computed once per tile pair: a pass's products are the
+//      bound's 10 B H Dh operations per visible pair at any nc.  Every block
+//      of a cluster walks the same tiles (the dQ frontier max(prefix_s,
+//      tile end) and the q tiles that can see a key tile depend on the
+//      tile, not on the slice), so all take the same exchanges and none
+//      leaves a barrier early.  Rank 0 alone writes kernel 4's d(bias).
+//      One exchange per streamed tile of 16 keys (dQ) or 16 q rows (dK/dV).
+//      Shared memory: the whole-row pass's at its slice and one exchange
+//      buffer of 8 KB: 107.3 / 59.3 KB (dQ / dK-dV) in f32, 59.3 KB in
+//      bf16; launch bounds of two blocks per SM (at most 255 registers).
+//      Grids (Tq / 64 x nc, H, B) and (Tk / 64 x nc_dkv, H, B), clusters
+//      along x.  A launch the card refuses returns its error: nothing falls
+//      back.
+//      Past Dh 1024 the split passes (*_split_kernel, kSplit) stay: a grid
+//      dimension takes the nc chunks and each block recomputes S and dP
+//      over the whole head, step i of the ring staging chunk i of the
+//      block's own tiles and the streamed ones, so S and dP's products run
+//      nc times ((2 nc + 1) / 3 of the dQ pass's operations, (2 nc + 2) / 4
+//      of the dK/dV pass's); the f32 dK/dV pass takes chunks of 64
+//      (dkv_split_dh()) and q tiles of dkv_rows() rows; chunk 0 writes
+//      d(bias).  Shared memory: 185.9 / 104.7 KB in f32, 95.7 / 104.7 KB
+//      in bf16, at any Dh.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -152,6 +176,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "cluster_tile.cuh"
 #include "mma_tile.cuh"
 #include "philox.cuh"
 #include "wide_tile.cuh"
@@ -225,14 +250,42 @@ constexpr size_t bwd_smem_bytes() {
   return (4 * BM + 8 * dkv_rows<T, DH>()) * row + 4 * dkv_rows<T, DH>() * sizeof(float);
 }
 
+// The slice of the head that one block of a cluster pass owns: kSplitDh,
+// or in the f32 dK/dV pass dkv_split_dh() = 64 (Dh 128's dK and dV
+// accumulators hold 128 registers a thread, and beside the exchange the
+// pass spilled under ptxas's 255-register cap).
+template <typename T, bool kDq>
+__host__ __device__ constexpr int cluster_slice_dh() {
+  return kDq ? kSplitDh : dkv_split_dh<T>();
+}
+
+// The head dims the cluster passes take: multiples of kSplitDh above Dh 256
+// up to 1024, where the f32 dK/dV pass has kClusterMax slices of 64.
+constexpr int kClusterMaxDh = kClusterMax * 64;
+
+// Shared memory of a cluster pass: the whole-row pass's at its slice, and
+// the exchange of a warp's S and dP fragments (dQ: two n8 tiles of each;
+// dK/dV: dkv_rows() = 16 q rows; 16 floats a lane either way).
+template <typename T, bool kDq>
+constexpr size_t cluster_smem_bytes() {
+  constexpr int DH = cluster_slice_dh<T, kDq>();
+  constexpr int n = 8 * ((kDq ? BN : dkv_rows<T, DH>()) / 8);
+  return bwd_smem_bytes<T, DH, false, kDq>() + cluster_xchg_floats<n>() * sizeof(float);
+}
+
 // The dQ pass of one (64-row q tile, head, batch).  kBias: kernel 4 (dense
 // bias, no structural mask, writes d(bias) when dbias is not null);
 // otherwise kernel 3.  kSplit: the head dim is nc chunks of DH (=
 // kSplitDh), blockIdx.y is h * nc + j and the block writes dQ's chunk j
 // (chunk 0 also d(bias)); each key tile takes nc steps of the ring, step i
 // staging chunk i of q, dO, K and V and adding its part of S and dP, the
-// first step also the tile's K chunk j for dQ += dS K.
-template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false>
+// first step also the tile's K chunk j for dQ += dS K.  kCluster: the head
+// dim is nc slices of DH (= kSplitDh), one block of a cluster of nc each
+// (its rank j, the cluster's x index the q tile); the block stages and
+// streams its slice alone, and its partials of S and dP are summed across
+// the cluster (cluster_tile.cuh) before the element pass; it writes dQ's
+// slice j (rank 0 also d(bias)).
+template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false, bool kCluster = false>
 __device__ __forceinline__ void attn_bwd_dq_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
     const T* __restrict__ k, long long k_sb, long long k_st,
@@ -251,14 +304,17 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
   T* sK = sDO + S * BM * LDT;              // [2][BN][LDT]
   T* sV = sK + 2 * TILE;                   // [2][BN][LDT]
   T* sKj = sV + 2 * TILE;                  // kSplit: [2][BN][LDT], K's chunk j
+  float* sX = reinterpret_cast<float*>(sV + 2 * TILE);  // kCluster: the exchange
 
-  const int r0 = blockIdx.x * BM, b = blockIdx.z;
-  int h = blockIdx.y, j = 0;  // head, and the block's chunk of dQ (kSplit)
+  const int r0 = (kCluster ? cluster_index_x() : (int)blockIdx.x) * BM, b = blockIdx.z;
+  int h = blockIdx.y, j = 0;  // head, and the block's chunk (slice) of dQ
   if constexpr (kSplit) {
     h = blockIdx.y / nc;
     j = blockIdx.y - h * nc;
   }
-  const int D = kSplit ? nc * DH : DH;  // a head's elements in a row
+  if constexpr (kCluster) j = cluster_rank();
+  const int D = (kSplit || kCluster) ? nc * DH : DH;  // a head's elements in a row
+  const int col0 = kCluster ? j * DH : 0;  // the block's first column of the head
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
   const long long bh4 = (long long)b * H + h;
@@ -266,10 +322,10 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
   if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + BM));
   const int n_tiles = (kend + BN - 1) / BN;
 
-  const T* qb = q + (long long)b * q_sb + (long long)h * D;
-  const T* dob = dout + (long long)b * Tq * H * D + (long long)h * D;
-  const T* kb = k + (long long)b * k_sb + (long long)h * D;
-  const T* vb = v + (long long)b * v_sb + (long long)h * D;
+  const T* qb = q + (long long)b * q_sb + (long long)h * D + col0;
+  const T* dob = dout + (long long)b * Tq * H * D + (long long)h * D + col0;
+  const T* kb = k + (long long)b * k_sb + (long long)h * D + col0;
+  const T* vb = v + (long long)b * v_sb + (long long)h * D + col0;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
   // kSplit: step (it, i) stages chunk i of the q, dO, K and V tiles into
@@ -285,7 +341,7 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
     stage_step(0, 0, 0);
   } else {
     stage_rows<T, DH, BM>(sQ, qb, q_st, r0, Tq, vec);
-    stage_rows<T, DH, BM>(sDO, dob, (long long)H * DH, r0, Tq, vec);
+    stage_rows<T, DH, BM>(sDO, dob, (long long)H * D, r0, Tq, vec);
     stage_rows<T, DH, BN>(sK, kb, k_st, 0, kend, vec);
     stage_rows<T, DH, BN>(sV, vb, v_st, 0, kend, vec);
   }
@@ -303,6 +359,7 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
   for (int n = 0; n < DT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  ClusterExchange xchg{sX, nc};
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BN;
@@ -353,8 +410,9 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
           if (i + 1 < nc) __syncthreads();  // the next step's loads overwrite this stage
         }
       } else {
-        mma_xyt<T, DH, NT>(s, sQ + wr * LDT, cK, lane);   // S = q k^T
-        mma_xyt<T, DH, NT>(dp, sDO + wr * LDT, cV, lane); // dPd = dO v^T
+        mma_xyt<T, DH, NT, kCluster>(s, sQ + wr * LDT, cK, lane);   // S = q k^T
+        mma_xyt<T, DH, NT, kCluster>(dp, sDO + wr * LDT, cV, lane); // dPd = dO v^T
+        if constexpr (kCluster) xchg.sum(s, dp, warp, lane);  // over the head's slices
       }
 
       // element pass: s becomes dS, rounded like T
@@ -401,6 +459,7 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
     __syncthreads();  // the next prefetch overwrites this stage
   }
   cp_async_wait<0>();
+  if constexpr (kCluster) xchg.finish();
 
   const float post = kBias ? 1.f : scale;  // kernel 4's dS already carries the scale
 #pragma unroll
@@ -421,8 +480,11 @@ __device__ __forceinline__ void attn_bwd_dq_tile(
 // for them against NR q rows at a time.  kSplit: as in attn_bwd_dq_tile,
 // the block writes chunk j of dK and dV; the streamed q tiles are NR rows,
 // each taking nc steps of the ring (chunk i of K, V, q and dO; at i = 0
-// also chunk j of the tile's q and dO, and its LSE and delta).
-template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false>
+// also chunk j of the tile's q and dO, and its LSE and delta).  kCluster:
+// as in attn_bwd_dq_tile, the block holds slice j of K and V, streams slice
+// j of q and dO, and writes slice j of dK and dV; each NR rows' partials
+// of S^T and dP^T are summed across the cluster.
+template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false, bool kCluster = false>
 __device__ __forceinline__ void attn_bwd_dkv_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
     const T* __restrict__ k, long long k_sb, long long k_st,
@@ -446,21 +508,24 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
   T* sDOj = sQj + (kSplit ? 2 : 0) * TILE; // kSplit: [2][TR][LDT], dO's chunk j
   float* sL = reinterpret_cast<float*>(sDOj + (kSplit ? 2 : 0) * TILE);  // [2][TR] lse
   float* sDl = sL + 2 * TR;                                              // [2][TR] delta
+  float* sX = sDl + 2 * TR;  // kCluster: the exchange
 
-  const int c0 = blockIdx.x * BM, b = blockIdx.z;
-  int h = blockIdx.y, j = 0;  // head, and the block's chunk of dK and dV (kSplit)
+  const int c0 = (kCluster ? cluster_index_x() : (int)blockIdx.x) * BM, b = blockIdx.z;
+  int h = blockIdx.y, j = 0;  // head, and the block's chunk (slice) of dK and dV
   if constexpr (kSplit) {
     h = blockIdx.y / nc;
     j = blockIdx.y - h * nc;
   }
-  const int D = kSplit ? nc * DH : DH;  // a head's elements in a row
+  if constexpr (kCluster) j = cluster_rank();
+  const int D = (kSplit || kCluster) ? nc * DH : DH;  // a head's elements in a row
+  const int col0 = kCluster ? j * DH : 0;  // the block's first column of the head
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
   const long long bh4 = (long long)b * H + h;
-  const T* qb = q + (long long)b * q_sb + (long long)h * D;
-  const T* dob = dout + (long long)b * Tq * H * D + (long long)h * D;
-  const T* kb = k + (long long)b * k_sb + (long long)h * D;
-  const T* vb = v + (long long)b * v_sb + (long long)h * D;
+  const T* qb = q + (long long)b * q_sb + (long long)h * D + col0;
+  const T* dob = dout + (long long)b * Tq * H * D + (long long)h * D + col0;
+  const T* kb = k + (long long)b * k_sb + (long long)h * D + col0;
+  const T* vb = v + (long long)b * v_sb + (long long)h * D + col0;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
 
@@ -502,7 +567,7 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
     stage_rows<T, DH, BM>(sK, kb, k_st, c0, Tk, vec);
     stage_rows<T, DH, BM>(sV, vb, v_st, c0, Tk, vec);
     stage_rows<T, DH, BN>(sQ, qb, q_st, rstart, Tq, vec);
-    stage_rows<T, DH, BN>(sDO, dob, (long long)H * DH, rstart, Tq, vec);
+    stage_rows<T, DH, BN>(sDO, dob, (long long)H * D, rstart, Tq, vec);
     stage_rowstats(0, rstart);
   }
   cp_async_commit();
@@ -522,13 +587,14 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
   for (int n = 0; n < DT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  ClusterExchange xchg{sX, nc};
 
   for (int it = 0; it < n_tiles; ++it) {
     const int r0 = rstart + it * TR, st = it & 1;
     if constexpr (!kSplit) {
       if (it + 1 < n_tiles) {  // the next q tile loads while this one computes
         stage_rows<T, DH, BN>(sQ + (st ^ 1) * TILE, qb, q_st, r0 + BN, Tq, vec);
-        stage_rows<T, DH, BN>(sDO + (st ^ 1) * TILE, dob, (long long)H * DH, r0 + BN, Tq, vec);
+        stage_rows<T, DH, BN>(sDO + (st ^ 1) * TILE, dob, (long long)H * D, r0 + BN, Tq, vec);
         stage_rowstats(st ^ 1, r0 + BN);
         cp_async_commit();
         cp_async_wait<1>();
@@ -598,8 +664,9 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
           if (i + 1 < nc) __syncthreads();  // the next step's loads overwrite this stage
         }
       } else {
-        mma_xyt<T, DH, RT>(s, sK + wc * LDT, cQ + rc * LDT, lane);   // S^T = k q^T
-        mma_xyt<T, DH, RT>(dp, sV + wc * LDT, cDO + rc * LDT, lane); // dPd^T = v dO^T
+        mma_xyt<T, DH, RT, kCluster>(s, sK + wc * LDT, cQ + rc * LDT, lane);   // S^T = k q^T
+        mma_xyt<T, DH, RT, kCluster>(dp, sV + wc * LDT, cDO + rc * LDT, lane); // dPd^T = v dO^T
+        if constexpr (kCluster) xchg.sum(s, dp, warp, lane);  // over the head's slices
       }
 
       // element pass: s becomes Pd^T and dp becomes dS^T, rounded like T
@@ -637,6 +704,7 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(
     __syncthreads();  // the next prefetch overwrites this stage
   }
   cp_async_wait<0>();
+  if constexpr (kCluster) xchg.finish();
 
   const float post = kBias ? 1.f : scale;  // kernel 4's dS already carries the scale
 #pragma unroll
@@ -1063,6 +1131,66 @@ __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) flash_bias_bw
                                     vec);
 }
 
+// The cluster pass kernels (header point 7; kernel 3's
+// attn_bwd_*_cluster_kernel, kernel 4's flash_bias_bwd_*_cluster_kernel):
+// kMmaThreads threads a block, launched in clusters of nc blocks along x,
+// and launch bounds of two blocks per SM (at most 255 registers; two f32
+// blocks' shared memory fill the SM).
+constexpr int kClusterMinBlocks = 2;
+
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kMmaThreads, kClusterMinBlocks) attn_bwd_dq_cluster_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
+    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop, bool vec, int nc) {
+  attn_bwd_dq_tile<T, kSplitDh, kDrop, false, false, true>(
+      q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, Bias{}, dout, lse, delta, dq, nullptr,
+      Tq, Tk, H, prefix_s, scale, drop, vec, nc);
+}
+
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kMmaThreads, kClusterMinBlocks) attn_bwd_dkv_cluster_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
+    bool vec, int nc) {
+  attn_bwd_dkv_tile<T, cluster_slice_dh<T, false>(), kDrop, false, false, true>(
+      q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, Bias{}, dout, lse, delta, dk, dv, Tq,
+      Tk, H, prefix_s, scale, drop, vec, nc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads, kClusterMinBlocks) flash_bias_bwd_dq_cluster_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ dbias,
+    int Tq, int Tk, int H, float scale, bool vec, int nc) {
+  attn_bwd_dq_tile<T, kSplitDh, false, true, false, true>(
+      q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr, bias, dout, lse, delta, dq, dbias, Tq,
+      Tk, H, -1, scale, Dropout{}, vec, nc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads, kClusterMinBlocks) flash_bias_bwd_dkv_cluster_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    Bias bias, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk,
+    int H, float scale, bool vec, int nc) {
+  attn_bwd_dkv_tile<T, cluster_slice_dh<T, false>(), false, true, false, true>(
+      q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr, bias, dout, lse, delta, dk, dv, Tq,
+      Tk, H, -1, scale, Dropout{}, vec, nc);
+}
+
 // The pass kernels (kernel 3's attn_bwd_*, kernel 4's flash_bias_bwd_*),
 // defined three times, once per launch bounds of bounds_class() (fit4, fit1,
 // any_regs); each instantiation is taken from one of them.
@@ -1293,9 +1421,58 @@ cudaError_t launch_wide_passes(const Args& a, Dropout drop, float scale, cudaStr
   }
 }
 
+// The dQ and dK/dV passes of kernel 4 (kBias) or kernel 3 at head dim Dh in
+// clusters, one block per slice of the head (cluster_slice_dh(); header
+// point 7): grids (Tq / 64 x nc, H, B) and (Tk / 64 x nc_dkv, H, B).
+template <typename T, bool kBias>
+cudaError_t launch_cluster_passes(int Dh, const Args& a, Dropout drop, float scale,
+                                  cudaStream_t stream, bool vec) {
+  const int nc = Dh / cluster_slice_dh<T, true>(), nc_dkv = Dh / cluster_slice_dh<T, false>();
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  T* dq = static_cast<T*>(a.dq);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  const dim3 gq((a.Tq + BM - 1) / BM * nc, a.H, a.B), gk((a.Tk + BM - 1) / BM * nc_dkv, a.H, a.B);
+  constexpr size_t smem_dq = cluster_smem_bytes<T, true>();
+  constexpr size_t smem_dkv = cluster_smem_bytes<T, false>();
+  cudaError_t err;
+  if constexpr (kBias) {
+    err = launch_cluster(flash_bias_bwd_dq_cluster_kernel<T>, gq, nc, smem_dq, stream, q, a.q_sb,
+                         a.q_st, k, a.k_sb, a.k_st, v, a.v_sb, a.v_st, a.bias, dout, a.lse,
+                         a.delta, dq, a.dbias, a.Tq, a.Tk, a.H, scale, vec, nc);
+    if (err != cudaSuccess) return err;
+    return launch_cluster(flash_bias_bwd_dkv_cluster_kernel<T>, gk, nc_dkv, smem_dkv, stream, q,
+                          a.q_sb, a.q_st, k, a.k_sb, a.k_st, v, a.v_sb, a.v_st, a.bias, dout,
+                          a.lse, a.delta, dk, dv, a.Tq, a.Tk, a.H, scale, vec, nc_dkv);
+  } else {
+    auto kdq = attn_bwd_dq_cluster_kernel<T, true>;
+    auto kdkv = attn_bwd_dkv_cluster_kernel<T, true>;
+    if (drop.threshold == 0) {
+      kdq = attn_bwd_dq_cluster_kernel<T, false>;
+      kdkv = attn_bwd_dkv_cluster_kernel<T, false>;
+    }
+    err = launch_cluster(kdq, gq, nc, smem_dq, stream, q, a.q_sb, a.q_st, k, a.k_sb, a.k_st, v,
+                         a.v_sb, a.v_st, a.kv_bias, dout, a.lse, a.delta, dq, a.Tq, a.Tk, a.H,
+                         a.prefix_s, scale, drop, vec, nc);
+    if (err != cudaSuccess) return err;
+    return launch_cluster(kdkv, gk, nc_dkv, smem_dkv, stream, q, a.q_sb, a.q_st, k, a.k_sb,
+                          a.k_st, v, a.v_sb, a.v_st, a.kv_bias, dout, a.lse, a.delta, dk, dv,
+                          a.Tq, a.Tk, a.H, a.prefix_s, scale, drop, vec, nc_dkv);
+  }
+}
+
+// Whether the backward runs a head dim of Dh in clusters.
+inline bool cluster_route(int Dh) {
+  return Dh > kWideDh && Dh % kSplitDh == 0 && Dh <= kClusterMaxDh;
+}
+
 // The three passes of kernel 4 (kBias) or kernel 3: the delta pass, then
-// the dQ and dK/dV passes, at Dh 256 the wide ones, at any other head dim
-// through dispatch_dh (whole up to 128, split above it).
+// the dQ and dK/dV passes, at Dh 256 the wide ones, above it up to
+// kClusterMaxDh the cluster ones, at any other head dim through dispatch_dh
+// (whole up to 128, split above the clusters' reach).
 template <typename T, bool kBias>
 cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, float scale, cudaStream_t stream) {
   const size_t es = sizeof(T);
@@ -1309,6 +1486,8 @@ cudaError_t launch_bwd(int Dh, const Args& a, Dropout drop, float scale, cudaStr
              a.Tq, a.H, Dh);
   if (err != cudaSuccess) return err;
   if (Dh == kWideDh) return launch_wide_passes<T, kBias>(a, drop, scale, stream, vec);
+  if (cluster_route(Dh))
+    return launch_cluster_passes<T, kBias>(Dh, a, drop, scale, stream, vec);
   return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
     constexpr bool kSplit = decltype(split)::value;
@@ -1420,6 +1599,36 @@ extern "C" int prefix_attention_bwd_wide_info(int dtype, int bias, int drop, int
                          : query(attn_bwd_dq_wide_kernel<T, true>, sq);
     return dkv ? query(attn_bwd_dkv_wide_kernel<T, false>, sk)
                : query(attn_bwd_dq_wide_kernel<T, false>, sq);
+  };
+  if (dtype == 0) return pick(float{});
+  if (dtype == 1) return pick(__nv_bfloat16{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// The resources of one cluster pass kernel as head dim Dh (257-1024, a
+// multiple of 128) launches it: dtype, bias, drop and dkv as in
+// prefix_attention_bwd_wide_info.  info: registers, local (spilled) bytes,
+// dynamic shared memory bytes, threads a block, resident blocks per SM, the
+// clusters that can be resident at once, and the blocks of a cluster.
+// Returns a cudaError_t.
+extern "C" int prefix_attention_bwd_cluster_info(int dtype, int bias, int drop, int dkv, int Dh,
+                                                 int* info) {
+  if (!cluster_route(Dh)) return (int)cudaErrorInvalidValue;
+  int nc = 0;
+  auto query = [&](auto kern, size_t smem) {
+    info[6] = nc;
+    return cluster_kernel_info(kern, nc, smem, info);
+  };
+  auto pick = [&](auto tag) -> int {
+    using T = decltype(tag);
+    nc = Dh / (dkv ? cluster_slice_dh<T, false>() : cluster_slice_dh<T, true>());
+    const size_t sq = cluster_smem_bytes<T, true>(), sk = cluster_smem_bytes<T, false>();
+    if (bias) return dkv ? query(flash_bias_bwd_dkv_cluster_kernel<T>, sk)
+                         : query(flash_bias_bwd_dq_cluster_kernel<T>, sq);
+    if (drop) return dkv ? query(attn_bwd_dkv_cluster_kernel<T, true>, sk)
+                         : query(attn_bwd_dq_cluster_kernel<T, true>, sq);
+    return dkv ? query(attn_bwd_dkv_cluster_kernel<T, false>, sk)
+               : query(attn_bwd_dq_cluster_kernel<T, false>, sq);
   };
   if (dtype == 0) return pick(float{});
   if (dtype == 1) return pick(__nv_bfloat16{});

@@ -22,18 +22,22 @@ only on rows whose columns are all masked, which no caller reads.
 Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS``, at
 Dh 256 as wide kernels that compute the scores once per tile pair (the
 forward's and the backward's; the kernel sources pick them), and above 256
-in chunks of ``SPLIT_HEAD_DIM`` (a grid dimension over the chunks of the
-output, each block recomputing the scores over the whole Dh); any other Dh
-runs zero-padded to the next of them (129-255 to the wide kernels' 256), or
-to a multiple of 128, with the scale of the true Dh (:func:`run_padded`,
-shared with kernel 4).
+in chunks of ``SPLIT_HEAD_DIM``: the backward up to ``CLUSTER_MAX_HEAD_DIM``
+in thread-block clusters, one block a chunk, that sum the scores' partials
+across the cluster (still once per tile pair), the forward and,
+past Dh 1024, the backward in split instantiations (a grid dimension over
+the chunks of the output, each block recomputing the scores over the whole
+Dh); :func:`backward_plan` gives the backward's route.  Any other Dh runs
+zero-padded to the next of them (129-255 to the wide kernels' 256), or to a
+multiple of 128, with the scale of the true Dh (:func:`run_padded`, shared
+with kernel 4); the forward and the backward pad alike.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -44,20 +48,59 @@ from valle_tpu_torch.ops.philox import dropout_keep_mask, keep_threshold
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the head dims kernels 2-4 are instantiated for
-SPLIT_HEAD_DIM = 128  # the chunk of the split instantiations (csrc: kSplitDh)
+SPLIT_HEAD_DIM = 128  # the chunk of the split and cluster kernels (csrc: kSplitDh)
+WIDE_HEAD_DIM = 256  # the wide kernels' head dim (csrc: kWideDh)
+CLUSTER_MAX_HEAD_DIM = 1024  # the backward's cluster passes' reach (csrc: kClusterMaxDh)
 
 
 def kernel_head_dim(dh: int) -> int:
     """The head dim that kernels 2-4 run a head dim of ``dh`` at: the next
     of ``KERNEL_HEAD_DIMS``, or above 128 the next multiple of
-    ``SPLIT_HEAD_DIM`` (256: the wide kernels; above it the split
-    instantiations)."""
+    ``SPLIT_HEAD_DIM``: 256 in the wide kernels; above it the backward runs
+    in thread-block clusters up to Dh 1024 (``CLUSTER_MAX_HEAD_DIM``: 8
+    blocks of 128 columns in the dQ pass, the portable cluster size, and
+    16 of 64 in the f32 dK/dV pass) and in the split instantiations past
+    it, the forward in the split instantiations."""
     if dh < 1:
         raise ValueError(f"head dim {dh}: must be positive")
     for n in KERNEL_HEAD_DIMS:
         if dh <= n:
             return n
     return -(-dh // SPLIT_HEAD_DIM) * SPLIT_HEAD_DIM
+
+
+class BackwardPlan(NamedTuple):
+    """How kernels 3 and 4's backward runs a head dim (``backward_plan``)."""
+
+    route: str  # "tile" (whole rows), "wide" (Dh 256), "cluster" or "split"
+    padded_dh: int  # the head dim the kernels run at (``kernel_head_dim``)
+    slice_dh: int  # dQ pass: the columns of Dh whose dQ one block writes
+    cluster: int  # dQ pass: blocks that sum one tile pair's S and dP (1 off the cluster route)
+    dkv_slice_dh: int  # dK/dV pass: the same for dK and dV
+    dkv_cluster: int
+    dkv_rows: int  # q rows of S^T and dP^T a dK/dV warp holds (and sums) at once
+
+
+def backward_plan(dh: int, dtype: torch.dtype = torch.float32) -> BackwardPlan:
+    """The backward's launch plan for a head dim of ``dh`` in ``dtype``, as
+    ``csrc/prefix_attention_bwd.cu::launch_bwd`` picks it.  On the cluster
+    route (Dh 257-1024) the padded head is ``cluster`` slices of 128
+    columns in the dQ pass and ``dkv_cluster`` slices in the dK/dV pass (of
+    64 in f32, whose dK and dV accumulators at 128 columns spilled), one
+    block each; each block computes its slice's partials of S and dP, the
+    partials are summed slice 0 + slice 1 + ... in f32 in every block, and
+    each block forms its slice of dQ, or of dK and dV.  The split route's
+    f32 dK/dV pass also works in 64-column chunks."""
+    n = kernel_head_dim(dh)
+    f32 = dtype == torch.float32
+    if n <= SPLIT_HEAD_DIM:
+        return BackwardPlan("tile", n, n, 1, n, 1, 16 if n <= 64 or not f32 else 8)
+    if n == WIDE_HEAD_DIM:
+        return BackwardPlan("wide", n, n, 1, n, 1, 16)
+    dkv = 64 if f32 else SPLIT_HEAD_DIM
+    if n <= CLUSTER_MAX_HEAD_DIM:
+        return BackwardPlan("cluster", n, SPLIT_HEAD_DIM, n // SPLIT_HEAD_DIM, dkv, n // dkv, 16)
+    return BackwardPlan("split", n, SPLIT_HEAD_DIM, 1, dkv, 1, 16)
 
 
 def run_padded(launch, padded, *args, n_sliced: int):
