@@ -14,9 +14,8 @@ ends the run with a non-zero exit code):
      most registers and spilled bytes,
      and per attention kernel (forward and backward) its registers, spills
      and tensor-core (HMMA) instructions: every forward kernel and backward
-     pass (the split instantiations of head dims above 128 too) must use the
-     tensor cores and none may spill (the wide kernels of the forward and the
-     wide passes of the backward at Dh 256 too); per kernel 1 instantiation (split and
+     pass (the wide, cluster and split instantiations of head dims above 128
+     too) must use the tensor cores and none may spill; per kernel 1 instantiation (split and
      combine kernels, lane layouts up to 8 chunks per lane, for whole-chunk
      heads and for heads staged into slots, the strided layout of heads
      past 1024 and its combine) its registers, spills and
@@ -41,11 +40,13 @@ ends the run with a non-zero exit code):
      training shapes in f32 and bf16, a soft per-head bias and a (1, 1, Tq,
      Tk) bias with d(bias), Tq != Tk, and the inference shape, with
      bit-equal reruns; then kernels 2, 3 and 4, forward and backward, at
-     head dims 16, 32, 48, 72, 96, 128, 144, 192, 256, 512 and 1024 on a
-     small shape (48, 72, 96, 144 and 192 through the wrappers' zero padding;
-     at 144, 192 and 256 the wide kernels of the forward and the backward,
-     past 256 the split instantiations: each case's kernels are read from
-     the profiler), likewise; kernel 1 at head dims 8,
+     head dims 16, 32, 48, 72, 96, 128, 144, 192, 256, 384, 512, 1024 and
+     1152 on a small shape (48, 72, 96, 144 and 192 through the wrappers'
+     zero padding; at 144, 192 and 256 the wide kernels of the forward and
+     the backward, from 384 to 1024 the cluster kernels of both with no
+     split kernel, at 1152 the split instantiations: each case's kernels are
+     read from the profiler, and each cluster kernel reports its registers,
+     spills, shared memory and resident clusters), likewise; kernel 1 at head dims 8,
      40, 50, 72, 144, 192, 320, 512, 1025, 1100 and 2048 in int8 / f32 /
      bf16 caches (8, 40, 50 and 72 in int8 and 50 in bf16 staged into slots
      of whole 16-byte chunks, the profiler showing no pad or copy of the
@@ -345,7 +346,8 @@ _ATTN_KERNEL = re.compile(r"(attn_bwd_dq(?:_split|_wide|_cluster)?_kernel|"
                           r"attn_bwd_dkv(?:_split|_wide|_cluster)?_kernel|"
                           r"flash_bias_bwd_dq(?:_split|_wide|_cluster)?_kernel|"
                           r"flash_bias_bwd_dkv(?:_split|_wide|_cluster)?_kernel|attn_bwd_delta_kernel|"
-                          r"prefix_attention(?:_split|_wide)?_kernel|flash_bias_fwd(?:_split|_wide)?_kernel)"
+                          r"prefix_attention(?:_split|_wide|_cluster)?_kernel|"
+                          r"flash_bias_fwd(?:_split|_wide|_cluster)?_kernel)"
                           r"I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?(?:Lb([01])E)?")
 
 
@@ -1029,10 +1031,9 @@ def check_flash_bias(dev, fwd_res, res):
 
 HEAD_DIM_CASE = (2, 4, 200, 48)  # B, H, T, prefix_s
 # kernels 2-4: the whole-row instantiations (48, 72 and 96 zero-padded), the
-# wide kernels of Dh 256 (144 and 192 padded to it), then above it the split
-# forward (384, 512, 1024 and 1152 in 3, 4, 8 and 9 chunks) and the cluster
-# backward (3, 4 and 8 blocks), and past the clusters' reach at 1152 the
-# split backward
+# wide kernels of Dh 256 (144 and 192 padded to it), then above it the
+# cluster forward and backward (384, 512 and 1024 in clusters of 3, 4 and 8
+# blocks), and past the clusters' reach at 1152 the split kernels (9 chunks)
 HEAD_DIMS = (16, 32, 48, 72, 96, 128, 144, 192, 256, 384, 512, 1024, 1152)
 
 
@@ -1073,7 +1074,7 @@ def profiled_ops(fn, calls: int = 3, tries: int = 6):
     return kernels, {e.key for e in events if e.device_type == DeviceType.CPU}, events
 
 
-def check_head_dims(dev, bwd_res):
+def check_head_dims(dev, fwd_res, bwd_res):
     """Kernels 2, 3 and 4, forward and backward, at the head dims the
     training shapes do not reach (``HEAD_DIMS``: 16, 32, 128, the wide
     kernels' 256, above it 384, 512, 1024 and 1152, and 48, 72, 96, 144 and
@@ -1082,14 +1083,15 @@ def check_head_dims(dev, bwd_res):
     kernels 2 / 3 in prefix mode at rate 0.1 and in dense mode at rate 0,
     kernel 4 with a causal + padding bias, each against its plain version
     with a bit-equal rerun.  Past 128 the kernels that each case launches
-    are read from the profiler, per direction: the forward's wide kernel
-    where the wrapper runs Dh 256 (144, 192, 256), its split kernel above
-    it; the backward's passes on the route of ``backward_plan`` (wide at
-    256, cluster from 384 to 1024 with no split backward kernel, split at
-    1152).  Each cluster pass kernel that a case launches reports its
-    registers, spills, HMMA, shared memory, resident blocks and
-    ``cudaOccupancyMaxActiveClusters`` at its cluster size
-    (``cluster_pass_resources``; ``bwd_res``: the build phase's)."""
+    are read from the profiler, per direction, on the routes of
+    ``forward_plan`` and ``backward_plan``: wide at 256 (144, 192, 256),
+    cluster from 384 to 1024 with no split kernel in either direction, split
+    at 1152.  Each cluster kernel that a case launches, forward or backward
+    pass, reports its registers, spills, HMMA, shared memory, resident
+    blocks and ``cudaOccupancyMaxActiveClusters`` at its cluster size
+    (``cluster_forward_resources``, ``cluster_pass_resources``; ``fwd_res``
+    and ``bwd_res``: the build phase's).  Returns the cases and the cluster
+    forward kernels' resources."""
     import torch
 
     from valle_tpu_torch.ops import flash_attention as fl
@@ -1101,7 +1103,7 @@ def check_head_dims(dev, bwd_res):
                         -1e9, 0.0).astype(np.float32)
     kb = torch.from_numpy(key_bias).to(dev)
     dec = torch.from_numpy(_decoder_bias(rng, b, t, 3 * t // 4)).to(dev)
-    results, cluster_kernels = [], {}
+    results, cluster_kernels, cluster_forward = [], {}, {}
     for dh in HEAD_DIMS:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
@@ -1147,24 +1149,36 @@ def check_head_dims(dev, bwd_res):
                 assert max(errs) <= TOL[dtype], f"backward ({case}) disagrees: {errs}"
                 route = {}
                 if dh > 128:
-                    tile = "wide" if fa.kernel_head_dim(dh) == 256 else "split"
-                    plan = fa.backward_plan(dh, dt)
+                    fplan, plan = fa.forward_plan(dh, dt), fa.backward_plan(dh, dt)
                     names = launched_kernels(lambda: (fwd(), call()))
                     kernel4 = mode == "kernel4 decoder bias"
                     prefix = "flash_bias_bwd" if kernel4 else "attn_bwd"
-                    want_names = [f"flash_bias_fwd_{tile}_kernel" if kernel4 else
-                                  f"prefix_attention_{tile}_kernel"] + [
+                    fwd_name = "flash_bias_fwd" if kernel4 else "prefix_attention"
+                    want_names = [f"{fwd_name}_{fplan.route}_kernel"] + [
                         f"{prefix}_{p}_{plan.route}_kernel" for p in ("dq", "dkv")]
                     for name in want_names:
                         assert any(name in n for n in names), \
                             f"{case} launched no {name}: {sorted(names)}"
-                    split_bwd = sorted(n for n in names if "_bwd_" in n and "_split_kernel" in n)
-                    assert plan.route == "split" or not split_bwd, \
-                        f"{case} launched split backward kernels: {split_bwd}"
-                    route = {"tiles": {"forward": tile, "backward": plan.route},
+                    split = sorted(n for n in names if "_split_kernel" in n)
+                    split_fwd = [n for n in split if "_bwd_" not in n]
+                    assert fplan.route == "split" or not split_fwd, \
+                        f"{case} launched split forward kernels: {split_fwd}"
+                    assert plan.route == "split" or len(split_fwd) == len(split), \
+                        f"{case} launched split backward kernels: {split}"
+                    route = {"tiles": {"forward": fplan.route, "backward": plan.route},
                              "kernels_seen": want_names}
+                    if fplan.route == "cluster":
+                        route["cluster"] = {"forward": fplan.cluster,
+                                            "forward_key_tile": fplan.key_tile}
+                        drop = ", drop" if rate > 0 else ""
+                        label = f"{fwd_name}_cluster_kernel<{dtype}{drop}>"
+                        key = f"{label} x {fplan.cluster}"
+                        if key not in cluster_forward:
+                            cluster_forward[key] = cluster_forward_resources(
+                                fwd_res, label, dtype, kernel4, rate > 0, fplan)
                     if plan.route == "cluster":
-                        route["cluster"] = {"dq": plan.cluster, "dkv": plan.dkv_cluster}
+                        route.setdefault("cluster", {}).update(
+                            dq=plan.cluster, dkv=plan.dkv_cluster)
                         drop = ", drop" if rate > 0 else ""
                         for p, nc in (("dq", plan.cluster), ("dkv", plan.dkv_cluster)):
                             label = f"{prefix}_{p}_cluster_kernel<{dtype}{drop}>"
@@ -1180,8 +1194,8 @@ def check_head_dims(dev, bwd_res):
     emit({"phase": "kernel2_3_4_head_dims",
           "err_is": "forward: max |kernel - plain|; backward (max_abs_err): max |kernel - plain| "
                     "/ max |plain|, worst of dq, dk, dv", "cases": results,
-          "cluster_kernels": cluster_kernels})
-    return results
+          "cluster_forward_kernels": cluster_forward, "cluster_kernels": cluster_kernels})
+    return results, cluster_forward
 
 
 DH256_H, DH256_DH = 4, 256  # heads and head dim of paths v-x (d = 1024, nhead 4)
@@ -1281,6 +1295,37 @@ def cluster_pass_resources(res, label: str, dtype: str, bias: bool, drop: bool, 
     assert res["spill_bytes"] == 0 and local == 0, f"{label} spills: {res}"
     assert res["hmma"] > 0, f"{label} runs no tensor-core MMA: {res}"
     assert clusters > 0, f"{label}: no cluster of {nc} blocks fits the card: {res}"
+    return res
+
+
+def cluster_forward_resources(res, label: str, dtype: str, bias: bool, drop: bool,
+                              plan) -> dict:
+    """The build phase's registers, spills and HMMA of one cluster forward
+    kernel of kernels 2 and 4 (Dh 257-1024) with, from the runtime
+    (``prefix_attention_cluster_info``), its registers, local bytes, dynamic
+    shared memory, threads, resident blocks and warps per SM, the clusters
+    of the size that ``plan`` (``forward_plan``) launches that can be
+    resident at once, and the keys of a streamed tile: no spill, at least
+    one cluster, and the plan's cluster size and key tile."""
+    import ctypes
+
+    from valle_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("prefix_attention").prefix_attention_cluster_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 8)()
+    err = fn(0 if dtype == "float32" else 1, int(bias), int(drop), plan.padded_dh, info)
+    assert err == 0, f"{label}: occupancy query failed: cudaError {err}"
+    regs, local, smem, threads, blocks, clusters, nc, kn = info
+    res = {**res[label], "cluster": nc, "key_tile": kn, "runtime_registers": regs,
+           "local_bytes": local, "dynamic_smem_bytes": smem, "threads": threads,
+           "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+           "max_active_clusters": clusters}
+    assert res["spill_bytes"] == 0 and local == 0, f"{label} spills: {res}"
+    assert res["hmma"] > 0, f"{label} runs no tensor-core MMA: {res}"
+    assert clusters > 0, f"{label}: no cluster of {nc} blocks fits the card: {res}"
+    assert (nc, kn) == (plan.cluster, plan.key_tile), f"{label}: forward_plan is {plan}: {res}"
     return res
 
 
@@ -1864,6 +1909,7 @@ def profile_breakdown(fn, extra_families=()) -> dict:
     families |= {"kernel1 (ragged_decode)": tuple(RAGGED_NAMES),
                  "kernel2 (prefix_attention)": ("prefix_attention_kernel",
                                                 "prefix_attention_wide_kernel",
+                                                "prefix_attention_cluster_kernel",
                                                 "prefix_attention_split_kernel"),
                  "kernel3 (prefix_attention_bwd)": ("attn_bwd_",),
                  "kernel4 (flash_attention)": ("flash_bias_fwd",),
@@ -5227,9 +5273,9 @@ def main() -> int:
     assert all(r["spill_bytes"] == 0 for r in k1_res.values()), "ptxas spills in kernel 1"
     assert all(r["i2f"] == 0 for n, r in k1_res.items() if "int8" in n), \
         "an int8-cache instantiation of kernel 1 converts with I2F"
-    # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 / wide / split x dropout or
-    # not; kernel 4 without
-    assert len(fwd) == 36, f"expected 36 forward kernels, found {sorted(fwd)}"
+    # kernel 2: f32 / bf16 x Dh 16 / 32 / 64 / 128 / wide / cluster / split x
+    # dropout or not; kernel 4 without
+    assert len(fwd) == 42, f"expected 42 forward kernels, found {sorted(fwd)}"
     assert all(r["hmma"] > 0 for r in fwd.values()), "a forward kernel runs no tensor-core MMA"
     assert all(r["spill_bytes"] == 0 for r in fwd.values()), "ptxas spills in the forward"
     # kernels 3 / 4: 60 of Dh 16-128 and split, 12 wide passes of Dh 256, 12
@@ -5244,7 +5290,7 @@ def main() -> int:
     k2d = check_dropout_forward(dev, fwd)
     k3 = check_backward(dev, bwd)
     k4 = check_flash_bias(dev, fwd, bwd)
-    check_head_dims(dev, bwd)
+    _, cluster_fwd = check_head_dims(dev, fwd, bwd)
     k234_dh256 = check_dh256(dev, fwd, bwd)
     paths = {}
     paths["generate"], generate_line = main_path(dev)
@@ -5283,11 +5329,15 @@ def main() -> int:
                 "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                 **({"cuda_kernels": sorted(res["kernels"])} if "kernels" in res else {})}
 
-    def entry(name, source, replaces, res, path, dh256):
+    def entry(name, source, replaces, res, path, dh256, cluster=None):
         by_path = {p: counts[name] for p, counts in paths.items()}
+        more = {} if cluster is None else {"cluster_kernels": {
+            k: {f: r[f] for f in ("registers", "spill_bytes", "hmma", "cluster", "key_tile",
+                                  "dynamic_smem_bytes", "max_active_clusters")}
+            for k, r in cluster_fwd.items() if k.startswith(cluster)}}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": by_path[path], "launches_by_path": by_path, **numbers(res),
-                "dh256": [numbers(r) for r in dh256]}
+                "dh256": [numbers(r) for r in dh256], **more}
 
     t = TRAIN_S + TRAIN_T
     emit({"kernels": [
@@ -5297,7 +5347,7 @@ def main() -> int:
         entry("prefix_attention", "valle_tpu_torch/csrc/prefix_attention.cu",
               "valle_tpu/ops/fused_attention.py:110", k2d["dense_self"], "train_step",
               [k234_dh256[f"kernel2 {c} {d}"] for c in (f"dense T={t}", "cross")
-               for d in ("float32", "bfloat16")]),
+               for d in ("float32", "bfloat16")], "prefix_attention_cluster_kernel"),
         entry("prefix_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
               "valle_tpu/ops/fused_attention.py:139", k3["dense_self float32 rate 0.1"],
               "train_step",
@@ -5306,7 +5356,7 @@ def main() -> int:
               "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["forward"],
               "tts_train_step",
               [k234_dh256[f"kernel4 {c} {d}"] for c in ("decoder", "inference")
-               for d in ("float32", "bfloat16")]),
+               for d in ("float32", "bfloat16")], "flash_bias_fwd_cluster_kernel"),
         entry("flash_attention_bwd", "valle_tpu_torch/csrc/prefix_attention_bwd.cu",
               "valle_tpu/ops/flash_attention.py:46", k4["decoder float32"]["backward"],
               "tts_train_step",

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time kernels 2-4 above head dim 256 (the forward's split instantiations,
-the backward's cluster passes) on one CUDA card, at the shapes and
-operations of the Dh-256 rows of PERF.md section 6.
+"""Time kernels 2-4 above head dim 256 (the forward's and the backward's
+cluster kernels, or in an older checkout its split ones) on one CUDA card,
+at the shapes and operations of the Dh-256 rows of PERF.md section 6.
 
-    python3 scripts/split_tiles_time.py [--backward-only] [--out FILE]
-    python3 scripts/split_tiles_time.py --checkouts PARENT . . PARENT [--backward-only]
-                                        [--out FILE]
+    python3 scripts/split_tiles_time.py [--backward-only | --forward-only] [--out FILE]
+    python3 scripts/split_tiles_time.py --checkouts PARENT . . PARENT
+                                        [--backward-only | --forward-only] [--out FILE]
 
 At Dh 512 (2 heads) and Dh 1024 (1 head), so that H * Dh = 1024 as in the
 default VALL-E and the Transformer TTS, in f32 and bf16:
@@ -23,11 +23,13 @@ version's ms, SDPA's ms on the same dense mask (its backward: one
 ``autograd.grad`` call), and the bound: the rows' operations (4 B H Dh T^2
 forward, 10 B H Dh T^2 backward) over the type's peak, or bytes, whichever
 is larger.  The profiler also names the kernels each call launches, which
-must be the forward's split kernel and the backward's passes on the route
-the checkout's ``backward_plan`` gives (the split passes in a checkout that
-has none).  ``--backward-only`` times the backward rows alone.  Prints one
-JSON line per case, then the card's name and power limit; ``--out`` writes
-the cases as one JSON file as well.
+must be the forward's kernel on the route the checkout's ``forward_plan``
+gives and the backward's passes on the route of its ``backward_plan`` (the
+split kernels in a checkout that has no such plan); each forward row lists
+its kernel's registers, spills and HMMA from the checkout's build log.
+``--backward-only`` / ``--forward-only`` time one direction's rows alone.
+Prints one JSON line per case, then the card's name and power limit;
+``--out`` writes the cases as one JSON file as well.
 
 ``--checkouts`` runs the same cases in each checkout given (one fresh
 process each, importing ``valle_tpu_torch`` and ``chip_smoke`` from that
@@ -53,7 +55,7 @@ def _arg(name):
     return sys.argv[sys.argv.index(name) + 1] if name in sys.argv else None
 
 
-def measure(backward_only: bool) -> list:
+def measure(backward_only: bool, forward_only: bool = False) -> list:
     """The cases in the checkout whose ``chip_smoke`` is importable."""
     import numpy as np
     import torch
@@ -69,6 +71,8 @@ def measure(backward_only: bool) -> list:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cuda_build.build(SOURCES)
+    log = cuda_build.log_path("prefix_attention")
+    fwd_res = cs.kernel_resources(log.with_suffix(".so"), log)
     rng = np.random.RandomState(cs.SEED + 16)
     t = cs.TRAIN_S + cs.TRAIN_T
     kb = torch.from_numpy(cs._train_key_bias(rng, cs.TRAIN_S, cs.TRAIN_T)).to(dev)
@@ -90,9 +94,16 @@ def measure(backward_only: bool) -> list:
             assert any(name in n for n in names), f"no {name} among {sorted(names)}"
         return sorted(n for n in names if any(w in n for w in want))
 
-    def bwd_route(dh, dt):
-        plan = getattr(fa, "backward_plan", None)
+    def route_of(plan_name, dh, dt):
+        plan = getattr(fa, plan_name, None)
         return plan(dh, dt).route if plan is not None else "split"
+
+    def forward_row(res, call, kernel, dtype, route):
+        """The route's forward kernel, and its registers, spills and HMMA."""
+        res["route"] = route
+        res["cuda_kernels"] = launched(call, [kernel])
+        res["kernels"] = {k: r for k, r in fwd_res.items() if k.startswith(f"{kernel}<{dtype}")}
+        return res
 
     def backward_row(res, call, prefix, route):
         """The route's pass kernels, and device ms per pass."""
@@ -114,7 +125,7 @@ def measure(backward_only: bool) -> list:
     for dh, h in HEAD_DIMS:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            route = bwd_route(dh, dt)
+            route, froute = route_of("backward_plan", dh, dt), route_of("forward_plan", dh, dt)
             q, k, v, dout = (torch.from_numpy(rng.randn(cs.TRAIN_B, t, h, dh).astype(np.float32))
                              .to(dev, dt) for _ in range(4))
             seed = int(rng.randint(0, 2**62))
@@ -123,29 +134,30 @@ def measure(backward_only: bool) -> list:
             ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
             fwd = lambda: fa._forward(*args, with_lse=True)  # noqa: E731
             if not backward_only:
+                kernel = f"prefix_attention_{froute}_kernel"
                 res = cs._measure_forward(
                     f"kernel 2 dense self T={t} H={h} Dh={dh} rate {cs.DROPOUT} {dtype}", fwd,
-                    fa.attention_forward_reference(*args), ["prefix_attention_split_kernel"],
+                    fa.attention_forward_reference(*args), [kernel],
                     lambda: fa.attention_forward_reference(*args),
                     lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
                                                            dropout_p=cs.DROPOUT),
                     fwd_bytes(q, k, kb), 4.0 * cs.TRAIN_B * h * dh * t * t, dtype, {})
-                res["cuda_kernels"] = launched(fwd, ["prefix_attention_split_kernel"])
-                emit(res)
+                emit(forward_row(res, fwd, kernel, dtype, froute))
             out, lse = fwd()
             kw = dict(prefix_s=None, dropout_rate=cs.DROPOUT, dropout_seed=seed)
             k3 = lambda: fa.fused_prefix_attention_backward(  # noqa: E731
                 q, k, v, kb, out, dout, lse, **kw)
-            res = cs._measure(
-                f"kernel 3 dense self T={t} H={h} Dh={dh} rate {cs.DROPOUT} {dtype}", k3,
-                fa.attention_backward_reference(q, k, v, kb, out, dout, lse, None, cs.DROPOUT,
-                                                seed),
-                True, ["attn_bwd_"], lambda: fa.attention_backward_reference(
-                    q, k, v, kb, out, dout, lse, None, cs.DROPOUT, seed),
-                sdpa_grad(q, k, v, dout, mask, cs.DROPOUT),
-                q.numel() * 8 * q.element_size() + kb.numel() * 4 + cs.TRAIN_B * h * t * 8,
-                10.0 * cs.TRAIN_B * h * dh * t * t, dtype, {})
-            emit(backward_row(res, k3, "attn_bwd", route))
+            if not forward_only:
+                res = cs._measure(
+                    f"kernel 3 dense self T={t} H={h} Dh={dh} rate {cs.DROPOUT} {dtype}", k3,
+                    fa.attention_backward_reference(q, k, v, kb, out, dout, lse, None,
+                                                    cs.DROPOUT, seed),
+                    True, ["attn_bwd_"], lambda: fa.attention_backward_reference(
+                        q, k, v, kb, out, dout, lse, None, cs.DROPOUT, seed),
+                    sdpa_grad(q, k, v, dout, mask, cs.DROPOUT),
+                    q.numel() * 8 * q.element_size() + kb.numel() * 4 + cs.TRAIN_B * h * t * 8,
+                    10.0 * cs.TRAIN_B * h * dh * t * t, dtype, {})
+                emit(backward_row(res, k3, "attn_bwd", route))
             del q, k, v, dout, out, lse, mask, ql, kl, vl
             q, k, v, dout = (torch.from_numpy(rng.randn(cs.TTS_B, cs.TTS_T, h, dh)
                                               .astype(np.float32)).to(dev, dt) for _ in range(4))
@@ -153,33 +165,35 @@ def measure(backward_only: bool) -> list:
             ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
             fwd = lambda: fl._forward(q, k, v, dec, with_lse=True)  # noqa: E731
             if not backward_only:
+                kernel = f"flash_bias_fwd_{froute}_kernel"
                 res = cs._measure_forward(
                     f"kernel 4 TTS decoder B={cs.TTS_B} T={cs.TTS_T} H={h} Dh={dh} {dtype}", fwd,
-                    fl.flash_attention_forward_reference(q, k, v, dec),
-                    ["flash_bias_fwd_split_kernel"],
+                    fl.flash_attention_forward_reference(q, k, v, dec), [kernel],
                     lambda: fl.flash_attention_forward_reference(q, k, v, dec),
                     lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
                     fwd_bytes(q, k, dec), 4.0 * cs.TTS_B * h * dh * cs.TTS_T * cs.TTS_T, dtype,
                     {})
-                res["cuda_kernels"] = launched(fwd, ["flash_bias_fwd_split_kernel"])
-                emit(res)
+                emit(forward_row(res, fwd, kernel, dtype, froute))
             out, lse = fwd()
             k4 = lambda: fl.flash_attention_biased_backward(  # noqa: E731
                 q, k, v, dec, out, dout, lse)[:3]
-            res = cs._measure(
-                f"kernel 4 backward TTS decoder B={cs.TTS_B} T={cs.TTS_T} H={h} Dh={dh} {dtype}",
-                k4, fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse)[:3],
-                True, ["flash_bias_bwd_", "attn_bwd_delta"],
-                lambda: fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse),
-                sdpa_grad(q, k, v, dout, mask, 0.0),
-                q.numel() * 8 * q.element_size() + dec.numel() * 4 + cs.TTS_B * h * cs.TTS_T * 8,
-                10.0 * cs.TTS_B * h * dh * cs.TTS_T * cs.TTS_T, dtype, {})
-            emit(backward_row(res, k4, "flash_bias_bwd", route))
+            if not forward_only:
+                res = cs._measure(
+                    f"kernel 4 backward TTS decoder B={cs.TTS_B} T={cs.TTS_T} H={h} Dh={dh} "
+                    f"{dtype}", k4,
+                    fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse)[:3],
+                    True, ["flash_bias_bwd_", "attn_bwd_delta"],
+                    lambda: fl.flash_attention_backward_reference(q, k, v, dec, out, dout, lse),
+                    sdpa_grad(q, k, v, dout, mask, 0.0),
+                    q.numel() * 8 * q.element_size() + dec.numel() * 4
+                    + cs.TTS_B * h * cs.TTS_T * 8,
+                    10.0 * cs.TTS_B * h * dh * cs.TTS_T * cs.TTS_T, dtype, {})
+                emit(backward_row(res, k4, "flash_bias_bwd", route))
             del q, k, v, dout, out, lse, mask, ql, kl, vl
     return results
 
 
-def compare(checkouts, backward_only: bool) -> dict:
+def compare(checkouts, flags) -> dict:
     """Build each distinct checkout's kernels side by side, then run the
     cases in each checkout in turn; each case's numbers per checkout, and
     under "runs" every case of every run as ``measure`` gives it."""
@@ -192,16 +206,15 @@ def compare(checkouts, backward_only: bool) -> dict:
     for root in roots:
         with tempfile.NamedTemporaryFile(suffix=".json") as f:
             cmd = [sys.executable, str(Path(__file__).resolve()), "--root", root, "--out", f.name]
-            subprocess.run(cmd + (["--backward-only"] if backward_only else []), cwd=root,
-                           check=True)
+            subprocess.run(cmd + flags, cwd=root, check=True)
             runs.append(json.loads(Path(f.name).read_text())["cases"])
     by_case = {"runs": [{"checkout": c, "cases": cases} for c, cases in zip(checkouts, runs)]}
     for checkout, cases in zip(checkouts, runs):
         for c in cases:
             by_case.setdefault(c["case"], []).append({
                 "checkout": checkout, "device_ms": c["device_ms"], "ms": c["ms"],
-                **({"by_pass": c["device_ms_by_pass"], "route": c["route"]}
-                   if "route" in c else {})})
+                **({"route": c["route"]} if "route" in c else {}),
+                **({"by_pass": c["device_ms_by_pass"]} if "device_ms_by_pass" in c else {})})
     return by_case
 
 
@@ -215,7 +228,7 @@ def main() -> int:
         return 2
     import chip_smoke as cs
 
-    backward_only = "--backward-only" in sys.argv
+    backward_only, forward_only = "--backward-only" in sys.argv, "--forward-only" in sys.argv
     out_path = _arg("--out")
     if "--checkouts" in sys.argv:
         i = sys.argv.index("--checkouts") + 1
@@ -223,7 +236,8 @@ def main() -> int:
         while i < len(sys.argv) and not sys.argv[i].startswith("--"):
             checkouts.append(sys.argv[i])
             i += 1
-        by_case = compare(checkouts, backward_only)
+        by_case = compare(checkouts, [f for f in ("--backward-only", "--forward-only")
+                                      if f in sys.argv])
         smi = cs._smi()
         summary = {c: runs for c, runs in by_case.items() if c != "runs"}
         print(json.dumps({"checkouts": checkouts, "cases": summary, "nvidia_smi": smi}),
@@ -232,7 +246,7 @@ def main() -> int:
             Path(out_path).write_text(json.dumps({"nvidia_smi": smi, "checkouts": checkouts,
                                                   "cases": by_case}))
         return 0
-    results = measure(backward_only)
+    results = measure(backward_only, forward_only)
     smi = cs._smi()
     print(json.dumps({"nvidia_smi": smi, "cases": len(results)}), flush=True)
     if out_path:

@@ -31,18 +31,18 @@ struct Dropout {
   uint2 seed;
 };
 
-// The head-dim chunk of the split instantiations of kernels 2-4 and of the
-// backward's cluster passes: a head dim above 128 runs as Dh / kSplitDh
+// The head-dim chunk of the split instantiations of kernels 2-4 and the
+// slice of their cluster kernels: a head dim above 128 runs as Dh / kSplitDh
 // chunks of 128 columns (the wrapper zero-pads it to a multiple of 128).
 constexpr int kSplitDh = 128;
 
 // f(std::integral_constant<int, DH>, split, nc) for the supported head dims:
 // Dh in {16, 32, 64, 128} whole (split false, nc 1), or a multiple of
 // kSplitDh above it in nc = Dh / kSplitDh chunks of DH = kSplitDh (split
-// std::true_type).  The forward takes its wide kernels at Dh 256 before it
-// dispatches here; the backward its wide passes at 256 and its cluster
-// passes up to Dh 1024 (prefix_attention_bwd.cu::launch_bwd), so it reaches
-// the split instantiations only past Dh 1024.
+// std::true_type).  The forward and the backward take their wide kernels at
+// Dh 256 and their cluster kernels from 257 to 1024 (cluster_route() of
+// cluster_tile.cuh) before they dispatch here, so both reach the split
+// instantiations only past Dh 1024.
 template <typename F>
 cudaError_t dispatch_dh(int Dh, F&& f) {
   switch (Dh) {

@@ -3,9 +3,10 @@
 // tile of products (S, dP) over that slice, and sum the partials through
 // distributed shared memory, in the fixed order slice 0 + slice 1 + ... +
 // slice nc - 1, so that every block of the cluster holds the same sums, bit
-// for bit.  The backward's cluster passes use it (prefix_attention_bwd.cu,
-// header point 7); it holds nothing of the backward, so a forward can use it
-// too.
+// for bit.  The backward's cluster passes (prefix_attention_bwd.cu, header
+// point 7) sum S and dP with it, the forward's cluster kernels
+// (prefix_attention.cu, header point 9) S alone; both take the head dims of
+// cluster_route().
 //
 // The exchange runs on the cluster barrier (barrier.cluster arrive / wait,
 // which every thread of every block of the cluster must take in turn) with
@@ -33,6 +34,7 @@
 
 #include "attention_common.cuh"
 #include "mma_tile.cuh"
+#include "wide_tile.cuh"
 
 namespace {
 
@@ -41,6 +43,20 @@ namespace {
 // schedules 16; cluster_kernel_info reports whether such clusters fit).
 constexpr int kClusterPortable = 8;
 constexpr int kClusterMax = 16;
+
+// The head dims that run in clusters, forward and backward: multiples of
+// kSplitDh above the wide kernels' Dh 256 up to kClusterMaxDh, where slices
+// of 128 columns fill kClusterPortable blocks (and the backward's f32 dK/dV
+// pass, in slices of 64, kClusterMax).  Past it the split instantiations run.
+constexpr int kClusterMaxDh = kClusterPortable * kSplitDh;
+
+inline bool cluster_route(int Dh) {
+  return Dh > kWideDh && Dh % kSplitDh == 0 && Dh <= kClusterMaxDh;
+}
+
+// The launch bounds of a cluster kernel: two blocks of kMmaThreads per SM (at
+// most 255 registers a thread; two f32 blocks' shared memory fill the SM).
+constexpr int kClusterMinBlocks = 2;
 
 __device__ __forceinline__ int cluster_rank() {
   unsigned r;
@@ -155,6 +171,21 @@ struct ClusterExchange {
         s[n][e] = x[4 * n + e];
         dp[n][e] = x[4 * (NT + n) + e];
       }
+  }
+
+  // S's C fragments (NT n8 tiles) alone.
+  template <int NT>
+  __device__ __forceinline__ void sum(float (&s)[NT][4], int warp, int lane) {
+    float x[4 * NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[4 * n + e] = s[n][e];
+    sum(x, warp, lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = x[4 * n + e];
   }
 
   // Before the block exits: every peer has read its last partials.

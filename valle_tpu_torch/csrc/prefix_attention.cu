@@ -79,7 +79,8 @@
 //      _windows clip did.  No atomics: reruns are bit-equal.
 //   6. Registers decide the occupancy: fwd_bounds_class() gives each
 //      instantiation the launch bounds under which ptxas spills nothing.
-//   7. Head dims above 256 (the split instantiations, *_split_kernel): a
+//   7. Head dims past 1024 (the split instantiations, *_split_kernel; from
+//      257 to 1024 the cluster kernels of point 9 run instead): a
 //      warp's 16 rows of O in f32 take Dh / 2 accumulator registers per
 //      thread, and a whole-row tile at Dh 512 needs 264 KB of shared memory
 //      in f32, over the 227 KB a block may use.  So the head dim is split:
@@ -143,6 +144,53 @@
 //      agrees with the split kernel's to f32 rounding.  Registers: f32
 //      248-252 (launch bounds of one block, at most 255), bf16 126-128; no
 //      spill.
+//   9. Head dims 257-1024 (the cluster kernels, *_cluster_kernel: the tile
+//      body with kCluster; the wrapper zero-pads Dh to a multiple of 128),
+//      the forward sibling of the backward's cluster passes
+//      (prefix_attention_bwd.cu point 7; the exchange is cluster_tile.cuh's).
+//      The split design of point 7 ran S's products nc = Dh / 128 times,
+//      (nc + 1) / 2 times the forward's operations (2.5x at Dh 512, 4.5x at
+//      1024), and restaged q from L2 for every key tile.  Here a
+//      thread-block cluster of nc blocks (at most 8, the portable size)
+//      covers each (64-row q tile, head, batch), one block per 128-column
+//      slice of the head (kSplitDh): block j, the cluster's
+//      rank j, stages its slice of the q tile once and streams its slices of
+//      K and V through the two-stage ring in key tiles of KN =
+//      fwd_cluster_kn() keys, with the Dh-128 body (4 warps of 16 rows,
+//      mma_xyt for S, mma_fz for P V, 64 f32 accumulators a thread for O's
+//      slice).  Per key tile:
+//        - every block computes its partial of S over its slice (in f32 each
+//          k step into a zeroed fragment added in f32), and the partials are
+//          summed through distributed shared memory in the fixed order
+//          slice 0 + 1 + ... + nc - 1 (reduce-scatter, then all-gather), so
+//          every block holds the same S, bit for bit;
+//        - every block applies kernel 2's key bias and structural mask, or
+//          kernel 4's dense bias (read before the product), after the sum,
+//          and runs the same online softmax on it: the row max, the rescale
+//          exp(m_old - m_new), the Philox keep bits at counter (col / 4, row,
+//          b H + h) and P rounded like T against the running max.  So all
+//          blocks agree on P and on the row sums with no second exchange;
+//        - each block adds P V_j into its slice of O.
+//      Each element of out has one writer, block j of its slice; rank 0
+//      alone writes the LSE.  Every block of a cluster takes the same
+//      exchanges: kernel 2 stops at the q tile's frontier max(prefix_s, tile
+//      end), the same for every slice, and kernel 4 walks every key tile; no
+//      loop depends on the slice, and after its last exchange a block waits
+//      once more (ClusterExchange::finish).  S's products run once per tile
+//      pair: the forward's 4 B H Dh operations per visible pair at any nc.
+//      The exchange, a cluster barrier pair and two rounds of remote loads of
+//      KN / 2 floats a lane, is the cost the design adds, so the key tile
+//      sets the exchanges per q tile: KN = 64 in bf16 (32 floats a lane; 64
+//      keys ran 19-34% faster than 32), 16 in f32 (32 keys spilled 20-92
+//      bytes at ptxas's 255-register cap beside the 64 accumulators; 64-column
+//      slices, which would free them, ran 10-31% slower in 16-block clusters
+//      at Dh 1024).  Shared memory: the whole-row tile's at 128 columns and
+//      the exchange buffer, 70.1 KB in f32, 101.5 KB in bf16; launch bounds
+//      of two blocks per SM (kClusterMinBlocks, at most 255 registers: f32
+//      248-253, bf16 220-243; no spill).  Grid (Tq / 64 x nc, H, B),
+//      clusters along x, launched with cudaLaunchKernelEx; a launch the card
+//      refuses returns its error: nothing falls back.  Reruns are bit-equal:
+//      the exchange sums in rank order, and nothing is atomic.
 // Later work: wgmma / TMA, and skipping kernel 4's wholly masked key tiles.
 
 #include <cuda_runtime.h>
@@ -152,6 +200,7 @@
 #include <stdlib.h>
 
 #include "attention_common.cuh"
+#include "cluster_tile.cuh"
 #include "mma_tile.cuh"
 #include "philox.cuh"
 #include "wide_tile.cuh"
@@ -184,6 +233,23 @@ constexpr size_t fwd_smem_bytes() {
          2 * fwd_kn<T, DH>() * sizeof(float);
 }
 
+// The keys of a streamed tile of the cluster forward, one exchange of S's
+// partials each, chosen by measurement on an H100 (header point 9).
+template <typename T>
+__host__ __device__ constexpr int fwd_cluster_kn() {
+  return kF32<T> ? 16 : 64;
+}
+
+// Shared memory of a cluster forward: the whole-row tile's at its slice of
+// kSplitDh columns and its key tile, and the exchange of a warp's S partials
+// (KN / 2 floats a lane).
+template <typename T>
+constexpr size_t fwd_cluster_smem_bytes() {
+  constexpr int KN = fwd_cluster_kn<T>();
+  return (size_t)(BM + 4 * KN) * row_stride<T, kSplitDh>() * sizeof(T) +
+         (2 * KN + cluster_xchg_floats<KN / 2>()) * sizeof(float);
+}
+
 // Two adjacent outputs, rounded like T.
 __device__ __forceinline__ void store2(float* o, float a, float b) {
   *reinterpret_cast<float2*>(o) = make_float2(a, b);
@@ -200,8 +266,14 @@ __device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
 // Each key tile then takes nc steps of the ring, step i staging chunk i of
 // the q tile and of the key tile and adding its part of S = q k^T; the first
 // step also stages chunk j of the V tile.  Every block of a (q tile, head)
-// sums S in the same order, so their P, and the LSE, are equal.
-template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false>
+// sums S in the same order, so their P, and the LSE, are equal.  kCluster:
+// the head dim is nc slices of DH (= kSplitDh), one block of a
+// cluster of nc each (its rank j, the cluster's x index the q tile); the
+// block stages its slice of q and streams its slices of K and V in key tiles
+// of fwd_cluster_kn(), its partials of S are summed across the cluster
+// (cluster_tile.cuh) before the softmax, and it writes O's slice j (rank 0
+// also the LSE).
+template <typename T, int DH, bool kDrop, bool kBias, bool kSplit = false, bool kCluster = false>
 __device__ __forceinline__ void attention_fwd_tile(
     const T* __restrict__ q, long long q_sb, long long q_st,
     const T* __restrict__ k, long long k_sb, long long k_st,
@@ -210,7 +282,8 @@ __device__ __forceinline__ void attention_fwd_tile(
     float* __restrict__ lse, int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop,
     bool vec, int nc = 1) {
   static_assert(!(kDrop && kBias), "the dense-bias route has no dropout");
-  constexpr int KN = fwd_kn<T, DH>();
+  constexpr int KN = kCluster ? fwd_cluster_kn<T>() : fwd_kn<T, DH>();
+  static_assert(2 * KN <= kMmaThreads, "one thread per key of a stage's bias");
   constexpr int LDT = row_stride<T, DH>(), TILE = KN * LDT;
   constexpr int NT = KN / 8, DT = DH / 8;  // n8 tiles of a key tile, of Dh
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -218,23 +291,26 @@ __device__ __forceinline__ void attention_fwd_tile(
   T* sK = sQ + (kSplit ? 2 : 1) * BM * LDT;     // [2][KN][LDT]
   T* sV = sK + 2 * TILE;                        // [2][KN][LDT]
   float* sB = reinterpret_cast<float*>(sV + 2 * TILE);  // [2][KN] kernel 2's key bias
+  float* sX = sB + 2 * KN;                      // kCluster: the exchange
 
-  const int r0 = blockIdx.x * BM, b = blockIdx.z;
-  int h = blockIdx.y, j = 0;  // head, and the block's chunk of O (kSplit)
+  const int r0 = (kCluster ? cluster_index_x() : (int)blockIdx.x) * BM, b = blockIdx.z;
+  int h = blockIdx.y, j = 0;  // head, and the block's chunk (slice) of O
   if constexpr (kSplit) {
     h = blockIdx.y / nc;
     j = blockIdx.y - h * nc;
   }
-  const int D = kSplit ? nc * DH : DH;  // a head's elements in a row of q, k, v, out
+  if constexpr (kCluster) j = cluster_rank();
+  const int D = (kSplit || kCluster) ? nc * DH : DH;  // a head's elements in a row
+  const int col0 = kCluster ? j * DH : 0;  // the block's first column of the head
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned bh = (unsigned)(b * H + h);
   int kend = Tk;  // structural frontier of this q tile
   if (!kBias && prefix_s >= 0) kend = min(Tk, max(prefix_s, r0 + BM));
   const int n_tiles = (kend + KN - 1) / KN;
 
-  const T* qb = q + (long long)b * q_sb + (long long)h * D;
-  const T* kb = k + (long long)b * k_sb + (long long)h * D;
-  const T* vb = v + (long long)b * v_sb + (long long)h * D;
+  const T* qb = q + (long long)b * q_sb + (long long)h * D + col0;
+  const T* kb = k + (long long)b * k_sb + (long long)h * D + col0;
+  const T* vb = v + (long long)b * v_sb + (long long)h * D + col0;
   const float* bb = nullptr;
   if constexpr (kBias) bb = bias.p + (long long)b * bias.sb + (long long)h * bias.sh;
   const float* kvb = (!kBias && kv_bias != nullptr) ? kv_bias + (long long)b * Tk : nullptr;
@@ -286,6 +362,7 @@ __device__ __forceinline__ void attention_fwd_tile(
   for (int n = 0; n < DT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  ClusterExchange xchg{sX, nc};
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * KN;
@@ -339,7 +416,8 @@ __device__ __forceinline__ void attention_fwd_tile(
         if (i + 1 < nc) __syncthreads();  // the next step's loads overwrite this stage
       }
     } else {
-      mma_xyt<T, DH, NT>(s, sQ + wr * LDT, cK, lane);  // S = q k^T
+      mma_xyt<T, DH, NT, kCluster>(s, sQ + wr * LDT, cK, lane);  // S = q k^T
+      if constexpr (kCluster) xchg.sum(s, warp, lane);          // over the head's slices
     }
 
     // scaled scores (-inf where masked) and this tile's row maxima
@@ -413,6 +491,7 @@ __device__ __forceinline__ void attention_fwd_tile(
     __syncthreads();  // the next prefetch overwrites this stage
   }
   cp_async_wait<0>();
+  if constexpr (kCluster) xchg.finish();
 
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
@@ -520,6 +599,40 @@ auto bias_kernel() {
   } else if constexpr (c == 4) return fit4::flash_bias_fwd_kernel<T, DH>;
   else if constexpr (c == 2) return fit2::flash_bias_fwd_kernel<T, DH>;
   else return any_regs::flash_bias_fwd_kernel<T, DH>;
+}
+
+// The cluster kernels (header point 9; kernel 2's
+// prefix_attention_cluster_kernel, kernel 4's flash_bias_fwd_cluster_kernel):
+// kMmaThreads threads a block, launched in clusters of nc blocks along x,
+// launch bounds of kClusterMinBlocks blocks per SM.
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kMmaThreads, kClusterMinBlocks) prefix_attention_cluster_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    const float* __restrict__ kv_bias, T* __restrict__ out, float* __restrict__ lse,
+    int Tq, int Tk, int H, int prefix_s, float scale, Dropout drop, bool vec, int nc) {
+  attention_fwd_tile<T, kSplitDh, kDrop, false, false, true>(
+      q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, kv_bias, Bias{}, out, lse, Tq, Tk, H, prefix_s,
+      scale, drop, vec, nc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads, kClusterMinBlocks) flash_bias_fwd_cluster_kernel(
+    const T* __restrict__ q, long long q_sb, long long q_st,
+    const T* __restrict__ k, long long k_sb, long long k_st,
+    const T* __restrict__ v, long long v_sb, long long v_st,
+    Bias bias, T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int H,
+    float scale, bool vec, int nc) {
+  attention_fwd_tile<T, kSplitDh, false, true, false, true>(
+      q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st, nullptr, bias, out, lse, Tq, Tk, H, -1, scale,
+      Dropout{}, vec, nc);
+}
+
+// The grid of a cluster launch: (64-row q tiles x nc slices, H, B), a
+// cluster of nc blocks along x per q tile.
+inline dim3 cluster_fwd_grid(int B, int Tq, int H, int nc) {
+  return dim3((Tq + BM - 1) / BM * nc, H, B);
 }
 
 // ------------------------------------------------------------ Dh 256
@@ -818,6 +931,15 @@ cudaError_t launch_prefix(int Dh, const void* q, long long q_sb, long long q_st,
                        k_st, static_cast<const T*>(v), v_sb, v_st, kv_bias, static_cast<T*>(out),
                        lse, Tq, Tk, H, prefix_s, scale, drop, vec);
   }
+  if (cluster_route(Dh)) {
+    const int nc = Dh / kSplitDh;
+    auto kern = prefix_attention_cluster_kernel<T, true>;
+    if (drop.threshold == 0) kern = prefix_attention_cluster_kernel<T, false>;
+    return launch_cluster(kern, cluster_fwd_grid(B, Tq, H, nc), nc, fwd_cluster_smem_bytes<T>(),
+                          stream, static_cast<const T*>(q), q_sb, q_st, static_cast<const T*>(k),
+                          k_sb, k_st, static_cast<const T*>(v), v_sb, v_st, kv_bias,
+                          static_cast<T*>(out), lse, Tq, Tk, H, prefix_s, scale, drop, vec, nc);
+  }
   return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
     constexpr bool kSplit = decltype(split)::value;
@@ -850,6 +972,13 @@ cudaError_t launch_bias(int Dh, const void* q, long long q_sb, long long q_st, c
                        wide_fwd_smem_bytes<T>(), stream, static_cast<const T*>(q), q_sb, q_st,
                        static_cast<const T*>(k), k_sb, k_st, static_cast<const T*>(v), v_sb,
                        v_st, bias, static_cast<T*>(out), lse, Tq, Tk, H, scale, vec);
+  if (cluster_route(Dh)) {
+    const int nc = Dh / kSplitDh;
+    return launch_cluster(flash_bias_fwd_cluster_kernel<T>, cluster_fwd_grid(B, Tq, H, nc), nc,
+                          fwd_cluster_smem_bytes<T>(), stream, static_cast<const T*>(q), q_sb,
+                          q_st, static_cast<const T*>(k), k_sb, k_st, static_cast<const T*>(v),
+                          v_sb, v_st, bias, static_cast<T*>(out), lse, Tq, Tk, H, scale, vec, nc);
+  }
   return dispatch_dh(Dh, [&](auto dh, auto split, int nc) {
     constexpr int DH = decltype(dh)::value;
     constexpr bool kSplit = decltype(split)::value;
@@ -933,6 +1062,29 @@ extern "C" int prefix_attention_wide_info(int dtype, int bias, int drop, int* in
     if (bias) return wide_kernel_info(flash_bias_fwd_wide_kernel<T>, smem, info);
     if (drop) return wide_kernel_info(prefix_attention_wide_kernel<T, true>, smem, info);
     return wide_kernel_info(prefix_attention_wide_kernel<T, false>, smem, info);
+  };
+  if (dtype == 0) return pick(float{});
+  if (dtype == 1) return pick(__nv_bfloat16{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// The resources of one cluster kernel as head dim Dh (257-1024, a multiple of
+// 128) launches it: dtype, bias and drop as in prefix_attention_wide_info.
+// info: registers, local (spilled) bytes, dynamic shared memory bytes,
+// threads a block, resident blocks per SM, the clusters that can be resident
+// at once, the blocks of a cluster, and the keys of a streamed tile (one
+// exchange).  Returns a cudaError_t.
+extern "C" int prefix_attention_cluster_info(int dtype, int bias, int drop, int Dh, int* info) {
+  if (!cluster_route(Dh)) return (int)cudaErrorInvalidValue;
+  auto pick = [&](auto tag) -> int {
+    using T = decltype(tag);
+    const int nc = Dh / kSplitDh;
+    constexpr size_t smem = fwd_cluster_smem_bytes<T>();
+    info[6] = nc;
+    info[7] = fwd_cluster_kn<T>();
+    if (bias) return cluster_kernel_info(flash_bias_fwd_cluster_kernel<T>, nc, smem, info);
+    if (drop) return cluster_kernel_info(prefix_attention_cluster_kernel<T, true>, nc, smem, info);
+    return cluster_kernel_info(prefix_attention_cluster_kernel<T, false>, nc, smem, info);
   };
   if (dtype == 0) return pick(float{});
   if (dtype == 1) return pick(__nv_bfloat16{});

@@ -259,9 +259,9 @@ __host__ __device__ constexpr int cluster_slice_dh() {
   return kDq ? kSplitDh : dkv_split_dh<T>();
 }
 
-// The head dims the cluster passes take: multiples of kSplitDh above Dh 256
-// up to 1024, where the f32 dK/dV pass has kClusterMax slices of 64.
-constexpr int kClusterMaxDh = kClusterMax * 64;
+// The cluster passes take the head dims of cluster_route() (cluster_tile.cuh);
+// at kClusterMaxDh the f32 dK/dV pass has kClusterMax slices of 64.
+static_assert(kClusterMaxDh / 64 == kClusterMax, "the f32 dK/dV clusters reach Dh 1024");
 
 // Shared memory of a cluster pass: the whole-row pass's at its slice, and
 // the exchange of a warp's S and dP fragments (dQ: two n8 tiles of each;
@@ -1134,9 +1134,8 @@ __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks<T>) flash_bias_bw
 // The cluster pass kernels (header point 7; kernel 3's
 // attn_bwd_*_cluster_kernel, kernel 4's flash_bias_bwd_*_cluster_kernel):
 // kMmaThreads threads a block, launched in clusters of nc blocks along x,
-// and launch bounds of two blocks per SM (at most 255 registers; two f32
-// blocks' shared memory fill the SM).
-constexpr int kClusterMinBlocks = 2;
+// and launch bounds of kClusterMinBlocks = 2 blocks per SM (at most 255
+// registers; two f32 blocks' shared memory fill the SM).
 
 template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads, kClusterMinBlocks) attn_bwd_dq_cluster_kernel(
@@ -1462,11 +1461,6 @@ cudaError_t launch_cluster_passes(int Dh, const Args& a, Dropout drop, float sca
                           a.k_st, v, a.v_sb, a.v_st, a.kv_bias, dout, a.lse, a.delta, dk, dv,
                           a.Tq, a.Tk, a.H, a.prefix_s, scale, drop, vec, nc_dkv);
   }
-}
-
-// Whether the backward runs a head dim of Dh in clusters.
-inline bool cluster_route(int Dh) {
-  return Dh > kWideDh && Dh % kSplitDh == 0 && Dh <= kClusterMaxDh;
 }
 
 // The three passes of kernel 4 (kBias) or kernel 3: the delta pass, then

@@ -23,10 +23,10 @@ differ from JAX's.  They occur only in rows that the callers' losses skip.
 
 A head dim outside the instantiated ones runs zero-padded, as in kernels 2
 and 3 (``ops/fused_attention.py::run_padded``; above 128 to a multiple of
-128: 256 in the wide kernels; above it the forward in the split
-instantiations, the backward in thread-block clusters up to Dh 1024 and in
-the split instantiations past it, ``backward_plan``); the backward pads as
-the forward does, and d(bias) does not depend on Dh.
+128: 256 in the wide kernels; above it the forward and the backward in
+thread-block clusters up to Dh 1024 and in the split instantiations past
+it, ``forward_plan`` and ``backward_plan``); the backward pads as the
+forward does, and d(bias) does not depend on Dh.
 """
 
 from __future__ import annotations

@@ -22,15 +22,15 @@ only on rows whose columns are all masked, which no caller reads.
 Head dims: the kernels are instantiated for Dh in ``KERNEL_HEAD_DIMS``, at
 Dh 256 as wide kernels that compute the scores once per tile pair (the
 forward's and the backward's; the kernel sources pick them), and above 256
-in chunks of ``SPLIT_HEAD_DIM``: the backward up to ``CLUSTER_MAX_HEAD_DIM``
-in thread-block clusters, one block a chunk, that sum the scores' partials
-across the cluster (still once per tile pair), the forward and,
-past Dh 1024, the backward in split instantiations (a grid dimension over
-the chunks of the output, each block recomputing the scores over the whole
-Dh); :func:`backward_plan` gives the backward's route.  Any other Dh runs
-zero-padded to the next of them (129-255 to the wide kernels' 256), or to a
-multiple of 128, with the scale of the true Dh (:func:`run_padded`, shared
-with kernel 4); the forward and the backward pad alike.
+in chunks of ``SPLIT_HEAD_DIM``: up to ``CLUSTER_MAX_HEAD_DIM`` in
+thread-block clusters, forward and backward, one block a chunk, that sum
+the scores' partials across the cluster (still once per tile pair), and past
+Dh 1024 in split instantiations (a grid dimension over the chunks of the
+output, each block recomputing the scores over the whole Dh);
+:func:`forward_plan` and :func:`backward_plan` give the routes.  Any other
+Dh runs zero-padded to the next of them (129-255 to the wide kernels' 256),
+or to a multiple of 128, with the scale of the true Dh (:func:`run_padded`,
+shared with kernel 4); the forward and the backward pad alike.
 """
 
 from __future__ import annotations
@@ -50,23 +50,54 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the head dims kernels 2-4 are instantiated for
 SPLIT_HEAD_DIM = 128  # the chunk of the split and cluster kernels (csrc: kSplitDh)
 WIDE_HEAD_DIM = 256  # the wide kernels' head dim (csrc: kWideDh)
-CLUSTER_MAX_HEAD_DIM = 1024  # the backward's cluster passes' reach (csrc: kClusterMaxDh)
+CLUSTER_MAX_HEAD_DIM = 1024  # the cluster kernels' reach (csrc: kClusterMaxDh)
 
 
 def kernel_head_dim(dh: int) -> int:
     """The head dim that kernels 2-4 run a head dim of ``dh`` at: the next
     of ``KERNEL_HEAD_DIMS``, or above 128 the next multiple of
-    ``SPLIT_HEAD_DIM``: 256 in the wide kernels; above it the backward runs
-    in thread-block clusters up to Dh 1024 (``CLUSTER_MAX_HEAD_DIM``: 8
-    blocks of 128 columns in the dQ pass, the portable cluster size, and
-    16 of 64 in the f32 dK/dV pass) and in the split instantiations past
-    it, the forward in the split instantiations."""
+    ``SPLIT_HEAD_DIM``: 256 in the wide kernels; above it the forward and
+    the backward run in thread-block clusters up to Dh 1024
+    (``CLUSTER_MAX_HEAD_DIM``: 8 blocks of 128 columns, the portable cluster
+    size, and in the backward's f32 dK/dV pass 16 of 64) and in the split
+    instantiations past it."""
     if dh < 1:
         raise ValueError(f"head dim {dh}: must be positive")
     for n in KERNEL_HEAD_DIMS:
         if dh <= n:
             return n
     return -(-dh // SPLIT_HEAD_DIM) * SPLIT_HEAD_DIM
+
+
+class ForwardPlan(NamedTuple):
+    """How kernels 2 and 4's forward runs a head dim (``forward_plan``)."""
+
+    route: str  # "tile" (whole rows), "wide" (Dh 256), "cluster" or "split"
+    padded_dh: int  # the head dim the kernels run at (``kernel_head_dim``)
+    slice_dh: int  # the columns of Dh whose output one block writes
+    cluster: int  # blocks that sum one tile pair's S (1 off the cluster route)
+    key_tile: int  # keys of a streamed K / V tile (on the cluster route, one exchange)
+
+
+def forward_plan(dh: int, dtype: torch.dtype = torch.float32) -> ForwardPlan:
+    """The forward's launch plan for a head dim of ``dh`` in ``dtype``, as
+    ``csrc/prefix_attention.cu::launch_prefix`` (and ``launch_bias``) picks
+    it.  On the cluster route (Dh 257-1024) the padded head is ``cluster``
+    slices of 128 columns, one block each; each block computes its slice's
+    partial of S for a key tile of ``key_tile`` keys, the partials are
+    summed slice 0 + slice 1 + ... in f32 in every block, every block runs
+    the same online softmax on the sum, and each adds P V over its slice of
+    the output.  The split route's blocks write 128 columns each too, but
+    each computes S over the whole head."""
+    n = kernel_head_dim(dh)
+    f32 = dtype == torch.float32
+    if n <= SPLIT_HEAD_DIM:
+        return ForwardPlan("tile", n, n, 1, 16 if f32 and n == SPLIT_HEAD_DIM else 32)
+    if n == WIDE_HEAD_DIM:
+        return ForwardPlan("wide", n, n, 1, 16)
+    if n <= CLUSTER_MAX_HEAD_DIM:
+        return ForwardPlan("cluster", n, SPLIT_HEAD_DIM, n // SPLIT_HEAD_DIM, 16 if f32 else 64)
+    return ForwardPlan("split", n, SPLIT_HEAD_DIM, 1, 16 if f32 else 32)
 
 
 class BackwardPlan(NamedTuple):
